@@ -1,0 +1,163 @@
+"""Two-pass (coarse + importance) volume renderer at eval
+(port of `tdgp/rendering/renderer.py`).
+
+Eval sampling draws nothing: the coarse samples sit mid-bin and the fine
+samples come from the deterministic inverse CDF (`det=True`). The coarse
+pass needs every per-sample weight for the importance sampler and marches
+in plain PyTorch; the final pass needs only the per-ray sums and goes
+through kernel K3 (`tdgp_torch/ops/ray_march.py`) when `march_impl` is
+'fused'. Only the classical marcher is ported.
+
+Shapes: colors [B, R, S, C]; densities and depths [B, R, S].
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import torch
+
+from tdgp_torch.ops.ray_march import classical_ray_march_plain, ray_march_reduced
+
+MARCH_IMPLS = ('fused', 'jnp')
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOptions:
+    num_proposal_steps: int = 32
+    num_fine_steps: int = 32
+    ray_start: float = 0.75
+    ray_end: float = 1.25
+    clamp_mode: str = 'softplus'
+    sp_beta: float = 1.0
+    use_inf_depth: bool = True
+    last_back: bool = False
+    # 'fused': final march in kernel K3; 'jnp': the plain marcher
+    march_impl: str = 'fused'
+
+
+def classical_ray_march(colors: torch.Tensor, densities: torch.Tensor, depths: torch.Tensor,
+                        opts: RenderOptions):
+    """-> (rgb [B,R,C], depth [B,R], weights [B,R,S], final_transmittance [B,R])."""
+    return classical_ray_march_plain(colors, densities, depths, opts.clamp_mode,
+                                     opts.sp_beta, opts.use_inf_depth, opts.last_back)
+
+
+def march_reduced(colors: torch.Tensor, densities: torch.Tensor, depths: torch.Tensor,
+                  opts: RenderOptions):
+    """Final-pass march -> (rgb, depth, weights_sum, final_transmittance)."""
+    if opts.march_impl == 'fused':
+        return ray_march_reduced(colors, densities, depths, opts.clamp_mode, opts.sp_beta,
+                                 opts.use_inf_depth, opts.last_back)
+    if opts.march_impl != 'jnp':
+        raise ValueError(f'march_impl must be one of {MARCH_IMPLS}, got {opts.march_impl!r}')
+    rgb, depth, weights, ftrans = classical_ray_march(colors, densities, depths, opts)
+    return rgb, depth, weights.sum(-1), ftrans
+
+
+def sample_stratified(batch: int, num_rays: int, num_steps: int, device: torch.device,
+                      ray_start: float = 0.0, ray_end: float = 1.0) -> torch.Tensor:
+    """Mid-bin samples of the classical marcher in [ray_start, ray_end]
+    (the JAX package's `sample_stratified` with jitter off). -> [B, R, S]."""
+    base = torch.linspace(ray_start, ray_end, num_steps, dtype=torch.float32, device=device)
+    mids = 0.5 * (base[1:] + base[:-1])
+    upper = torch.cat([mids, base[-1:]])
+    lower = torch.cat([base[:1], mids])
+    return (lower + (upper - lower) * 0.5).expand(batch, num_rays, num_steps)
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_importance: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Deterministic inverse-CDF sampling (`det=True`).
+
+    bins [N, W] sorted bin edges, weights [N, W-1] -> [N, n_importance], sorted.
+    The cdf is non-decreasing, so `searchsorted(right=True)` counts the cdf
+    values <= u, as the JAX package's comparison count does.
+    """
+    n_rays, n_bins = bins.shape
+    weights = weights + eps
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, -1)], -1)  # [N, W]
+    u = torch.linspace(0.0, 1.0, n_importance, dtype=cdf.dtype, device=cdf.device)
+    u = u.expand(n_rays, n_importance).contiguous()
+    inds = torch.searchsorted(cdf, u, right=True)
+    below = (inds - 1).clamp(min=0)
+    above = inds.clamp(max=n_bins - 1)
+    cdf_lo, cdf_hi = cdf.gather(1, below), cdf.gather(1, above)
+    bins_lo, bins_hi = bins.gather(1, below), bins.gather(1, above)
+    denom = cdf_hi - cdf_lo
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    return bins_lo + (u - cdf_lo) / denom * (bins_hi - bins_lo)
+
+
+def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor,
+                      n_importance: int) -> torch.Tensor:
+    """z_vals [B,R,S], coarse weights [B,R,S] -> fine samples [B,R,n_importance]."""
+    batch, num_rays, s = z_vals.shape
+    z = z_vals.reshape(batch * num_rays, s)
+    w = weights.reshape(batch * num_rays, -1) + 1e-5
+    z_mid = 0.5 * (z[:, :-1] + z[:, 1:])
+    samples = sample_pdf(z_mid, w[:, 1:-1], n_importance)
+    return samples.reshape(batch, num_rays, n_importance)
+
+
+def unify_samples_sorted(depths1, colors1, densities1, depths2, colors2, densities2):
+    """Merge two per-ray sorted sample sets into one sorted set.
+
+    Merged positions come from comparison counts, strict for set 1 and
+    non-strict for set 2, so ties go to set 1 first and the positions are a
+    permutation; the values are scattered to them.
+    """
+    s1, s2 = depths1.shape[-1], depths2.shape[-1]
+    pos1 = torch.arange(s1, device=depths1.device) + (
+        depths2[..., None, :] < depths1[..., :, None]).sum(-1)
+    pos2 = torch.arange(s2, device=depths2.device) + (
+        depths1[..., None, :] <= depths2[..., :, None]).sum(-1)
+    pos = torch.cat([pos1, pos2], -1)                                   # [B,R,S]
+
+    def merge(v1, v2):
+        v = torch.cat([v1, v2], -1)
+        return torch.empty_like(v).scatter_(-1, pos, v)
+
+    all_depths = merge(depths1, depths2)
+    all_densities = merge(densities1, densities2)
+    colors = torch.cat([colors1, colors2], -2)
+    idx = pos[..., None].expand_as(colors)
+    all_colors = torch.empty_like(colors).scatter_(-2, idx, colors)
+    return all_depths, all_colors, all_densities
+
+
+RunModelFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def importance_render(run_model: RunModelFn, ray_origins: torch.Tensor,
+                      ray_directions: torch.Tensor, opts: RenderOptions):
+    """Coarse + importance rendering at eval.
+
+    run_model(coords [B, P, 3]) -> (rgb [B, P, C], sigma [B, P]).
+    ray_origins/directions: [B, R, 3].
+    Returns (rgb [B,R,C], depth [B,R], weights_sum [B,R], final_transmittance [B,R]).
+    """
+    batch, num_rays, _ = ray_origins.shape
+
+    def s_to_t(s):
+        return s * opts.ray_end + (1.0 - s) * opts.ray_start
+
+    def eval_model(tdist):
+        s = tdist.shape[-1]
+        coords = ray_origins[:, :, None, :] + tdist[..., None] * ray_directions[:, :, None, :]
+        rgb, sigma = run_model(coords.reshape(batch, num_rays * s, 3))
+        return (rgb.reshape(batch, num_rays, s, rgb.shape[-1]),
+                sigma.reshape(batch, num_rays, s))
+
+    sdist_coarse = sample_stratified(batch, num_rays, opts.num_proposal_steps,
+                                     ray_origins.device)
+    tdist_coarse = s_to_t(sdist_coarse)
+    colors_coarse, densities_coarse = eval_model(tdist_coarse)
+    _, _, weights, _ = classical_ray_march(colors_coarse, densities_coarse, sdist_coarse, opts)
+    sdist_fine = sample_importance(sdist_coarse, weights, opts.num_fine_steps)
+    tdist_fine = s_to_t(sdist_fine)
+    colors_fine, densities_fine = eval_model(tdist_fine)
+    all_depths, all_colors, all_densities = unify_samples_sorted(
+        tdist_coarse, colors_coarse, densities_coarse, tdist_fine, colors_fine, densities_fine)
+    return march_reduced(all_colors, all_densities, all_depths, opts)
