@@ -15,6 +15,31 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
   3. cross-check: one request through the plain marcher on the card (<= 1e-4),
                   and the port on the CPU at a 64x64 output against the card
                   (<= 1e-3: the convolutions sum in another order).
+  4. train kernels: K3's backward at 16 x 4096 rays x 64 samples x 3 channels
+                  and K1 (triplane_splat) at the training shape (batch 16,
+                  64^2 x 32 points per pass, planes 48 x 512^2 x 32) against
+                  their plain versions, max abs diff <= 1e-5 x max |plain| on
+                  every output (float32 sums in another order, and K1's
+                  atomics in an order that changes from run to run); kernel,
+                  plain, library and bound times.
+  5. train check: one step's Gmain gradient at full width, batch 4, through
+                  the kernels and through their plain versions on the card;
+                  relative L2 difference <= 1e-3 for every parameter, or, where
+                  the step itself is less stable than that, <= 2x its float32
+                  floor: the difference the plain path shows when the rendered
+                  patch is changed by one float32 ulp (x (1 + 2^-24 n),
+                  n ~ N(0, 1)), measured in the same run. cuDNN runs its
+                  deterministic algorithms here, and the StyleGAN2 noise is
+                  off: the gradient of a noise strength is a sum of ~1e8 terms
+                  of random sign, which any other float32 order moves by
+                  ~1e-3.
+  6. train:       the satellite 256^2 G+D step (`tdgp_torch.profile_training`:
+                  float32, random weights from a seed, batch 16 of a
+                  synthetic batch): one warm-up step, then plain steps and one
+                  R1 step; losses finite, every parameter of G and D moved,
+                  the EMA moved, K1 / K3 / K3-backward launched as often as
+                  the step implies; ms per step, images/s at the 15:1
+                  plain:R1 cadence, peak memory.
 Prints the card's name and power limit, each phase's seconds, a JSON line
 of per-kernel numbers, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -33,6 +58,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+TRAIN_PLAIN_STEPS = 5       # timed plain steps of the training phase
 
 
 @contextlib.contextmanager
@@ -114,14 +140,199 @@ def kernel_phase(ray_march):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def bound(bytes_moved, flops):
+    """(least ms, 'bytes' or 'operations') on the card for the given work."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def train_kernel_phase(ray_march, splat):
+    """K3's backward and K1 against their plain versions at the training shapes."""
+    g = torch.Generator(device='cuda').manual_seed(0)
+    b, r, s, c = 16, 4096, 64, 3  # one Gmain render: batch 16, 64^2 rays, 32 + 32 samples
+    colors = torch.randn(b, r, s, c, device='cuda', generator=g)
+    densities = torch.randn(b, r, s, device='cuda', generator=g) * 2
+    depths = torch.rand(b, r, s, device='cuda', generator=g).sort(-1).values * 0.5 + 0.75
+    cots = [torch.randn(b, r, c, device='cuda', generator=g)] + [
+        torch.randn(b, r, device='cuda', generator=g) for _ in range(3)]
+    worst = 0.0
+    for clamp_mode, inf_depth, last_back in [('softplus', True, False),
+                                             ('softplus', False, True),
+                                             ('relu', True, False),
+                                             ('relu', False, True)]:
+        args = (colors, densities, depths, *cots, clamp_mode, 1.0, inf_depth, last_back)
+        out = ray_march.ray_march_reduced_bwd(*args)
+        ref = ray_march.ray_march_reduced_bwd_plain(*args)
+        torch.cuda.synchronize()
+        rel = [float((a - b_).abs().max()) / float(b_.abs().max()) for a, b_ in zip(out, ref)]
+        print(f'K3 backward {clamp_mode} inf_depth={inf_depth} last_back={last_back}: '
+              f'max abs diff / max |plain| of g_colors/g_densities/g_depths = {rel}')
+        check(all(e <= 1e-5 for e in rel), 'K3 backward disagrees with its plain version')
+        worst = max(worst, *[float((a - b_).abs().max()) for a, b_ in zip(out, ref)])
+    args = (colors, densities, depths, *cots)
+    ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd(*args), 200)
+    plain_ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_plain(*args), 20)
+    n = b * r
+    bytes_moved = 4 * (2 * n * s * (c + 2) + n * (c + 3))  # inputs + cotangents, gradients
+    flops = n * s * (4 * c + 40)  # recompute (twice), scans, the three gradients
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    print(f'K3 backward at [{b},{r},{s},{c}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {1e3 * bound_ms:.1f} us ({bytes_moved / 1e6:.1f} MB by {bound_by})')
+    k3_bwd = dict(name='ray_march_reduced_bwd', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
+                  replaces='tdgp/ops/pallas_kernels.py:251', max_abs_err=worst, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    n, h, w, f, scale = 16, 512, 512, 32, 0.5
+    p = 64 * 64 * 32  # points of one render pass per image
+    planes = torch.randn(3 * n, h, w, f, device='cuda', generator=g)
+    coords = torch.rand(n, p, 3, device='cuda', generator=g) * 1.1 - 0.55  # some outside
+    coords[:, :64, 0] = scale        # on the last texel column of the x/y and x/z planes
+    coords[:, 64:128, 1] = -scale    # on the first row
+    cot = torch.randn(n, p, f, device='cuda', generator=g)
+    out = splat.triplane_splat(planes, coords, cot, scale)
+    ref = splat.triplane_sample_bwd_plain(planes, coords, cot, scale)
+    torch.cuda.synchronize()
+    errs = [float((a - b_).abs().max()) for a, b_ in zip(out, ref)]
+    rel = [e / float(b_.abs().max()) for e, b_ in zip(errs, ref)]
+    print(f'K1 at planes [{3 * n},{h},{w},{f}], {n} x {p} points: max abs diff / max |plain| '
+          f'of g_planes/g_coords = {rel}')
+    check(all(e <= 1e-5 for e in rel), 'K1 disagrees with its plain version')
+    del out, ref
+    ms = cuda_ms(lambda: splat.triplane_splat(planes, coords, cot, scale), 20)
+    plain_ms = cuda_ms(lambda: splat.triplane_sample_bwd_plain(planes, coords, cot, scale), 3)
+    # the one PyTorch call that computes the same adjoint: grid_sample's backward
+    grid = torch.stack([coords[..., list(pr)] / scale for pr in ((0, 1), (0, 2), (1, 2))],
+                       dim=1).reshape(3 * n, 1, p, 2)
+    g_out = (cot / 3.0)[:, None].expand(n, 3, p, f).reshape(3 * n, p, f)
+    g_out = g_out.permute(0, 2, 1)[:, :, None]  # [3N, F, 1, P]
+    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_out, planes.permute(0, 3, 1, 2), grid, 0, 0, True, [True, True]), 10)
+    # planes and g_planes; the cotangent, coords and g_coords
+    bytes_moved = 4 * (2 * 3 * n * h * w * f + n * p * (f + 6))
+    flops = n * p * 3 * f * 20  # 4 weighted adds + the coordinate gradient, per plane and feature
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    print(f'K1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sampler_2d_backward '
+          f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms '
+          f'({bytes_moved / 1e9:.2f} GB by {bound_by}), '
+          f'{bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
+    k1 = dict(name='triplane_splat', route='cuda', source='tdgp_torch/csrc/splat.cu',
+              replaces='tdgp/ops/splat.py:258', max_abs_err=max(errs), ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return k3_bwd, k1
+
+
+def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='cuda'):
+    """One step's Gmain gradient through the kernels and through the plain
+    versions, at full width and batch 4, held to 1e-3 or to twice the
+    float32 floor of the step (see the module's docstring)."""
+    from tdgp_torch.training import losses
+    g_forward = losses.g_forward
+    plain = ['generator.plane_sample_impl=jnp', 'generator.ray_march_impl=jnp']
+
+    def one_ulp(*args, **kwargs):  # the rendered patch, changed by about one ulp
+        out, pp = g_forward(*args, **kwargs)
+        g = torch.Generator(device=device).manual_seed(9)
+        img = out.img * (1 + 2.0 ** -24 * torch.randn(out.img.shape, device=device, generator=g))
+        return type(out)(img=img, depth=out.depth), pp
+
+    def gmain_grads(overrides, perturb=False):
+        cfg = train_config(overrides + ['generator.use_noise=false'])
+        trainer = Trainer(cfg, device, seed=0)
+        losses.g_forward = one_ulp if perturb else g_forward
+        try:
+            stats = trainer.step(make_batch(cfg, 4, 2, device), sched, False,
+                                 Draws(torch.Generator(device=device).manual_seed(3)),
+                                 return_grads=True)
+        finally:
+            losses.g_forward = g_forward
+        return stats['_grads']['g']
+
+    def rel_l2(a, b):
+        return {n: float((a[n] - r).norm() / r.norm().clamp_min(1e-30)) for n, r in b.items()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = gmain_grads(plain)
+        rel = rel_l2(gmain_grads([]), ref)
+        floor = rel_l2(gmain_grads(plain, perturb=True), ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    limit = {n: max(1e-3, 2 * floor[n]) for n in rel}
+    name = max(rel, key=lambda n: rel[n] / limit[n])
+    raised = sorted(n for n in rel if limit[n] > 1e-3)
+    print(f'Gmain gradient, kernels vs plain versions: {len(rel)} parameters, median relative '
+          f'L2 difference {float(np.median(list(rel.values()))):.3g}, worst against its limit '
+          f'{rel[name]:.3g} ({name}; limit {limit[name]:.3g}); one-ulp floor of the step: median '
+          f'{float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g}; '
+          f'limit above 1e-3 for {raised}')
+    check(all(rel[n] <= limit[n] for n in rel),
+          'the Gmain gradient through the kernels disagrees with the plain path')
+
+
+def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, device='cuda'):
+    """The satellite step at full width: warm-up, plain steps, one R1 step."""
+    trainer = Trainer(cfg, device, seed=0)
+    batch = make_batch(cfg, batch_size, 0, device)
+    draws = Draws(torch.Generator(device=device).manual_seed(1))
+    modules = {'G': trainer.G, 'D': trainer.D, 'G_ema': trainer.G_ema}
+    before = {k: {n: p.detach().clone() for n, p in m.named_parameters()}
+              for k, m in modules.items()}
+    trainer.step(batch, sched, False, draws)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    plain_ms, history = [], []
+    for _ in range(TRAIN_PLAIN_STEPS):
+        t0 = time.perf_counter()
+        history.append(trainer.step(batch, sched, False, draws))
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    history.append(trainer.step(batch, sched, True, draws))
+    torch.cuda.synchronize()
+    r1_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = {k: float(v) for k, v in history[-1].items()}
+    print('losses of the R1 step: ' + ', '.join(f'{k} {v:.4g}' for k, v in sorted(losses.items())))
+    check('Loss/D/r1_penalty' in losses, 'the R1 step ran no R1')
+    check(all(np.isfinite(float(v)) for st in history for v in st.values()), 'non-finite losses')
+    for k, m in modules.items():
+        still = [n for n, p in m.named_parameters() if torch.equal(p, before[k][n])]
+        print(f'{k}: {len(before[k]) - len(still)} of {len(before[k])} parameter tensors moved'
+              + (f'; not: {still[:5]}' if still else ''))
+        check(not still, f'parameters of {k} did not move')
+    n_micro = batch_size // (cfg.training.batch_gpu or batch_size)
+    steps = TRAIN_PLAIN_STEPS + 1
+    expected = {'triplane_splat': 2 * n_micro * steps,  # coarse and fine pass of each Gmain render
+                'ray_march_reduced': n_micro * steps, 'ray_march_reduced_bwd': n_micro * steps}
+    print(f'launches over {steps} steps: {launches} (expected {expected}); per step: '
+          + ', '.join(f'{k} {v / steps:g}' for k, v in launches.items()))
+    check(launches == expected, 'kernel launch counts of the training path')
+    t_plain = float(np.median(plain_ms))
+    imgs_per_s = 16 * batch_size / (15 * t_plain / 1e3 + r1_ms / 1e3)
+    print(f'training step, satellite 256^2, batch {batch_size} (batch_gpu '
+          f'{cfg.training.batch_gpu}): plain ms {["%.1f" % t for t in plain_ms]}, median '
+          f'{t_plain:.1f} ms; R1 step {r1_ms:.1f} ms; {imgs_per_s:.2f} images/s at 15:1; '
+          f'peak memory {peak / 2**30:.2f} GiB')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from tdgp_torch.ops import cuda_build, ray_march
+    from tdgp_torch import profile_training
+    from tdgp_torch.ops import cuda_build, ray_march, splat
     from tdgp_torch.profile_serving import BATCH, OVERRIDES, PSI, RUN_DIR, request
     from tdgp_torch.serving import load_generator, make_serving_fn
+    from tdgp_torch.training.schedules import compute_schedules
+    from tdgp_torch.training.train_step import Trainer
+    from tdgp_torch.utils.draws import Draws
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True, check=True)
@@ -186,9 +397,29 @@ def main():
         print(f'card vs CPU at 64x64: max abs image diff {diff:.3g}')
         check(diff <= 1e-3, 'card disagrees with the CPU')
 
+    with phase('train kernels', seconds):
+        k3_bwd, k1 = train_kernel_phase(ray_march, splat)
+
+    cfg = profile_training.train_config()
+    sched = compute_schedules(cfg, profile_training.CUR_NIMG)
+    with phase('train check', seconds):
+        train_check_phase(Trainer, Draws, sched, profile_training.train_config,
+                          profile_training.make_batch)
+
+    with phase('train', seconds):
+        launches = train_phase(Trainer, Draws, sched, cfg, profile_training.make_batch,
+                               profile_training.BATCH,
+                               [splat.triplane_splat, ray_march.ray_march_reduced,
+                                ray_march.ray_march_reduced_bwd])
+        k3['launches_by_path'] = {'serve': k3['launches'],
+                                  'train': launches['ray_march_reduced']}
+        k3['launches'] += launches['ray_march_reduced']
+        k3_bwd['launches'] = launches['ray_march_reduced_bwd']
+        k1['launches'] = launches['triplane_splat']
+
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
-    print(json.dumps({'kernels': [k3]}))
+    print(json.dumps({'kernels': [k3, k3_bwd, k1]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

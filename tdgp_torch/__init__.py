@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of tdgp: serves the 3DGP generator on an NVIDIA H100.
+"""PyTorch/CUDA port of tdgp: serves the 3DGP generator and trains it on an NVIDIA H100.
 
 Mirrors the module names of `tdgp/`. Imports nothing of JAX or of `tdgp`.
 """

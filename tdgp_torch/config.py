@@ -1,10 +1,8 @@
 """Configuration schema and YAML loader for the PyTorch port.
 
-The port keeps its own copy of the dataclasses from `tdgp/config.py` that a
-served generator reads, with the same field names and defaults, so that an
-`experiment_config.yaml` written by a JAX training run loads unchanged.
-Sections of that file that serving does not read (discriminator, loss,
-training, ...) are listed in `_UNSERVED_SECTIONS` and passed over.
+The port keeps its own copy of the dataclasses of `tdgp/config.py`, with
+the same field names and defaults, so that an `experiment_config.yaml`
+written by a JAX training run loads unchanged.
 
 The loader mirrors `tdgp/infra/experiment.py`: a strict dataclass overlay,
 dotted-key overrides, then `finalize_config` for the derived values.
@@ -12,6 +10,7 @@ dotted-key overrides, then `finalize_config` for the derived values.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -162,10 +161,8 @@ class PatchCfg:
 @dataclass(frozen=True)
 class GeneratorConfig:
     """All fields of `tdgp.config.GeneratorConfig`, so that a JAX run's config
-    loads strictly. The served path reads the widths, `fp32_only`, the ray and
-    marcher settings, `max_batch_res` and `camera`; the depth and camera
-    adaptors, the patch settings and the TPU layout knobs are read by the
-    training slice or by the JAX package only."""
+    loads strictly. The TPU layout knobs (`plane_pack`, `sample_save`,
+    `merged_splat`, `num_fp16_res`) are read by the JAX package only."""
     z_dim: int = 512
     w_dim: int = 512
     c_dim: int = 0
@@ -213,6 +210,123 @@ class GeneratorConfig:
 
 
 @dataclass(frozen=True)
+class DiscriminatorConfig:
+    c_dim: int = 0
+    cbase: int = 32768
+    cmax: int = 512
+    fmaps: float = 1.0
+    input_resolution: int = 64
+    img_channels: int = 4
+    num_fp16_res: int = 4
+    fp32_only: bool = False
+    conv_clamp: float = 256.0
+    num_additional_start_blocks: int = 2
+    mbstd_group_size: int = 4
+    mbstd_num_channels: int = 1
+    logits_clamp_val: float = 1e7
+    camera_cond: bool = False
+    camera_cond_drop_p: float = 0.0
+    hyper_mod: bool = True
+    patch: PatchCfg = PatchCfg()
+    embedding_dim: int = 2048
+    map_depth: int = 2
+
+
+# --------------------------------------------------------------- training
+
+@dataclass(frozen=True)
+class KDCfg:
+    weight: float = 1.0
+    anneal_kimg: int = 100000
+    loss_type: str = 'l2'
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    adv_loss_type: str = 'non_saturating'
+    r1_gamma: float = 0.05
+    r1_interval: int = 16
+    r1_remat: bool = False
+    r1_batch_gpu: Optional[int] = None
+    pl_weight: float = 0.0
+    pl_start_kimg: int = 0
+    pl_batch_shrink: int = 2
+    pl_decay: float = 0.01
+    blur_init_sigma: float = 10.0
+    blur_fade_kimg: int = 200
+    style_mixing_prob: float = 0.0
+    kd: KDCfg = KDCfg()
+
+
+@dataclass(frozen=True)
+class OptimCfg:
+    lr: float = 0.0025
+    beta1: float = 0.0
+    beta2: float = 0.99
+    eps: float = 1e-8
+    grad_clip: Optional[float] = None
+
+
+@dataclass(frozen=True)
+class AugmentCfg:
+    mode: str = 'noaug'
+    p: float = 0.2
+    target: float = 0.6
+    ada_interval: int = 4
+    ada_kimg: int = 500
+    xflip: float = 0.0
+    rotate90: float = 1.0
+    xint: float = 1.0
+    scale: float = 1.0
+    rotate: float = 1.0
+    aniso: float = 1.0
+    xfrac: float = 1.0
+    brightness: float = 1.0
+    contrast: float = 1.0
+    lumaflip: float = 1.0
+    hue: float = 1.0
+    saturation: float = 1.0
+    imgfilter: float = 0.0
+    noise: float = 0.0
+    cutout: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """All fields of `tdgp.config.TrainingConfig`. The port's train step
+    reads the batch sizes, the Dmain/Gmain switches, `use_depth`,
+    `blur_real_depth_sigma`, `learn_camera_dist`, the EMA settings, the
+    optimizers and `augment.mode`; the loop's fields wait for the loop."""
+    batch_size: int = 64
+    batch_gpu: Optional[int] = None
+    test_batch_gpu: int = 4
+    dmain_fake_bf16: bool = False
+    dmain_reuse_fakes: bool = True
+    gmain_render_bf16: bool = False
+    use_depth: bool = True
+    blur_real_depth_sigma: float = 0.0
+    learn_camera_dist: bool = True
+    total_kimg: int = 25000
+    tick_kimg: int = 4
+    val_freq: int = 100
+    snap: int = 100
+    image_snap: int = 100
+    seed: int = 0
+    ema_kimg: float = 20.0
+    ema_rampup: Optional[float] = 0.05
+    ema_start_kimg: float = 0.0
+    metrics: Tuple[str, ...] = ('fid2k_full', 'nfs256')
+    resume: str = 'latest'
+    tensorboard: bool = True
+    run_profiling: bool = False
+    max_rss_gb: Optional[float] = 100.0
+    compact_transfer: bool = True
+    g_optim: OptimCfg = OptimCfg(lr=0.0025)
+    d_optim: OptimCfg = OptimCfg(lr=0.002)
+    augment: AugmentCfg = AugmentCfg()
+
+
+@dataclass(frozen=True)
 class DatasetConfig:
     path: str = ''
     name: str = 'dataset'
@@ -231,20 +345,31 @@ class DatasetConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The sections of an experiment config that serving reads."""
+    """A whole experiment config, as `tdgp.config.Config` has it."""
     camera: CameraConfig = CameraConfig()
     generator: GeneratorConfig = GeneratorConfig()
+    discriminator: DiscriminatorConfig = DiscriminatorConfig()
+    loss: LossConfig = LossConfig()
+    training: TrainingConfig = TrainingConfig()
     dataset: DatasetConfig = DatasetConfig()
+    model_name: str = '3dgp'
+    num_devices: int = 1
+    run_dir: str = 'experiments/run'
 
 
-# Top-level sections of a JAX run's experiment_config.yaml that describe
-# training only; the loader passes over them.
-_UNSERVED_SECTIONS = ('discriminator', 'loss', 'training', 'model_name',
-                      'num_devices', 'run_dir')
+def satellite_config(c_dim: int = 0, resolution: int = 256) -> Config:
+    """The satellite-dataset configuration of `tdgp.config.satellite_config`
+    (default widths, 64^2 patches), the one `bench.py` times."""
+    n_extra = max(0, (resolution // 64).bit_length() - 1)
+    gen = GeneratorConfig(c_dim=c_dim, img_resolution=resolution,
+                          camera_adaptor=CameraAdaptorCfg(c_dim=c_dim))
+    disc = DiscriminatorConfig(c_dim=c_dim, num_additional_start_blocks=n_extra)
+    return Config(generator=gen, discriminator=disc,
+                  dataset=DatasetConfig(c_dim=c_dim, resolution=resolution))
 
 
 def tiny_test_config() -> Config:
-    """The generator of `tdgp.config.tiny_test_config`, for tests."""
+    """`tdgp.config.tiny_test_config`, for tests."""
     cam = CameraConfig()
     tri = TriPlaneCfg(res=32, feat_dim=8, mlp=TriPlaneMLPCfg(n_layers=2, hid_dim=16))
     patch = PatchCfg(resolution=16, min_scale_trg=0.25, mbstd_group_size=2)
@@ -255,8 +380,16 @@ def tiny_test_config() -> Config:
         depth_adaptor=DepthAdaptorCfg(hid_dim=8, num_hid_layers=2, kernel_size=3),
         camera_adaptor=CameraAdaptorCfg(z_dim=32, c_dim=4, hid_dim=16, embed_dim=8),
     )
-    return Config(camera=cam, generator=gen,
-                  dataset=DatasetConfig(resolution=64, c_dim=4, embedding_dim=16))
+    disc = DiscriminatorConfig(
+        c_dim=4, cbase=1024, cmax=64, input_resolution=16, img_channels=4,
+        num_additional_start_blocks=2, mbstd_group_size=2, patch=patch,
+        embedding_dim=16)
+    return Config(
+        camera=cam, generator=gen, discriminator=disc,
+        loss=LossConfig(r1_gamma=0.1),
+        training=TrainingConfig(batch_size=4, ema_kimg=1.25, metrics=()),
+        dataset=DatasetConfig(resolution=64, c_dim=4, embedding_dim=16),
+    )
 
 
 # ------------------------------------------------------------------ loader
@@ -278,10 +411,6 @@ def _overlay(value, node):
     return node
 
 
-def _served_sections(data: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: v for k, v in data.items() if k not in _UNSERVED_SECTIONS}
-
-
 def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
     """Dotted-key overrides such as `generator.ray_march_impl=fused`."""
     for ov in overrides:
@@ -294,7 +423,7 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
         for p in parts[:-1]:
             cur = cur.setdefault(p, {})
         cur[parts[-1]] = yaml.safe_load(raw)
-        cfg = _overlay(cfg, _served_sections(node))
+        cfg = _overlay(cfg, node)
     return cfg
 
 
@@ -304,17 +433,40 @@ def load_config(yaml_path: Optional[str] = None, overrides: Sequence[str] = (),
     if yaml_path:
         with open(yaml_path) as f:
             data = yaml.safe_load(f) or {}
-        cfg = _overlay(cfg, _served_sections(data))
+        cfg = _overlay(cfg, data)
     cfg = apply_overrides(cfg, overrides)
     return finalize_config(cfg) if finalize else cfg
 
 
 def finalize_config(cfg: Config) -> Config:
-    """The derived generator values of `tdgp.infra.experiment.finalize_config`
-    that serving reads: output resolution and c_dim from the dataset, the
-    top-level camera, and the dataset's background flags."""
+    """The derived values of `tdgp.infra.experiment.finalize_config`: output
+    resolution, labels, patch scale and depth channel from the dataset, the
+    top-level camera, the discriminator's input, R1's 'auto' gamma and the
+    EMA half-life."""
+    res = cfg.dataset.resolution
+    patch_res = cfg.generator.patch.resolution
+    patch = dataclasses.replace(cfg.generator.patch, min_scale_trg=patch_res / res)
+    n_extra = int(math.log2(res / patch_res)) if cfg.generator.patch.enabled else 0
     gen = dataclasses.replace(
-        cfg.generator, img_resolution=cfg.dataset.resolution,
-        c_dim=cfg.dataset.c_dim, camera=cfg.camera,
-        white_back=cfg.dataset.white_back, last_back=cfg.dataset.last_back)
-    return dataclasses.replace(cfg, generator=gen)
+        cfg.generator, img_resolution=res, c_dim=cfg.dataset.c_dim, patch=patch,
+        camera=cfg.camera,
+        camera_adaptor=dataclasses.replace(cfg.generator.camera_adaptor,
+                                           z_dim=cfg.generator.z_dim,
+                                           c_dim=cfg.dataset.c_dim),
+        white_back=cfg.dataset.white_back, last_back=cfg.dataset.last_back,
+        depth_adaptor=dataclasses.replace(cfg.generator.depth_adaptor,
+                                          enabled=cfg.training.use_depth))
+    disc = dataclasses.replace(
+        cfg.discriminator, c_dim=cfg.dataset.c_dim,
+        input_resolution=patch_res if cfg.generator.patch.enabled else res,
+        img_channels=4 if cfg.training.use_depth else 3,
+        num_additional_start_blocks=n_extra, patch=patch,
+        embedding_dim=cfg.dataset.embedding_dim)
+    r1_gamma = cfg.loss.r1_gamma
+    if r1_gamma < 0:  # the 'auto' sentinel
+        r1_gamma = 0.0002 * (res ** 2) / cfg.training.batch_size
+    return dataclasses.replace(
+        cfg, generator=gen, discriminator=disc,
+        loss=dataclasses.replace(cfg.loss, r1_gamma=r1_gamma),
+        training=dataclasses.replace(cfg.training,
+                                     ema_kimg=cfg.training.batch_size * 0.3125))

@@ -1,31 +1,42 @@
-"""The tri-plane 3DGP generator at eval (port of `tdgp/models/epigraf.py`).
+"""The tri-plane 3DGP generator (port of `tdgp/models/epigraf.py`).
 
 A StyleGAN2 stack decodes w into three feature planes; rays sample the
 planes (bilinear, align_corners=True) and average them, a small MLP maps the
 features to (rgb, sigma), and the two-pass renderer integrates along the
-rays. Noise is the stored const noise and sampling draws nothing, so a
-forward pass is a pure function of its inputs.
+rays. The depth adaptor turns the rendered depth into the fourth channel the
+discriminator sees, and the camera adaptor warps prior cameras into the
+learned camera distribution. The generator runs at float32 only
+(`fp32_only=True`).
 
-The depth adaptor's output is dropped on the serving path and the camera
-adaptor is not called there, so neither is built here; their weights are
-named in `tdgp_torch.weights.SKIPPED_PREFIXES`. The generator runs at
-float32 only (`fp32_only=True`).
+At eval (serving) noise is the stored const noise and sampling draws
+nothing, so a forward pass is a pure function of its inputs. In training
+(`draws` given) the patch is rendered at the patch resolution with random
+StyleGAN2 noise, jittered and importance-sampled rays, density noise and a
+random depth-adaptor pick, all from `draws`. Where gradients flow, plane
+sampling goes through `triplane_sample`, whose backward is kernel K1, and
+the final march through kernel K3 forward and backward.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tdgp_torch.config import GeneratorConfig
+from tdgp_torch.models.camera_adaptor import CameraAdaptor
+from tdgp_torch.models.depth_adaptor import DepthAdaptor
 from tdgp_torch.models.layers import FullyConnected, MappingNetwork
 from tdgp_torch.models.stylegan2 import SynthesisBlocksSequence, sg2_num_ws
-from tdgp_torch.ops.grid_sample import grid_sample_2d
+from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample, triplane_sample_reference
 from tdgp_torch.rendering.camera import compute_cam2world_matrix
 from tdgp_torch.rendering.rays import sample_rays
 from tdgp_torch.rendering.renderer import RenderOptions, importance_render
+from tdgp_torch.utils.draws import Draws
 from tdgp_torch.utils.tensor_group import TensorGroup
+
+__all__ = ['Generator', 'SynthesisNetwork', 'TriPlaneMLP', 'flatten_planes', 'tri_plane_sample']
 
 
 def flatten_planes(planes: torch.Tensor) -> torch.Tensor:
@@ -34,24 +45,20 @@ def flatten_planes(planes: torch.Tensor) -> torch.Tensor:
     return planes.permute(0, 3, 1, 2, 4).reshape(n * 3, h, w, f)
 
 
-def tri_plane_sample(planes: torch.Tensor, coords: torch.Tensor, scale: float) -> torch.Tensor:
-    """Sample the x/y, x/z and y/z planes at 3-D points and average them.
-
-    planes: [N*3, H, W, F]; coords: [N, P, 3] world coordinates; scale: the
-    cube's half side. Returns [N, P, F].
-    """
-    n3, _, _, f = planes.shape
-    n, p = coords.shape[0], coords.shape[1]
-    coords = coords / scale
-    grids = torch.stack([coords[..., [0, 1]], coords[..., [0, 2]], coords[..., [1, 2]]], dim=1)
-    feats = grid_sample_2d(planes, grids.reshape(n3, p, 2))
-    return feats.reshape(n, 3, p, f).mean(dim=1)
-
-
 def resolve_march_impl(impl: str) -> str:
     """'auto' -> 'fused': the final march runs in kernel K3 on the card (on
     CPU tensors its wrapper computes the plain version)."""
     return 'fused' if impl == 'auto' else impl
+
+
+def resolve_sample_impl(impl: str) -> str:
+    """'auto' -> 'fused': the plane-sampling backward runs in kernel K1 on the
+    card. 'jnp' (the JAX package's name for its plain path) takes K1's plain
+    version on any device, the reference the kernel is held against."""
+    impl = 'fused' if impl == 'auto' else impl
+    if impl not in ('fused', 'jnp'):
+        raise NotImplementedError(f'plane_sample_impl {impl!r} is not ported')
+    return impl
 
 
 class TriPlaneMLP(nn.Module):
@@ -77,7 +84,7 @@ class TriPlaneMLP(nn.Module):
 
 
 class SynthesisNetwork(nn.Module):
-    """Tri-plane decoder + renderer, eval forward."""
+    """Tri-plane decoder + renderer + depth adaptor; hosts the camera adaptor."""
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
@@ -86,13 +93,21 @@ class SynthesisNetwork(nn.Module):
                                       'set generator.fp32_only=true')
         if cfg.architecture != 'skip':
             raise NotImplementedError(f'architecture {cfg.architecture!r} is not ported')
+        if cfg.render_bf16:
+            raise NotImplementedError('generator.render_bf16 is not ported')
         self.cfg = cfg
+        self.sample_impl = resolve_sample_impl(cfg.plane_sample_impl)
         self.num_ws = sg2_num_ws(0, cfg.tri_plane.res)
         self.tri_plane_decoder = SynthesisBlocksSequence(
             w_dim=cfg.w_dim, out_resolution=cfg.tri_plane.res,
             out_channels=cfg.tri_plane.feat_dim * 3, cbase=cfg.cbase, cmax=cfg.cmax,
             fmaps=cfg.fmaps, use_noise=cfg.use_noise)
         self.tri_plane_mlp = TriPlaneMLP(cfg, out_dim=cfg.img_channels)
+        self.depth_adaptor = (DepthAdaptor(cfg.depth_adaptor, cfg.camera.ray.start,
+                                           cfg.camera.ray.end)
+                              if cfg.depth_adaptor.enabled else None)
+        self.camera_adaptor = (CameraAdaptor(cfg.camera_adaptor, cfg.camera)
+                               if cfg.camera_adaptor.enabled else None)
 
     def render_opts(self) -> RenderOptions:
         c = self.cfg
@@ -102,35 +117,87 @@ class SynthesisNetwork(nn.Module):
             clamp_mode=c.clamp_mode, use_inf_depth=c.use_inf_depth,
             last_back=c.last_back, march_impl=resolve_march_impl(c.ray_march_impl))
 
-    def decode_planes(self, ws: torch.Tensor) -> torch.Tensor:
-        """ws -> tri-planes [N, H, W, 3, F]."""
-        out = self.tri_plane_decoder(ws[:, :self.num_ws])
+    def decode_planes(self, ws: torch.Tensor,
+                      noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+        """ws -> tri-planes [N, H, W, 3, F]. With gradients on and
+        `decoder_remat`, the decoder's activations are recomputed in the
+        backward instead of kept (the JAX package's `nn.remat`); the noise is
+        drawn before, so the recomputation sees the same."""
+        ws = ws[:, :self.num_ws]
+        if self.cfg.decoder_remat and torch.is_grad_enabled():
+            out = checkpoint(self.tri_plane_decoder, ws, noise, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = self.tri_plane_decoder(ws, noise)
         n, h, w, _ = out.shape
         return out.reshape(n, h, w, 3, self.cfg.tri_plane.feat_dim)
 
+    def apply_camera_adaptor(self, camera_params: TensorGroup, z: torch.Tensor,
+                             c: Optional[torch.Tensor] = None) -> TensorGroup:
+        if self.camera_adaptor is None:
+            raise ValueError('the camera adaptor is disabled')
+        return self.camera_adaptor(camera_params, z, c)
+
+    def _sample_fn(self):
+        scale = self.cfg.camera.cube_scale
+        if not torch.is_grad_enabled():
+            return lambda planes, coords: tri_plane_sample(planes, coords, scale)
+        if self.sample_impl == 'jnp':
+            return lambda planes, coords: triplane_sample_reference(planes, coords, scale)
+        return lambda planes, coords: triplane_sample(planes, coords, scale)
+
     def forward(self, ws: torch.Tensor, camera_params: TensorGroup,
-                resolution: Optional[int] = None,
-                ray_chunk: Optional[int] = None) -> torch.Tensor:
-        """-> images [N, H, W, img_channels]; rays are rendered `ray_chunk`
-        at a time (per image) when given."""
+                patch_params: Optional[Dict[str, torch.Tensor]] = None, *,
+                draws: Optional[Draws] = None, concat_depth: bool = False,
+                return_depth: bool = False, nerf_noise_std: float = 0.0,
+                depth_progress: float = 1.0, resolution: Optional[int] = None,
+                ray_chunk: Optional[int] = None):
+        """-> images [N, H, W, img_channels (+1 with concat_depth)], or
+        TensorGroup(img, depth) with `return_depth`.
+
+        `draws` given is training: the output is the patch resolution when
+        patches are on, and every random choice comes from `draws`
+        ('noise/...', 'render/...', 'depth/...'). Rays are rendered
+        `ray_chunk` at a time (per image) when given.
+        """
         c = self.cfg
         n = ws.shape[0]
-        h = w = c.img_resolution if resolution is None else resolution
-        planes = flatten_planes(self.decode_planes(ws))
+        train = draws is not None
+        if resolution is None:
+            resolution = c.patch.resolution if (train and c.patch.enabled) else c.img_resolution
+        h = w = resolution
+        noise = self.tri_plane_decoder.draw_noise(draws.scope('noise'), n) if train else None
+        planes = flatten_planes(self.decode_planes(ws, noise))
         c2w = compute_cam2world_matrix(camera_params)
-        ray_o, ray_d = sample_rays(c2w, camera_params.fov, resolution=(w, h))
+        ray_o, ray_d = sample_rays(c2w, camera_params.fov, resolution=(w, h),
+                                   patch_params=patch_params)
         opts = self.render_opts()
+        sample = self._sample_fn()
 
         def run_model(coords):
-            return self.tri_plane_mlp(tri_plane_sample(planes, coords, c.camera.cube_scale))
+            return self.tri_plane_mlp(sample(planes, coords))
 
         chunk = h * w if ray_chunk is None else min(ray_chunk, h * w)
         if (h * w) % chunk:
             raise ValueError(f'ray_chunk {ray_chunk} does not divide {h * w} rays')
-        rgb = torch.cat([importance_render(run_model, ray_o[:, i:i + chunk],
-                                           ray_d[:, i:i + chunk], opts)[0]
-                         for i in range(0, h * w, chunk)], dim=1)
-        return rgb.reshape(n, h, w, c.img_channels)
+        if train and chunk != h * w:
+            raise NotImplementedError('ray chunks in training')
+        render_draws = draws.scope('render') if train else None
+        outs = [importance_render(run_model, ray_o[:, i:i + chunk], ray_d[:, i:i + chunk], opts,
+                                  draws=render_draws, density_noise=nerf_noise_std)
+                for i in range(0, h * w, chunk)]
+        img = torch.cat([o[0] for o in outs], dim=1).reshape(n, h, w, c.img_channels)
+        depth = torch.cat([o[1] for o in outs], dim=1).reshape(n, h, w, 1)
+        if concat_depth:
+            if self.depth_adaptor is None:
+                raise ValueError('concat_depth needs the depth adaptor')
+            depth_adapted = self.depth_adaptor(
+                depth, progress=depth_progress,
+                draws=draws.scope('depth') if train else None)
+            img = torch.cat([img, depth_adapted], dim=-1)
+        if return_depth:
+            return TensorGroup(img=img, depth=depth)
+        return img
 
 
 class Generator(nn.Module):
@@ -143,7 +210,8 @@ class Generator(nn.Module):
         self.mapping = MappingNetwork(
             z_dim=cfg.z_dim, c_dim=cfg.c_dim, w_dim=cfg.w_dim,
             num_ws=self.synthesis.num_ws, num_layers=cfg.map_depth,
-            camera_cond=cfg.camera_cond, camera_raw_scalars=cfg.camera_cond_raw)
+            camera_cond=cfg.camera_cond, camera_cond_drop_p=cfg.camera_cond_drop_p,
+            camera_raw_scalars=cfg.camera_cond_raw)
 
     def map_ws(self, z: torch.Tensor, c: Optional[torch.Tensor],
                camera_angles: Optional[torch.Tensor] = None,

@@ -1,9 +1,12 @@
 """StyleGAN2 synthesis stack, NHWC, float32 (port of `tdgp/models/stylegan2.py`).
 
-Only the skip architecture that the tri-plane decoder uses is ported, with
-const noise (`noise_const * noise_strength`), the only noise serving adds.
-Conv weights are stored as [Co, Ci, kh, kw]; the learned const input stays
-[H, W, C] because activations are NHWC.
+Only the skip architecture that the tri-plane decoder uses is ported. The
+noise is `noise_const * noise_strength` when no noise is given (serving),
+or the given N(0, 1) buffers [N, res, res, 1] times `noise_strength`
+(training; `SynthesisBlocksSequence.draw_noise` draws them beforehand, so
+that a recomputed forward sees the same noise). Conv weights are stored as
+[Co, Ci, kh, kw]; the learned const input stays [H, W, C] because
+activations are NHWC.
 """
 from __future__ import annotations
 
@@ -14,10 +17,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from tdgp_torch.models.layers import FullyConnected
+from tdgp_torch.models.layers import FullyConnected, _normal_
 from tdgp_torch.ops.bias_act import bias_act
 from tdgp_torch.ops.modulated_conv2d import modulated_conv2d
 from tdgp_torch.ops.upfirdn2d import setup_filter, upsample2d
+from tdgp_torch.utils.draws import Draws
 
 RESAMPLE_FILTER = (1, 3, 3, 1)
 CONV_CLAMP = 256.0
@@ -50,7 +54,8 @@ class SynthesisLayer(nn.Module):
         super().__init__()
         self.up = up
         self.use_noise = use_noise
-        self.affine = FullyConnected(w_dim, in_channels)
+        self.resolution = resolution
+        self.affine = FullyConnected(w_dim, in_channels, bias_init=1.0)
         self.weight = nn.Parameter(torch.zeros(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         if use_noise:
@@ -60,11 +65,20 @@ class SynthesisLayer(nn.Module):
                              setup_filter(list(RESAMPLE_FILTER)) if up > 1 else None,
                              persistent=False)
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        styles = self.affine(w)
-        noise = None
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, generator)
+        self.bias.zero_()
         if self.use_noise:
-            noise = (self.noise_const * self.noise_strength)[None, :, :, None]
+            self.noise_strength.zero_()
+            _normal_(self.noise_const, generator)
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """noise: N(0, 1) [N, res, res, 1], or None for the const noise."""
+        styles = self.affine(w)
+        if self.use_noise:
+            noise = (self.noise_const[None, :, :, None] if noise is None else noise) \
+                * self.noise_strength
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up, padding=1,
                              resample_filter=self.resample_filter,
                              flip_weight=(self.up == 1))
@@ -77,9 +91,13 @@ class ToRGBLayer(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, w_dim: int):
         super().__init__()
         self.weight_gain = 1.0 / math.sqrt(in_channels)
-        self.affine = FullyConnected(w_dim, in_channels)
+        self.affine = FullyConnected(w_dim, in_channels, bias_init=1.0)
         self.weight = nn.Parameter(torch.zeros(out_channels, in_channels, 1, 1))
         self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, generator)
+        self.bias.zero_()
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         styles = self.affine(w) * self.weight_gain
@@ -108,14 +126,20 @@ class SynthesisBlock(nn.Module):
     def num_conv(self) -> int:
         return 1 if self.in_channels == 0 else 2
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.in_channels == 0:
+            _normal_(self.const, generator)
+
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
-                ws: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ws: [N, num_conv + 1, w_dim]."""
+                ws: torch.Tensor, noise: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ws: [N, num_conv + 1, w_dim]; noise: 'conv0'/'conv1' -> buffer, or None."""
+        noise = noise or {}
         if self.in_channels == 0:
             x = self.const[None].expand(ws.shape[0], -1, -1, -1)
         else:
-            x = self.conv0(x, ws[:, 0])
-        x = self.conv1(x, ws[:, self.num_conv - 1])
+            x = self.conv0(x, ws[:, 0], noise.get('conv0'))
+        x = self.conv1(x, ws[:, self.num_conv - 1], noise.get('conv1'))
         if img is not None:
             img = upsample2d(img, self.resample_filter)
         y = self.torgb(x, ws[:, self.num_conv])
@@ -138,12 +162,26 @@ class SynthesisBlocksSequence(nn.Module):
                 use_noise=use_noise))
         self.num_ws = sg2_num_ws(0, out_resolution)
 
-    def forward(self, ws: torch.Tensor) -> torch.Tensor:
-        """ws [N, num_ws, w_dim] -> img [N, R, R, out_channels]."""
+    def draw_noise(self, draws: Draws, n: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """N(0, 1) buffers [n, res, res, 1] for every noisy layer, named
+        'b<res>/conv0' and 'b<res>/conv1' in `draws`."""
+        noise = {}
+        for res in self.resolutions:
+            block = getattr(self, f'b{res}')
+            names = ['conv1'] if block.in_channels == 0 else ['conv0', 'conv1']
+            noise[f'b{res}'] = {name: draws.normal(f'b{res}/{name}', (n, res, res, 1))
+                                for name in names if getattr(block, name).use_noise}
+        return noise
+
+    def forward(self, ws: torch.Tensor,
+                noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+        """ws [N, num_ws, w_dim] -> img [N, R, R, out_channels]; `noise` from
+        `draw_noise`, or None for the const noise."""
         x = img = None
         w_idx = 0
         for res in self.resolutions:
             block = getattr(self, f'b{res}')
-            x, img = block(x, img, ws[:, w_idx:w_idx + block.num_conv + 1])
+            x, img = block(x, img, ws[:, w_idx:w_idx + block.num_conv + 1],
+                           None if noise is None else noise[f'b{res}'])
             w_idx += block.num_conv
         return img

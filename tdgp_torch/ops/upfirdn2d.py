@@ -3,7 +3,8 @@
 Port of `tdgp/ops/upfirdn2d.py`. The JAX package folds the whole pipeline
 into one dilated depthwise convolution. Here the zero-upsampling is a
 reshape and pad, the (possibly negative) padding is `F.pad`, and the filter
-and the downsampling are one strided depthwise `F.conv2d`. Tensors are
+and the downsampling are one strided depthwise `F.conv2d`, which PyTorch
+differentiates to any order. Tensors are
 NHWC; `permute(0, 3, 1, 2)` gives the channels-last NCHW view the
 convolution takes, without a copy. Filters are 2-D.
 """
@@ -63,6 +64,12 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: int = 1, down: int
     weight = f[None, None].expand(c, 1, *f.shape).contiguous()
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=down, groups=c)
     return y.permute(0, 2, 3, 1)
+
+
+def filter2d(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Same-size FIR filtering."""
+    fw, fh = get_filter_size(f)
+    return upfirdn2d(x, f, padding=((fw - 1) // 2, fw // 2, (fh - 1) // 2, fh // 2))
 
 
 def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2) -> torch.Tensor:

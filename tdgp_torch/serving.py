@@ -22,17 +22,11 @@ import torch
 
 from tdgp_torch.config import load_config
 from tdgp_torch.models.epigraf import Generator
+from tdgp_torch.utils.misc import resolve_device
 from tdgp_torch.utils.tensor_group import TensorGroup
 from tdgp_torch.weights import load_flat
 
 WEIGHTS_FILE = 'g_ema_leg1.npz'
-
-
-def _device(device: Union[str, torch.device]) -> torch.device:
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return device
 
 
 @contextlib.contextmanager
@@ -52,7 +46,7 @@ def load_generator(run_dir: str, device: Union[str, torch.device] = 'cuda',
                    overrides: Sequence[str] = ()) -> Generator:
     """The run's EMA generator on `device`, in eval mode. `overrides` are
     dotted config overrides such as 'generator.ray_march_impl=fused'."""
-    device = _device(device)
+    device = resolve_device(device)
     cfg = load_config(os.path.join(run_dir, 'experiment_config.yaml'), overrides)
     G = Generator(cfg.generator)
     with np.load(os.path.join(run_dir, WEIGHTS_FILE)) as flat:

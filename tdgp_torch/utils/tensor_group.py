@@ -1,7 +1,8 @@
 """TensorGroup: named tensors aligned along the first axis.
 
 The camera-parameter container of `tdgp/utils/tensor_group.py`, reduced to
-what serving uses: access by attribute or by name. A camera is
+what the port uses: access by attribute or by name, and a slice along the
+first axis. A camera is
 `TensorGroup(angles [N,3], fov [N], radius [N], look_at [N,3])`.
 """
 from __future__ import annotations
@@ -25,6 +26,10 @@ class TensorGroup:
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._data[name]
+
+    def select(self, index) -> 'TensorGroup':
+        """Every tensor indexed along the first axis."""
+        return TensorGroup(**{k: v[index] for k, v in self._data.items()})
 
     def keys(self) -> List[str]:
         return list(self._data)

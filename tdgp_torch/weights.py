@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's flat generator arrays -> the port's modules.
+"""Weight bridge: the JAX package's arrays -> the port's modules.
 
 A trained generator is stored as flat arrays named 'params/...', 'ema/...'
 and 'consts/...' (the layout `scripts/infra/export_ema.py` writes and
@@ -9,18 +9,20 @@ of a JAX `G.init` gives the same names). A port parameter or buffer
 
 Layouts: dense weights [in, out] -> [out, in]; conv weights
 [kh, kw, ci, co] -> [co, ci, kh, kw]; everything else, the NHWC const input
-included, is taken as it is.
+and the embedding tables included, is taken as it is.
+
+`load_train_state` carries a whole JAX `TrainState` (G with its adaptors,
+its consts and 'ema' collection, D, and the EMA copy of G), given as nested
+dicts of numpy arrays, into a `tdgp_torch.training.train_step.Trainer`. The
+optimizers' state is not carried: both packages start it at zero.
 """
 from __future__ import annotations
 
-from typing import List, Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
-
-# Weights of modules the serving path does not run (see models/epigraf.py).
-SKIPPED_PREFIXES = ('params/synthesis/depth_adaptor/', 'params/synthesis/camera_adaptor/')
 
 _COLLECTIONS = {'w_avg': 'ema', 'noise_const': 'consts'}
 
@@ -38,12 +40,10 @@ def _to_port_layout(name: str, value: np.ndarray, ndim: int) -> np.ndarray:
     return value
 
 
-def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray]) -> List[str]:
+def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Copy every parameter and persistent buffer of `module` from `flat`.
 
-    Raises on a missing or mis-shaped array and on any array that is neither
-    used nor under `SKIPPED_PREFIXES`. Returns the names of the skipped
-    arrays.
+    Raises on a missing or mis-shaped array and on any array that is not used.
     """
     keys = set(flat.keys()) if hasattr(flat, 'keys') else set(flat.files)
     state = module.state_dict()
@@ -60,9 +60,29 @@ def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray]) -> List[str]:
                 continue
             target.copy_(torch.tensor(value))
             used.add(key)
-    skipped = sorted(k for k in keys - used if k.startswith(SKIPPED_PREFIXES))
-    unknown = sorted(keys - used - set(skipped))
+    unknown = sorted(keys - used)
     if missing or mis_shaped or unknown:
         raise ValueError(f'weights do not match the model: missing {missing}, '
                          f'mis-shaped {mis_shaped}, unused {unknown}')
-    return skipped
+
+
+def flatten_tree(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
+    """Nested dicts of arrays -> {'a/b/c': array}."""
+    flat = {}
+    for key, value in tree.items():
+        name = f'{prefix}{key}'
+        if isinstance(value, Mapping):
+            flat.update(flatten_tree(value, name + '/'))
+        else:
+            flat[name] = np.asarray(value)
+    return flat
+
+
+def load_train_state(trainer, g_params: Mapping, g_consts: Mapping, g_ema: Mapping,
+                     d_params: Mapping, ema_params: Mapping, ema_ema: Mapping) -> None:
+    """Load the fields of a JAX `TrainState` (g_params, g_consts, g_ema_coll,
+    d_params, ema_params, ema_ema_coll), as nested dicts of numpy arrays."""
+    load_flat(trainer.G, flatten_tree({'params': g_params, 'consts': g_consts, 'ema': g_ema}))
+    load_flat(trainer.D, flatten_tree({'params': d_params}))
+    load_flat(trainer.G_ema, flatten_tree({'params': ema_params, 'consts': g_consts,
+                                           'ema': ema_ema}))

@@ -36,7 +36,7 @@ from tdgp.models.epigraf import Generator as JaxGenerator
 from tdgp_torch import serving
 from tdgp_torch.config import load_config, tiny_test_config
 from tdgp_torch.models.epigraf import Generator
-from tdgp_torch.weights import SKIPPED_PREFIXES, flat_key, load_flat
+from tdgp_torch.weights import flat_key, load_flat
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 RUN_DIR = os.path.join(os.path.dirname(__file__), '..', 'experiments',
@@ -81,8 +81,11 @@ def tiny():
     cam = JaxTensorGroup(angles=angles, fov=fov, radius=radius, look_at=look_at)
     rngs = {k: jax.random.PRNGKey(i + 1)
             for i, k in enumerate(('params', 'noise', 'render', 'depth', 'dropout'))}
-    g_vars = jax.jit(lambda r: G.init(r, z, c, cam, camera_angles_cond=angles,
-                                      resolution=8))(rngs)
+    def init_fwd(g):  # the camera adaptor too: the port's Generator holds it
+        g.synthesis.apply_camera_adaptor(cam, z, c)
+        return g(z, c, cam, camera_angles_cond=angles, resolution=8)
+
+    g_vars = jax.jit(lambda r: G.init(r, method=init_fwd))(rngs)
     flat = {'/'.join(k): np.asarray(v)
             for k, v in traverse_util.flatten_dict(jax.device_get(g_vars)).items()}
     return G, g_vars, flat, req
@@ -143,16 +146,17 @@ def test_serving_matches_jax(tiny, tiny_port):
 
 
 def test_bridge_consumes_every_flagship_array():
-    """The trained flagship npz loads into the full-width port model: every
-    array is used or named as skipped, and every shape matches."""
+    """The trained flagship npz loads into the full-width port model, the
+    depth and camera adaptors included: every array is used, and every
+    shape matches."""
     cfg = load_config(os.path.join(RUN_DIR, 'experiment_config.yaml'), FP32)
     G = Generator(cfg.generator)
     with np.load(os.path.join(RUN_DIR, serving.WEIGHTS_FILE)) as flat:
         keys = set(flat.files)
-        skipped = load_flat(G, flat)
+        load_flat(G, flat)
         used = {flat_key(name) for name in G.state_dict()}
-        assert used | set(skipped) == keys and not used & set(skipped)
-        assert skipped and all(k.startswith(SKIPPED_PREFIXES) for k in skipped)
+        assert used == keys
+        assert any(k.startswith('params/synthesis/camera_adaptor/') for k in used)
         conv = 'synthesis.tri_plane_decoder.b64.conv0.weight'
         np.testing.assert_array_equal(G.state_dict()[conv].numpy(),
                                       flat[flat_key(conv)].transpose(3, 2, 0, 1))
