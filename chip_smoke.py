@@ -12,7 +12,9 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   serves 3 requests of batch 4 after one warm-up; images
                   [4,256,256,3], finite, in [0,1]; K3 launched once per ray
                   chunk (4 per request) during the 3 requests.
-  3. cross-check: one request through the plain marcher on the card (<= 1e-4),
+  3. cross-check: one request through the plain marcher on the card (<= 1e-4;
+                  `plain_versions` swaps the kernels' wrappers for their
+                  plain versions, which no config can select on the card),
                   and the port on the CPU at a 64x64 output against the card
                   (<= 1e-3: the convolutions sum in another order).
   4. train kernels: K3's backward at 16 x 4096 rays x 64 samples x 3 channels
@@ -21,18 +23,22 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   their plain versions, max abs diff <= 1e-5 x max |plain| on
                   every output (float32 sums in another order, and K1's
                   atomics in an order that changes from run to run); kernel,
-                  plain, library and bound times.
+                  plain, library and bound times. K1's bound counts the plane
+                  texels that the points' corners touch, not the whole planes.
   5. train check: one step's Gmain gradient at full width, batch 4, through
                   the kernels and through their plain versions on the card;
-                  relative L2 difference <= 1e-3 for every parameter, or, where
-                  the step itself is less stable than that, <= 2x its float32
-                  floor: the difference the plain path shows when the rendered
-                  patch is changed by one float32 ulp (x (1 + 2^-24 n),
-                  n ~ N(0, 1)), measured in the same run. cuDNN runs its
-                  deterministic algorithms here, and the StyleGAN2 noise is
-                  off: the gradient of a noise strength is a sum of ~1e8 terms
-                  of random sign, which any other float32 order moves by
-                  ~1e-3.
+                  relative L2 difference <= 1e-3 for every parameter, also
+                  with K1 alone through its kernel (K3 alone is printed). The
+                  depth adaptor's parameters alone (DEPTH_ADAPTOR), whose
+                  gradients the step itself does not fix to 1e-3, may instead
+                  reach 2x their float32 floor, capped at RAISED_LIMIT_CAP:
+                  the floor is the difference the plain path shows when the
+                  rendered patch is changed by one float32 ulp
+                  (x (1 + 2^-24 n), n ~ N(0, 1)), measured in the same run.
+                  cuDNN runs its deterministic algorithms here, and the
+                  StyleGAN2 noise is off: the gradient of a noise strength is
+                  a sum of ~1e8 terms of random sign, which any other float32
+                  order moves by ~1e-3.
   6. train:       the satellite 256^2 G+D step (`tdgp_torch.profile_training`:
                   float32, random weights from a seed, batch 16 of a
                   synthetic batch): one warm-up step, then plain steps and one
@@ -59,6 +65,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 TRAIN_PLAIN_STEPS = 5       # timed plain steps of the training phase
+GRAD_LIMIT = 1e-3           # Gmain gradient, kernels vs plain: relative L2 per parameter
+DEPTH_ADAPTOR = 'synthesis.depth_adaptor.'  # the only parameters that may exceed it ...
+RAISED_LIMIT_CAP = 4e-3     # ... up to 2x their one-ulp floor, and never above this
+
+
+@contextlib.contextmanager
+def plain_versions(k1=True, k3=True):
+    """The generator with the plain PyTorch versions of K1 (backward) and K3
+    (forward and backward) in place of the kernels' wrappers, on the card:
+    the reference the kernels' path is held against."""
+    from tdgp_torch.models import epigraf
+    from tdgp_torch.ops import ray_march, splat
+    from tdgp_torch.rendering import renderer
+    saved = epigraf.triplane_sample, renderer.ray_march_reduced
+    if k1:
+        epigraf.triplane_sample = splat.triplane_sample_reference
+    if k3:
+        renderer.ray_march_reduced = ray_march.ray_march_reduced_reference
+    try:
+        yield
+    finally:
+        epigraf.triplane_sample, renderer.ray_march_reduced = saved
 
 
 @contextlib.contextmanager
@@ -146,6 +174,16 @@ def bound(bytes_moved, flops):
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def touched_texels(splat, coords, scale, n3, h, w):
+    """Distinct in-plane texels among the 4 corners of every (plane, point):
+    what the splat must read of the planes for the coordinate gradient."""
+    y0, x0, _, _, masks = splat._corners(coords, scale, h, w)
+    seen = torch.zeros(n3 * h * w, dtype=torch.bool, device=coords.device)
+    for idx, m in zip(splat._corner_index(y0, x0, h, w), masks):
+        seen[idx[m > 0]] = True
+    return int(seen.sum())
+
+
 def train_kernel_phase(ray_march, splat):
     """K3's backward and K1 against their plain versions at the training shapes."""
     g = torch.Generator(device='cuda').manual_seed(0)
@@ -207,14 +245,15 @@ def train_kernel_phase(ray_march, splat):
     g_out = g_out.permute(0, 2, 1)[:, :, None]  # [3N, F, 1, P]
     library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
         g_out, planes.permute(0, 3, 1, 2), grid, 0, 0, True, [True, True]), 10)
-    # planes and g_planes; the cotangent, coords and g_coords
-    bytes_moved = 4 * (2 * 3 * n * h * w * f + n * p * (f + 6))
+    # the touched texels of the planes, all of g_planes; the cotangent, coords and g_coords
+    texels = touched_texels(splat, coords, scale, 3 * n, h, w)
+    bytes_moved = 4 * (texels * f + 3 * n * h * w * f + n * p * (f + 6))
     flops = n * p * 3 * f * 20  # 4 weighted adds + the coordinate gradient, per plane and feature
     bound_ms, bound_by = bound(bytes_moved, flops)
     print(f'K1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sampler_2d_backward '
           f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms '
-          f'({bytes_moved / 1e9:.2f} GB by {bound_by}), '
-          f'{bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
+          f'({bytes_moved / 1e9:.2f} GB by {bound_by}; {texels} of {3 * n * h * w} texels '
+          f'touched), {bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
     k1 = dict(name='triplane_splat', route='cuda', source='tdgp_torch/csrc/splat.cu',
               replaces='tdgp/ops/splat.py:258', max_abs_err=max(errs), ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
@@ -223,11 +262,10 @@ def train_kernel_phase(ray_march, splat):
 
 def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='cuda'):
     """One step's Gmain gradient through the kernels and through the plain
-    versions, at full width and batch 4, held to 1e-3 or to twice the
-    float32 floor of the step (see the module's docstring)."""
+    versions, at full width and batch 4, held to GRAD_LIMIT (the depth
+    adaptor: see the module's docstring)."""
     from tdgp_torch.training import losses
     g_forward = losses.g_forward
-    plain = ['generator.plane_sample_impl=jnp', 'generator.ray_march_impl=jnp']
 
     def one_ulp(*args, **kwargs):  # the rendered patch, changed by about one ulp
         out, pp = g_forward(*args, **kwargs)
@@ -235,14 +273,15 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='c
         img = out.img * (1 + 2.0 ** -24 * torch.randn(out.img.shape, device=device, generator=g))
         return type(out)(img=img, depth=out.depth), pp
 
-    def gmain_grads(overrides, perturb=False):
-        cfg = train_config(overrides + ['generator.use_noise=false'])
+    def gmain_grads(k1_plain, k3_plain, perturb=False):
+        cfg = train_config(['generator.use_noise=false'])
         trainer = Trainer(cfg, device, seed=0)
         losses.g_forward = one_ulp if perturb else g_forward
         try:
-            stats = trainer.step(make_batch(cfg, 4, 2, device), sched, False,
-                                 Draws(torch.Generator(device=device).manual_seed(3)),
-                                 return_grads=True)
+            with plain_versions(k1_plain, k3_plain):
+                stats = trainer.step(make_batch(cfg, 4, 2, device), sched, False,
+                                     Draws(torch.Generator(device=device).manual_seed(3)),
+                                     return_grads=True)
         finally:
             losses.g_forward = g_forward
         return stats['_grads']['g']
@@ -253,19 +292,29 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='c
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        ref = gmain_grads(plain)
-        rel = rel_l2(gmain_grads([]), ref)
-        floor = rel_l2(gmain_grads(plain, perturb=True), ref)
+        ref = gmain_grads(True, True)
+        rel = rel_l2(gmain_grads(False, False), ref)
+        floor = rel_l2(gmain_grads(True, True, perturb=True), ref)
+        k1_alone = rel_l2(gmain_grads(False, True), ref)
+        k3_alone = rel_l2(gmain_grads(True, False), ref)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    limit = {n: max(1e-3, 2 * floor[n]) for n in rel}
+    for what, r in (('K1 alone', k1_alone), ('K3 alone', k3_alone)):
+        worst = max(r, key=r.get)
+        print(f'Gmain gradient, {what} vs plain: median relative L2 difference '
+              f'{float(np.median(list(r.values()))):.3g}, max {r[worst]:.3g} ({worst})')
+    check(max(k1_alone.values()) <= GRAD_LIMIT,
+          'the Gmain gradient through K1 alone disagrees with the plain path')
+    limit = {n: min(RAISED_LIMIT_CAP, max(GRAD_LIMIT, 2 * floor[n]))
+             if n.startswith(DEPTH_ADAPTOR) else GRAD_LIMIT for n in rel}
     name = max(rel, key=lambda n: rel[n] / limit[n])
-    raised = sorted(n for n in rel if limit[n] > 1e-3)
+    over = {n: f'{rel[n]:.3g} (limit {limit[n]:.3g}, floor {floor[n]:.3g})'
+            for n in sorted(rel) if rel[n] > GRAD_LIMIT}
     print(f'Gmain gradient, kernels vs plain versions: {len(rel)} parameters, median relative '
           f'L2 difference {float(np.median(list(rel.values()))):.3g}, worst against its limit '
           f'{rel[name]:.3g} ({name}; limit {limit[name]:.3g}); one-ulp floor of the step: median '
-          f'{float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g}; '
-          f'limit above 1e-3 for {raised}')
+          f'{float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g} '
+          f'({max(floor, key=floor.get)}); above {GRAD_LIMIT:g}: {over}')
     check(all(rel[n] <= limit[n] for n in rel),
           'the Gmain gradient through the kernels disagrees with the plain path')
 
@@ -383,12 +432,12 @@ def main():
         k3['launches'] = launches
 
     with phase('cross-check', seconds):
-        G_plain = load_generator(RUN_DIR, 'cuda', OVERRIDES[1:] + ['generator.ray_march_impl=jnp'])
-        plain_img = make_serving_fn(G_plain, truncation_psi=PSI)(*requests[0])
+        with plain_versions():
+            plain_img = serve(*requests[0])
         diff = float((plain_img - images[0]).abs().max())
         print(f'card, K3 vs plain marcher: max abs image diff {diff:.3g}')
         check(diff <= 1e-4, 'K3 image disagrees with the plain marcher')
-        del G_plain, plain_img
+        del plain_img
         card64 = make_serving_fn(G, truncation_psi=PSI, resolution=64)(*requests[0])
         G_cpu = load_generator(RUN_DIR, 'cpu', OVERRIDES)
         cpu64 = make_serving_fn(G_cpu, truncation_psi=PSI, resolution=64)(

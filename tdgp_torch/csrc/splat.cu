@@ -16,10 +16,14 @@
 //
 // What bounds it on an H100: device memory. Per point it reads the
 // cotangent row, the 12 corner rows of the planes and writes 12 rows of
-// atomics; over the call it must at least read planes, cotangent and
-// coordinates once and write g_planes and g_coords once (at batch 16,
-// 64^2 x 32 samples per pass, planes 48 x 512^2 x 32 float32: ~3.5 GB,
-// ~1 ms at 3.35 TB/s).
+// atomics; over the call it must at least read the cotangent and the
+// coordinates once, read each plane texel that some point's corners touch
+// once (the coordinate gradient needs them; the other texels are never
+// read), and write g_planes and g_coords once. At batch 16, 64^2 x 32
+// samples per pass and planes 48 x 512^2 x 32 float32, g_planes alone is
+// 1.61 GB (~0.5 ms at 3.35 TB/s); the texels read depend on where the
+// points fall (~80 % of them for points spread uniformly over the cube,
+// fewer where rays cluster on an object).
 //
 // What the design does about it: one warp per point, lane f on feature f,
 // so each corner's 32 features are one coalesced 128-byte run for the

@@ -29,7 +29,7 @@ from tdgp_torch.models.camera_adaptor import CameraAdaptor
 from tdgp_torch.models.depth_adaptor import DepthAdaptor
 from tdgp_torch.models.layers import FullyConnected, MappingNetwork
 from tdgp_torch.models.stylegan2 import SynthesisBlocksSequence, sg2_num_ws
-from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample, triplane_sample_reference
+from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample
 from tdgp_torch.rendering.camera import compute_cam2world_matrix
 from tdgp_torch.rendering.rays import sample_rays
 from tdgp_torch.rendering.renderer import RenderOptions, importance_render
@@ -53,8 +53,9 @@ def resolve_march_impl(impl: str) -> str:
 
 def resolve_sample_impl(impl: str) -> str:
     """'auto' -> 'fused': the plane-sampling backward runs in kernel K1 on the
-    card. 'jnp' (the JAX package's name for its plain path) takes K1's plain
-    version on any device, the reference the kernel is held against."""
+    card (on CPU tensors its wrapper computes the plain version). 'jnp', the
+    JAX package's name for its plain path, is the same on CPU tensors and is
+    refused on the card."""
     impl = 'fused' if impl == 'auto' else impl
     if impl not in ('fused', 'jnp'):
         raise NotImplementedError(f'plane_sample_impl {impl!r} is not ported')
@@ -138,12 +139,13 @@ class SynthesisNetwork(nn.Module):
             raise ValueError('the camera adaptor is disabled')
         return self.camera_adaptor(camera_params, z, c)
 
-    def _sample_fn(self):
+    def _sample_fn(self, device: torch.device):
         scale = self.cfg.camera.cube_scale
+        if self.sample_impl == 'jnp' and device.type != 'cpu':
+            raise NotImplementedError("plane_sample_impl 'jnp' (the plain splat) runs on CPU "
+                                      "tensors only; on the card it runs in kernel K1 ('fused')")
         if not torch.is_grad_enabled():
             return lambda planes, coords: tri_plane_sample(planes, coords, scale)
-        if self.sample_impl == 'jnp':
-            return lambda planes, coords: triplane_sample_reference(planes, coords, scale)
         return lambda planes, coords: triplane_sample(planes, coords, scale)
 
     def forward(self, ws: torch.Tensor, camera_params: TensorGroup,
@@ -172,7 +174,7 @@ class SynthesisNetwork(nn.Module):
         ray_o, ray_d = sample_rays(c2w, camera_params.fov, resolution=(w, h),
                                    patch_params=patch_params)
         opts = self.render_opts()
-        sample = self._sample_fn()
+        sample = self._sample_fn(planes.device)
 
         def run_model(coords):
             return self.tri_plane_mlp(sample(planes, coords))

@@ -26,7 +26,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tdgp_torch.rendering.camera import get_mean_camera_params
-from tdgp_torch.serving import exact_fp32, load_generator, make_serving_fn
+from tdgp_torch.serving import load_generator, make_serving_fn
+from tdgp_torch.utils.misc import exact_fp32
 from tdgp_torch.utils.tensor_group import TensorGroup
 
 RUN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

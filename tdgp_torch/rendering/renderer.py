@@ -9,8 +9,8 @@ std is added to the densities, all drawn from `draws`. The coarse pass
 needs every per-sample weight for the importance sampler and marches in
 plain PyTorch without gradients (the JAX package stops them there); the
 final pass needs only the per-ray sums and goes through kernel K3
-(`tdgp_torch/ops/ray_march.py`), forward and backward, when `march_impl`
-is 'fused'. Only the classical marcher is ported.
+(`tdgp_torch/ops/ray_march.py`), forward and backward; on CPU tensors its
+wrapper computes the plain versions. Only the classical marcher is ported.
 
 Shapes: colors [B, R, S, C]; densities and depths [B, R, S].
 """
@@ -21,8 +21,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from tdgp_torch.ops.ray_march import (classical_ray_march_plain, ray_march_reduced,
-                                      ray_march_reduced_reference)
+from tdgp_torch.ops.ray_march import classical_ray_march_plain, ray_march_reduced
 from tdgp_torch.utils.draws import Draws
 
 MARCH_IMPLS = ('fused', 'jnp')
@@ -38,8 +37,9 @@ class RenderOptions:
     sp_beta: float = 1.0
     use_inf_depth: bool = True
     last_back: bool = False
-    # 'fused': final march in kernel K3, forward and backward; 'jnp': their
-    # plain versions on any device (the JAX package's name for its plain path)
+    # 'fused': final march in kernel K3, forward and backward (their plain
+    # versions on CPU tensors); 'jnp', the JAX package's name for its plain
+    # path, is the same on CPU tensors and refused on the card
     march_impl: str = 'fused'
 
 
@@ -55,9 +55,11 @@ def march_reduced(colors: torch.Tensor, densities: torch.Tensor, depths: torch.T
     """Final-pass march -> (rgb, depth, weights_sum, final_transmittance)."""
     if opts.march_impl not in MARCH_IMPLS:
         raise ValueError(f'march_impl must be one of {MARCH_IMPLS}, got {opts.march_impl!r}')
-    march = ray_march_reduced if opts.march_impl == 'fused' else ray_march_reduced_reference
-    return march(colors, densities, depths, opts.clamp_mode, opts.sp_beta,
-                 opts.use_inf_depth, opts.last_back)
+    if opts.march_impl == 'jnp' and colors.device.type != 'cpu':
+        raise NotImplementedError("march_impl 'jnp' (the plain marcher) runs on CPU tensors "
+                                  "only; on the card the march runs in kernel K3 ('fused')")
+    return ray_march_reduced(colors, densities, depths, opts.clamp_mode, opts.sp_beta,
+                             opts.use_inf_depth, opts.last_back)
 
 
 def sample_stratified(batch: int, num_rays: int, num_steps: int, device: torch.device,

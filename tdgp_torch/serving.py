@@ -13,7 +13,6 @@ noise. The JAX package's `jax.export` artifact has no counterpart here.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Callable, Sequence, Union
 
@@ -22,24 +21,11 @@ import torch
 
 from tdgp_torch.config import load_config
 from tdgp_torch.models.epigraf import Generator
-from tdgp_torch.utils.misc import resolve_device
+from tdgp_torch.utils.misc import exact_fp32, resolve_device
 from tdgp_torch.utils.tensor_group import TensorGroup
 from tdgp_torch.weights import load_flat
 
 WEIGHTS_FILE = 'g_ema_leg1.npz'
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """Full float32 matrix products and convolutions on the card: TF32,
-    cuDNN's default for convolutions, keeps about three decimal digits."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def load_generator(run_dir: str, device: Union[str, torch.device] = 'cuda',

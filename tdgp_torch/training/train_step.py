@@ -41,12 +41,11 @@ from tdgp_torch.models.discriminator import Discriminator
 from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.models.layers import init_weights
 from tdgp_torch.rendering.camera import sample_camera_params
-from tdgp_torch.serving import exact_fp32
 from tdgp_torch.training import losses
 from tdgp_torch.training.patch import extract_patches, sample_patch_params, sample_random_c
 from tdgp_torch.training.schedules import Schedules
 from tdgp_torch.utils.draws import Draws
-from tdgp_torch.utils.misc import nan_to_num, resolve_device
+from tdgp_torch.utils.misc import exact_fp32, nan_to_num, resolve_device
 from tdgp_torch.utils.tensor_group import TensorGroup
 
 

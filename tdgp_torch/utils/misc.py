@@ -1,6 +1,8 @@
-"""Small training utilities (port of `tdgp/utils/misc.py`)."""
+"""Small utilities of the entry points and the training step (port of
+`tdgp/utils/misc.py`)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -12,6 +14,19 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """Full float32 matrix products and convolutions on the card: TF32,
+    cuDNN's default for convolutions, keeps about three decimal digits."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def linear_schedule(step: float, val_start: float, val_end: float, period: float,

@@ -603,3 +603,28 @@ def test_trainer_refuses_unported_settings(setting, override):
     cfg = pcfg.apply_overrides(fp32_d(pcfg.tiny_test_config()), [override])
     with pytest.raises(NotImplementedError, match=setting.replace('.', r'\.')):
         Trainer(cfg, 'cpu')
+
+
+@pytest.mark.parametrize('setting', ['plane_sample_impl', 'ray_march_impl'])
+def test_plain_impl_is_refused_off_the_cpu(setting):
+    """'jnp', the JAX package's name for its plain path, is the plain version
+    on CPU tensors (as 'fused' is there); on any other device the kernels
+    run, and 'jnp' is refused. Meta tensors stand in for the card's."""
+    meta = torch.device('meta')
+    cfg = pcfg.apply_overrides(pcfg.tiny_test_config(), [f'generator.{setting}=jnp'])
+    synthesis = Generator(cfg.generator).synthesis
+    if setting == 'plane_sample_impl':
+        assert callable(synthesis._sample_fn(torch.device('cpu')))
+        with pytest.raises(NotImplementedError, match="'jnp'"):
+            synthesis._sample_fn(meta)
+        return
+    opts = synthesis.render_opts()
+    assert opts.march_impl == 'jnp'
+    colors, densities = torch.rand(2, 3, 4, 3), torch.rand(2, 3, 4)
+    depths = torch.linspace(0.8, 1.2, 4).expand(2, 3, 4).contiguous()
+    ref = renderer.march_reduced(colors, densities, depths, dataclasses.replace(
+        opts, march_impl='fused'))
+    for a, b in zip(renderer.march_reduced(colors, densities, depths, opts), ref):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="'jnp'"):
+        renderer.march_reduced(*(t.to(meta) for t in (colors, densities, depths)), opts)

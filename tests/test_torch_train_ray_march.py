@@ -95,7 +95,8 @@ def test_missing_cotangents_count_as_zero_and_no_kernel_runs_on_the_cpu():
 
 
 def test_plain_route_matches_the_kernel_route_on_the_cpu():
-    """'jnp' (the plain forward and backward on any device) and 'fused'
+    """`ray_march_reduced_reference` (the plain forward and backward on any
+    device, the card's reference in chip_smoke.py) and `ray_march_reduced`
     compute the same function; on CPU tensors both are the plain version."""
     x, cots = _inputs(4)
     grads = []

@@ -13,10 +13,12 @@ importance u and density noise, the depth adaptor's pick), and replayed into
 the port. Nothing is pinned.
 
 The schedules are those at 300 kimg (blur faded out, nerf noise on). With
-the D-input blur of the first 200 kimg, the float32 sums of the minibatch-std
-layer lose so many digits to cancellation on the blurred patches that D's
-bias gradients differ by up to 2e-3 between the two frameworks (ROADMAP §3);
-the blur itself is held to 1e-4 in tests/test_torch_train_modules.py.
+the D-input blur of the first 200 kimg the step is too sensitive to float32
+rounding for 1e-4: D's bias gradients differ by up to 2e-3 between the two
+frameworks at float32 and by 1e-15 when both run in float64 (ROADMAP §3).
+That blur-on step is held in float64 by tests/test_torch_train_step_f64.py,
+through `run_step` here; the blur itself is held to 1e-4 in
+tests/test_torch_train_modules.py.
 
 Losses: rtol = atol = 1e-4. Gradients: rtol = 1e-4 and atol = 1e-4 x the
 largest gradient of the phase. Parameters after the step: rtol = 1e-4 and
@@ -143,25 +145,28 @@ def step_draws(cfg, rng, sched):
     return values
 
 
-@pytest.fixture(scope='module')
-def steps():
-    """(JAX stats, JAX new state, port stats, port trainer, the draws)."""
+def run_step(cur_nimg, dtype=np.float32):
+    """One step of both packages from the same weights, batch and draws
+    -> (JAX stats, JAX new state, port stats, port trainer, the draws).
+    With dtype float64 the weights and the batch are float64; the caller
+    has turned on float64 in both frameworks."""
     jcfg, cfg = fp32_d(jax_tiny()), fp32_d(tiny_test_config())
     state, G, D = jax_state(jcfg)
-    jsched, sched = jax_schedules(jcfg, CUR_NIMG), compute_schedules(cfg, CUR_NIMG)
+    state = jax.tree.map(lambda a: a.astype(dtype) if a.dtype == np.float32 else a, state)
+    jsched, sched = jax_schedules(jcfg, cur_nimg), compute_schedules(cfg, cur_nimg)
     rs = np.random.RandomState(0)
     res, gc = jcfg.dataset.resolution, jcfg.generator
     batch = dict(
-        img=rs.uniform(-1, 1, (N, res, res, 3)).astype(np.float32),
-        depth=rs.uniform(-1, 1, (N, res, res, 1)).astype(np.float32),
-        c=np.eye(4, dtype=np.float32)[np.arange(N) % 4],
+        img=rs.uniform(-1, 1, (N, res, res, 3)).astype(dtype),
+        depth=rs.uniform(-1, 1, (N, res, res, 1)).astype(dtype),
+        c=np.eye(4, dtype=dtype)[np.arange(N) % 4],
         camera_angles=np.concatenate([rs.uniform(0.5, 1.5, (N, 2)), np.zeros((N, 1))],
-                                     1).astype(np.float32),
-        embs=rs.randn(N, jcfg.dataset.embedding_dim).astype(np.float32),
-        gen_z_g=rs.randn(N, gc.z_dim).astype(np.float32),
-        gen_z_d=rs.randn(N, gc.z_dim).astype(np.float32),
-        gen_c_g=np.eye(4, dtype=np.float32)[(np.arange(N) + 1) % 4],
-        gen_c_d=np.eye(4, dtype=np.float32)[(np.arange(N) + 2) % 4])
+                                     1).astype(dtype),
+        embs=rs.randn(N, jcfg.dataset.embedding_dim).astype(dtype),
+        gen_z_g=rs.randn(N, gc.z_dim).astype(dtype),
+        gen_z_d=rs.randn(N, gc.z_dim).astype(dtype),
+        gen_c_g=np.eye(4, dtype=dtype)[(np.arange(N) + 1) % 4],
+        gen_c_d=np.eye(4, dtype=dtype)[(np.arange(N) + 2) % 4])
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jb['sample_idx'] = jnp.arange(N, dtype=jnp.int32)
     ks = jax.random.split(jax.random.PRNGKey(42), 3)
@@ -176,6 +181,8 @@ def steps():
     new_state, stats = jax.device_get(step(state, jb, rng, jsched))
 
     trainer = Trainer(cfg, 'cpu')
+    for module in (trainer.G, trainer.D, trainer.G_ema):
+        module.to(torch.from_numpy(np.zeros((), dtype)).dtype)
     s = jax.device_get(state)
     load_train_state(trainer, s.g_params, s.g_consts, s.g_ema_coll, s.d_params, s.ema_params,
                      s.ema_ema_coll)
@@ -185,6 +192,11 @@ def steps():
     draws = Replay(step_draws(jcfg, rng, jsched))
     port_stats = trainer.step(pb, sched, True, draws, return_grads=True)
     return stats, new_state, port_stats, trainer, draws
+
+
+@pytest.fixture(scope='module')
+def steps():
+    return run_step(CUR_NIMG)
 
 
 def test_every_draw_of_the_jax_step_is_replayed(steps):
