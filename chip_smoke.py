@@ -39,13 +39,40 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   StyleGAN2 noise is off: the gradient of a noise strength is
                   a sum of ~1e8 terms of random sign, which any other float32
                   order moves by ~1e-3.
-  6. train:       the satellite 256^2 G+D step (`tdgp_torch.profile_training`:
+  6. inference kernels: K4 (triplane_mlp) at the served shape, [4, 524288, 32]
+                  -> 64 -> 4, and K5 (bias_act) at [4, 512, 512, 64] (lrelu,
+                  clamp 256; also as the NHWC view of an NCHW tensor) and at a
+                  small shape for each of the nine activations, against their
+                  plain versions: K4 <= 1e-5 x max |plain| (sums over 32 and 64
+                  terms in another order), K5 <= 1e-6 x max |plain|
+                  (elementwise; expf/tanhf ulps). Kernel, plain and bound
+                  times; K4 also beside the two FullyConnected layers it
+                  replaces (plain bias_act), a yardstick that the port no
+                  longer calls. No single PyTorch call computes either.
+  7. inference:   the trained flagship through `tdgp_torch.inference` and
+                  `tdgp_torch.geometry` (loaded by the entry points'
+                  `load_run`): a grid of seeds 0-15 at batch 4 with truncation
+                  0.7 (per-class averages), a front_circle trajectory of 2 seeds
+                  x 16 frames, and the 128^3 density grid of seed 0 (64 chunks
+                  of 32^3) marched into a mesh by the C++ marching; images in
+                  [0, 1], a non-empty mesh; ms per batch, images/s, peak memory;
+                  K4 launched 2 passes x 4 chunks per batch and once per density
+                  chunk, K3 4 times per batch, K5 once per bias_act call on a
+                  CUDA tensor. Then one grid batch and the density grid again
+                  with the plain versions of K4 and K5: image <= 1e-4 max abs,
+                  sigma <= 1e-5 x max |sigma|. Then the two entry points
+                  (`python3 -m tdgp_torch.scripts.inference`, image_grid and
+                  video_grid, and `... .extract_geometry`), each run once on a
+                  small workload into a temporary directory.
+  8. train:       the satellite 256^2 G+D step (`tdgp_torch.profile_training`:
                   float32, random weights from a seed, batch 16 of a
                   synthetic batch): one warm-up step, then plain steps and one
                   R1 step; losses finite, every parameter of G and D moved,
                   the EMA moved, K1 / K3 / K3-backward launched as often as
                   the step implies; ms per step, images/s at the 15:1
-                  plain:R1 cadence, peak memory.
+                  plain:R1 cadence, peak memory; K4 and K5 launches printed as
+                  they fall (the forwards the step runs without gradients).
+Serving (2) also counts K4 (8 per request) and K5 launches per request.
 Prints the card's name and power limit, each phase's seconds, a JSON line
 of per-kernel numbers, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,6 +83,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,22 +99,54 @@ RAISED_LIMIT_CAP = 4e-3     # ... up to 2x their one-ulp floor, and never above 
 
 
 @contextlib.contextmanager
-def plain_versions(k1=True, k3=True):
-    """The generator with the plain PyTorch versions of K1 (backward) and K3
-    (forward and backward) in place of the kernels' wrappers, on the card:
-    the reference the kernels' path is held against."""
-    from tdgp_torch.models import epigraf
-    from tdgp_torch.ops import ray_march, splat
+def plain_versions(k1=True, k3=True, k4=False, k5=False):
+    """The generator with the plain PyTorch versions of K1 (backward), K3
+    (forward and backward), K4 and K5 in place of the kernels' wrappers, on
+    the card: the reference the kernels' path is held against."""
+    from tdgp_torch.models import epigraf, layers, stylegan2
+    from tdgp_torch.ops import bias_act, ray_march, splat, triplane_mlp
     from tdgp_torch.rendering import renderer
-    saved = epigraf.triplane_sample, renderer.ray_march_reduced
+    saved = (epigraf.triplane_sample, renderer.ray_march_reduced, epigraf.triplane_mlp,
+             layers.bias_act, stylegan2.bias_act)
     if k1:
         epigraf.triplane_sample = splat.triplane_sample_reference
     if k3:
         renderer.ray_march_reduced = ray_march.ray_march_reduced_reference
+    if k4:
+        epigraf.triplane_mlp = triplane_mlp.triplane_mlp_plain
+    if k5:
+        layers.bias_act = stylegan2.bias_act = bias_act.bias_act_plain
     try:
         yield
     finally:
-        epigraf.triplane_sample, renderer.ray_march_reduced = saved
+        (epigraf.triplane_sample, renderer.ray_march_reduced, epigraf.triplane_mlp,
+         layers.bias_act, stylegan2.bias_act) = saved
+
+
+class BiasActCalls:
+    """Counts the calls of `bias_act` on CUDA tensors made by the models
+    (`models/layers.py`, `models/stylegan2.py`) while it is entered: the
+    number of K5 launches a path without gradients should show; and, of
+    those, the calls on tensors that are not contiguous (K5 takes them as
+    strided views)."""
+
+    def __enter__(self):
+        from tdgp_torch.models import layers, stylegan2
+        self.count = self.strided = 0
+        self._saved = layers.bias_act, stylegan2.bias_act
+        inner = layers.bias_act
+
+        def counted(x, *args, **kwargs):
+            self.count += x.is_cuda
+            self.strided += x.is_cuda and not x.is_contiguous()
+            return inner(x, *args, **kwargs)
+
+        layers.bias_act = stylegan2.bias_act = counted
+        return self
+
+    def __exit__(self, *exc):
+        from tdgp_torch.models import layers, stylegan2
+        layers.bias_act, stylegan2.bias_act = self._saved
 
 
 @contextlib.contextmanager
@@ -151,11 +211,8 @@ def kernel_phase(ray_march):
     args = (colors, densities, depths, 'softplus', 1.0, True, False)
     ms = cuda_ms(lambda: ray_march.ray_march_reduced(*args), 500)
     plain_ms = cuda_ms(lambda: ray_march.ray_march_reduced_plain(*args), 50)
-    n = b * r
-    bytes_moved = 4 * (n * s * (c + 2) + n * (c + 3))  # inputs read once, outputs written once
-    flops = n * s * (2 * c + 14)  # clamp, delta, alpha, transmittance, weighted sums
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    bound_by = 'bytes' if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS else 'operations'
+    bytes_moved, flops = k3_work(b, r, s, c)
+    bound_ms, bound_by = bound(bytes_moved, flops)
     print(f'K3 at [{b},{r},{s},{c}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
           f'bound {1e3 * bound_ms:.1f} us ({bytes_moved / 1e6:.1f} MB by {bound_by}), '
           f'{bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
@@ -166,6 +223,13 @@ def kernel_phase(ray_march):
     return dict(name='ray_march_reduced', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
                 replaces='tdgp/ops/pallas_kernels.py:86', max_abs_err=worst, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def k3_work(b, r, s, c):
+    """(bytes, flops) of K3's forward over [b, r, s, c]: inputs read once,
+    outputs written once; clamp, delta, alpha, transmittance, weighted sums."""
+    n = b * r
+    return 4 * (n * s * (c + 2) + n * (c + 3)), n * s * (2 * c + 14)
 
 
 def bound(bytes_moved, flops):
@@ -216,6 +280,10 @@ def train_kernel_phase(ray_march, splat):
     bound_ms, bound_by = bound(bytes_moved, flops)
     print(f'K3 backward at [{b},{r},{s},{c}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
           f'bound {1e3 * bound_ms:.1f} us ({bytes_moved / 1e6:.1f} MB by {bound_by})')
+    fwd_bytes, fwd_flops = k3_work(b, r, s, c)
+    fwd_bound_ms, fwd_bound_by = bound(fwd_bytes, fwd_flops)
+    print(f'K3 forward at the training shape [{b},{r},{s},{c}]: bound {1e3 * fwd_bound_ms:.1f} us '
+          f'({fwd_bytes / 1e6:.1f} MB by {fwd_bound_by})')
     k3_bwd = dict(name='ray_march_reduced_bwd', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
                   replaces='tdgp/ops/pallas_kernels.py:251', max_abs_err=worst, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -319,8 +387,203 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='c
           'the Gmain gradient through the kernels disagrees with the plain path')
 
 
-def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, device='cuda'):
-    """The satellite step at full width: warm-up, plain steps, one R1 step."""
+def inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights):
+    """K4 and K5 against their plain versions at the shapes of the served path."""
+    g = torch.Generator(device='cuda').manual_seed(0)
+    n, p, f, hid, out = 4, 16384 * 32, 32, 64, 4  # one render pass of one ray chunk
+    cpu_gen = torch.Generator().manual_seed(0)
+    fc0, fc1 = FullyConnected(f, hid, activation='lrelu'), FullyConnected(hid, out)
+    for fc in (fc0, fc1):
+        init_weights(fc, cpu_gen)
+        with torch.no_grad():
+            fc.bias.copy_(torch.randn(fc.bias.shape, generator=cpu_gen) * 0.1)
+    fc0, fc1 = fc0.cuda(), fc1.cuda()
+    feats = torch.randn(n, p, f, device='cuda', generator=g)
+    with torch.no_grad():
+        weights = (*triplane_mlp.fold_fully_connected(fc0),
+                   *triplane_mlp.fold_fully_connected(fc1))
+        got = triplane_mlp.triplane_mlp(feats, *weights)
+        ref = triplane_mlp.triplane_mlp_plain(feats, *weights)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        rel = [e / float(b.abs().max()) for e, b in zip(errs, ref)]
+        print(f'K4 at [{n},{p},{f}] -> {hid} -> {out}: max abs diff / max |plain| of rgb/sigma '
+              f'= {rel}')
+        check(all(e <= 1e-5 for e in rel), 'K4 disagrees with its plain version')
+        ms = cuda_ms(lambda: triplane_mlp.triplane_mlp(feats, *weights), 50)
+        plain_ms = cuda_ms(lambda: triplane_mlp.triplane_mlp_plain(feats, *weights), 10)
+        k5_before = bias_act.bias_act.launches
+        with plain_versions(k1=False, k3=False, k5=True):  # the path before K4 and K5
+            layers_ms = cuda_ms(lambda: fc1(fc0(feats)), 10)
+        check(bias_act.bias_act.launches == k5_before, 'the yardstick launched K5')
+    t = n * p
+    bound_ms, bound_by = bound(4 * (t * (f + out) + f * hid + hid + hid * out + out),
+                               t * (2 * f * hid + 2 * hid * out))
+    print(f'K4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two FullyConnected layers '
+          f'{layers_ms:.4f} ms, bound {bound_ms:.4f} ms (by {bound_by}), '
+          f'{t * (2 * f * hid + 2 * hid * out) / (ms * 1e-3) / 1e12:.1f} TFLOP/s')
+    k4 = dict(name='triplane_mlp', route='cuda', source='tdgp_torch/csrc/triplane_mlp.cu',
+              replaces='tdgp/ops/pallas_kernels.py:305', max_abs_err=max(errs), ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+              two_layer_ms=layers_ms)
+    del feats, got, ref
+
+    x = torch.randn(4, 512, 512, 64, device='cuda', generator=g) * 100  # some beyond the clamp
+    b = torch.randn(64, device='cuda', generator=g)
+    worst = 0.0
+    with torch.no_grad():
+        cases = [('lrelu', x, b, dict(clamp=256.0)),
+                 ('lrelu', x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), b,
+                  dict(clamp=256.0))]  # the NHWC view of an NCHW tensor
+        for act in bias_act.activation_funcs:
+            xs = torch.randn(1023, 12, device='cuda', generator=g) * 3
+            bs = torch.randn(12, device='cuda', generator=g)
+            cases += [(act, xs, bs, dict(alpha=0.3, gain=0.7, clamp=2.5)),
+                      (act, torch.randn(4, 31, 33, 8, device='cuda', generator=g) * 3, None, {})]
+        for act, xi, bi, opts in cases:
+            got = bias_act.bias_act(xi, bi, act=act, **opts)
+            ref = bias_act.bias_act_plain(xi, bi, act=act, **opts)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            check(got.stride() == xi.stride(), 'K5 changed the layout')
+            check(err <= 1e-6 * float(ref.abs().max()),
+                  f'K5 {act} at {tuple(xi.shape)} disagrees with its plain version: {err:.3g}')
+            worst = max(worst, err)
+        print(f'K5 at {len(cases)} shapes and activations: max abs diff {worst:.3g} '
+              f'(<= 1e-6 x max |plain| each)')
+        ms = cuda_ms(lambda: bias_act.bias_act(x, b, act='lrelu', clamp=256.0), 100)
+        view_ms = cuda_ms(lambda: bias_act.bias_act(cases[1][1], b, act='lrelu', clamp=256.0), 100)
+        plain_ms = cuda_ms(lambda: bias_act.bias_act_plain(x, b, act='lrelu', clamp=256.0), 20)
+    bound_ms, bound_by = bound(8 * x.numel() + 4 * b.numel(), 4 * x.numel())
+    print(f'K5 at [4,512,512,64] lrelu clamp 256: kernel {ms:.4f} ms (NHWC view of NCHW '
+          f'{view_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (by {bound_by}), '
+          f'{8 * x.numel() / (ms * 1e-3) / 1e12:.2f} TB/s')
+    k5 = dict(name='bias_act', route='cuda', source='tdgp_torch/csrc/bias_act.cu',
+              replaces='tdgp/ops/pallas_kernels.py:41', max_abs_err=worst, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return k4, k5
+
+
+def reset_counts(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
+    """Seed grid, trajectory and mesh of the run's generator, through the
+    entry points' functions; then the plain K4 and K5; then the entry points."""
+    from tdgp_torch import geometry, inference
+    from tdgp_torch.ops import bias_act, triplane_mlp
+    from tdgp_torch.scripts import extract_geometry as geometry_script
+    from tdgp_torch.scripts import inference as inference_script
+
+    cfg, G = inference_script.load_run(run_dir, device=device, overrides=overrides)
+    gc = G.cfg
+    res, batch = gc.img_resolution, 4
+    chunks = (res * res) // (gc.max_batch_res ** 2)
+    seeds = list(range(16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    launches = {}
+
+    def read(what, k3_expected, k4_expected, calls):
+        got = {c.__name__: c.launches for c in counters}
+        expected = {'ray_march_reduced': k3_expected, 'triplane_mlp': k4_expected,
+                    'bias_act': calls.count}
+        print(f'{what}: launches {got} (expected {expected})')
+        check(got == expected, f'kernel launch counts of the {what}')
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        reset_counts(counters)
+
+    with BiasActCalls() as calls:
+        t0 = time.perf_counter()
+        c = inference_script.class_labels(cfg, seeds, None, torch.device(device))
+        z = inference.sample_z_from_seeds(seeds, gc.z_dim, device)
+        cams = inference.canonical_cameras(cfg, len(seeds), G=G, z=z, c=c)
+        ws = inference.sample_ws_from_seeds(G, seeds, c, cams.angles, truncation_psi=0.7)
+        imgs = inference.generate(G, ws, cams, batch_size=batch)
+        grid_s = time.perf_counter() - t0
+        read('seed grid', 4 * chunks, 4 * 2 * chunks, calls)
+    check(imgs.shape == (16, res, res, 3), f'grid images {imgs.shape}')
+    check(bool(np.isfinite(imgs).all()) and imgs.min() >= 0.0 and imgs.max() <= 1.0,
+          'grid pixels not finite or outside [0, 1]')
+    inference.save_image(inference.make_grid(imgs), os.path.join(tmp_dir, 'grid.png'))
+
+    with BiasActCalls() as calls:
+        t0 = time.perf_counter()
+        traj = dict(name='front_circle', num_frames=16, fov_diff=1.0, yaw_diff=0.5,
+                    pitch_diff=0.3)
+        cams_traj = inference.generate_camera_trajectory(traj, cams.select(slice(0, 2)))
+        frames = inference.generate_trajectory(G, ws[:2], cams_traj, batch_size=batch)
+        traj_s = time.perf_counter() - t0
+        n_batches = 2 * 16 // batch
+        read('trajectory', n_batches * chunks, n_batches * 2 * chunks, calls)
+    check(frames.shape == (16, 2, res, res, 3), f'trajectory frames {frames.shape}')
+    check(bool(np.isfinite(frames).all()) and frames.min() >= 0.0 and frames.max() <= 1.0,
+          'trajectory pixels not finite or outside [0, 1]')
+    inference.save_video_frames(np.stack([inference.make_grid(f) for f in frames]),
+                                os.path.join(tmp_dir, 'video.gif'))
+
+    with BiasActCalls() as calls:
+        t0 = time.perf_counter()
+        verts, faces, sigma = geometry.extract_geometry(G, ws[:1], resolution=128,
+                                                        cube_scale=cfg.camera.cube_scale)
+        geo_s = time.perf_counter() - t0
+        read('density grid and mesh', 0, 128 ** 3 // 32 ** 3, calls)
+    check(sigma.shape == (128, 128, 128) and bool(np.isfinite(sigma).all()), 'density grid')
+    check(len(verts) > 0 and len(faces) > 0 and int(faces.max()) < len(verts), 'empty mesh')
+    check(bool(np.all(np.abs(verts) <= cfg.camera.cube_scale + 1e-6)), 'mesh outside the cube')
+    geometry.save_obj(verts, faces, os.path.join(tmp_dir, 'seed0000.obj'))
+    peak = torch.cuda.max_memory_allocated()
+    print(f'inference at {res}x{res}: seed grid of 16 at batch {batch} {grid_s:.2f} s '
+          f'({1e3 * grid_s / 4:.1f} ms per batch, {16 / grid_s:.2f} images/s, mapping and '
+          f'per-class averages included); front_circle 2 x 16 frames {traj_s:.2f} s '
+          f'({1e3 * traj_s / n_batches:.1f} ms per batch, {32 / traj_s:.2f} images/s); density '
+          f'grid 128^3 + mesh {geo_s:.2f} s ({len(verts)} vertices, {len(faces)} faces); '
+          f'peak memory {peak / 2**30:.2f} GiB')
+
+    with plain_versions(k1=False, k3=False, k4=True, k5=True):
+        plain_imgs = inference.generate(G, ws[:batch], cams.select(slice(0, batch)),
+                                        batch_size=batch)
+        plain_sigma = geometry.extract_density_grid(G, ws[:1], 128, cfg.camera.cube_scale)
+    check(triplane_mlp.triplane_mlp.launches == 0 and bias_act.bias_act.launches == 0,
+          'the plain run launched K4 or K5')
+    diff = float(np.abs(plain_imgs - imgs[:batch]).max())
+    inner = (slice(1, -1),) * 3  # extract_geometry zeroed the border
+    sigma_rel = float(np.abs(plain_sigma[inner] - sigma[inner]).max()
+                      / np.abs(plain_sigma[inner]).max())
+    print(f'card, K4 + K5 vs their plain versions: max abs image diff {diff:.3g}; density '
+          f'grid max abs diff / max |sigma| {sigma_rel:.3g}')
+    check(diff <= 1e-4, 'the image through K4 and K5 disagrees with the plain versions')
+    check(sigma_rel <= 1e-5, 'the density grid through K4 and K5 disagrees with the plain versions')
+    reset_counts(counters)
+
+    run = ['--run-dir', run_dir, '--device', device]
+    for o in overrides:
+        run += ['--override', o]
+    t0 = time.perf_counter()
+    inference_script.main(run + ['--seeds', '0-3', '--truncation', '0.7',
+                                 '--output', os.path.join(tmp_dir, 'cli_grid.png')])
+    inference_script.main(run + ['--vis', 'video_grid', '--seeds', '0-1', '--num-frames', '4',
+                                 '--output', os.path.join(tmp_dir, 'cli_video.gif')])
+    geometry_script.main(run + ['--seeds', '1', '--out-dir', tmp_dir, '--save-mrc'])
+    written = sorted(os.listdir(tmp_dir))
+    print(f'entry points {time.perf_counter() - t0:.1f} s; wrote {written}')
+    check({'cli_grid.png', 'cli_video.gif', 'seed0001.obj', 'seed0001.mrc'} <= set(written),
+          'an entry point wrote no output')
+    check(triplane_mlp.triplane_mlp.launches == 2 * chunks * (1 + 2) + 64,
+          'the entry points did not run K4 as implied')
+    reset_counts(counters)
+    return launches
+
+
+def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, printed,
+                device='cuda'):
+    """The satellite step at full width: warm-up, plain steps, one R1 step.
+    `counters` are checked against what the step implies, `printed` only
+    printed."""
     trainer = Trainer(cfg, device, seed=0)
     batch = make_batch(cfg, batch_size, 0, device)
     draws = Draws(torch.Generator(device=device).manual_seed(1))
@@ -330,8 +593,7 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, de
     trainer.step(batch, sched, False, draws)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters + printed)
     plain_ms, history = [], []
     for _ in range(TRAIN_PLAIN_STEPS):
         t0 = time.perf_counter()
@@ -343,6 +605,7 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, de
     torch.cuda.synchronize()
     r1_ms = 1e3 * (time.perf_counter() - t0)
     launches = {c.__name__: c.launches for c in counters}
+    off_gradient = {c.__name__: c.launches for c in printed}
     peak = torch.cuda.max_memory_allocated()
 
     losses = {k: float(v) for k, v in history[-1].items()}
@@ -361,13 +624,14 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, de
     print(f'launches over {steps} steps: {launches} (expected {expected}); per step: '
           + ', '.join(f'{k} {v / steps:g}' for k, v in launches.items()))
     check(launches == expected, 'kernel launch counts of the training path')
+    print(f'launches over {steps} steps of the kernels off the gradient path: {off_gradient}')
     t_plain = float(np.median(plain_ms))
     imgs_per_s = 16 * batch_size / (15 * t_plain / 1e3 + r1_ms / 1e3)
     print(f'training step, satellite 256^2, batch {batch_size} (batch_gpu '
           f'{cfg.training.batch_gpu}): plain ms {["%.1f" % t for t in plain_ms]}, median '
           f'{t_plain:.1f} ms; R1 step {r1_ms:.1f} ms; {imgs_per_s:.2f} images/s at 15:1; '
           f'peak memory {peak / 2**30:.2f} GiB')
-    return launches
+    return {**launches, **off_gradient}
 
 
 def main():
@@ -376,7 +640,8 @@ def main():
         return 1
     t_start = time.perf_counter()
     from tdgp_torch import profile_training
-    from tdgp_torch.ops import cuda_build, ray_march, splat
+    from tdgp_torch.models.layers import FullyConnected, init_weights
+    from tdgp_torch.ops import bias_act, cuda_build, ray_march, splat, triplane_mlp
     from tdgp_torch.profile_serving import BATCH, OVERRIDES, PSI, RUN_DIR, request
     from tdgp_torch.serving import load_generator, make_serving_fn
     from tdgp_torch.training.schedules import compute_schedules
@@ -391,7 +656,7 @@ def main():
 
     seconds = {}
     with phase('build', seconds):
-        for name, path in cuda_build.build(list(cuda_build.sources())).items():
+        for name, path in cuda_build.build(list(cuda_build.sources()), ptxas_info=True).items():
             print(f'built {name}: {os.path.relpath(path, ROOT)}')
 
     with phase('kernel', seconds):
@@ -405,14 +670,17 @@ def main():
         serve(*requests[0])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ray_march.ray_march_reduced.launches = 0
+        served = [ray_march.ray_march_reduced, triplane_mlp.triplane_mlp, bias_act.bias_act]
+        reset_counts(served)
         images, times = [], []
-        for req in requests:
-            t0 = time.perf_counter()
-            images.append(serve(*req))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        with BiasActCalls() as calls:
+            for req in requests:
+                t0 = time.perf_counter()
+                images.append(serve(*req))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
         launches = ray_march.ray_march_reduced.launches
+        serve_launches = {c.__name__: c.launches for c in served}
         peak = torch.cuda.max_memory_allocated()
         res = gc.img_resolution
         chunks = (res * res) // (gc.max_batch_res ** 2)
@@ -425,11 +693,17 @@ def main():
         print(f'K3 launches over {len(requests)} requests: {launches} '
               f'(expected {chunks} chunks x {len(requests)})')
         check(launches == chunks * len(requests), 'K3 launch count')
+        print(f'K4 launches over {len(requests)} requests: {serve_launches["triplane_mlp"]} '
+              f'(expected 2 passes x {chunks} chunks x {len(requests)}); K5: '
+              f'{serve_launches["bias_act"]} (expected {calls.count} bias_act calls on CUDA '
+              f'tensors, {calls.strided} of them on tensors that are not contiguous), '
+              f'{serve_launches["bias_act"] / len(requests):g} per request')
+        check(serve_launches['triplane_mlp'] == 2 * chunks * len(requests), 'K4 launch count')
+        check(serve_launches['bias_act'] == calls.count, 'K5 launch count')
         ms = [1e3 * t for t in times]
         print(f'serving batch {BATCH} at {res}x{res}: ms per request {["%.1f" % t for t in ms]}, '
               f'median {np.median(ms):.1f} ms, {BATCH / np.median(times):.2f} images/s, '
               f'peak memory {peak / 2**30:.2f} GiB')
-        k3['launches'] = launches
 
     with phase('cross-check', seconds):
         with plain_versions():
@@ -455,20 +729,26 @@ def main():
         train_check_phase(Trainer, Draws, sched, profile_training.train_config,
                           profile_training.make_batch)
 
+    with phase('inference kernels', seconds):
+        k4, k5 = inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights)
+
+    with phase('inference', seconds), tempfile.TemporaryDirectory() as tmp_dir:
+        infer_launches = inference_phase(served, tmp_dir, RUN_DIR, OVERRIDES)
+
     with phase('train', seconds):
-        launches = train_phase(Trainer, Draws, sched, cfg, profile_training.make_batch,
-                               profile_training.BATCH,
-                               [splat.triplane_splat, ray_march.ray_march_reduced,
-                                ray_march.ray_march_reduced_bwd])
-        k3['launches_by_path'] = {'serve': k3['launches'],
-                                  'train': launches['ray_march_reduced']}
-        k3['launches'] += launches['ray_march_reduced']
-        k3_bwd['launches'] = launches['ray_march_reduced_bwd']
-        k1['launches'] = launches['triplane_splat']
+        train_launches = train_phase(Trainer, Draws, sched, cfg, profile_training.make_batch,
+                                     profile_training.BATCH,
+                                     [splat.triplane_splat, ray_march.ray_march_reduced,
+                                      ray_march.ray_march_reduced_bwd],
+                                     [triplane_mlp.triplane_mlp, bias_act.bias_act])
+    by_path = {'serve': serve_launches, 'inference': infer_launches, 'train': train_launches}
+    for k in (k3, k3_bwd, k1, k4, k5):
+        k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
+        k['launches'] = sum(k['launches_by_path'].values())
 
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
-    print(json.dumps({'kernels': [k3, k3_bwd, k1]}))
+    print(json.dumps({'kernels': [k3, k3_bwd, k1, k4, k5]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@ nothing, so a forward pass is a pure function of its inputs. In training
 StyleGAN2 noise, jittered and importance-sampled rays, density noise and a
 random depth-adaptor pick, all from `draws`. Where gradients flow, plane
 sampling goes through `triplane_sample`, whose backward is kernel K1, and
-the final march through kernel K3 forward and backward.
+the final march through kernel K3 forward and backward. Where they do not
+(serving, inference, geometry), the MLP runs in kernel K4, and every
+bias + activation of the decoder and the mapping in kernel K5.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from tdgp_torch.models.depth_adaptor import DepthAdaptor
 from tdgp_torch.models.layers import FullyConnected, MappingNetwork
 from tdgp_torch.models.stylegan2 import SynthesisBlocksSequence, sg2_num_ws
 from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample
+from tdgp_torch.ops.triplane_mlp import fold_fully_connected, triplane_mlp
 from tdgp_torch.rendering.camera import compute_cam2world_matrix
 from tdgp_torch.rendering.rays import sample_rays
 from tdgp_torch.rendering.renderer import RenderOptions, importance_render
@@ -63,7 +66,14 @@ def resolve_sample_impl(impl: str) -> str:
 
 
 class TriPlaneMLP(nn.Module):
-    """Plane features [N, P, F] -> (rgb [N, P, out_dim], sigma [N, P])."""
+    """Plane features [N, P, F] -> (rgb [N, P, out_dim], sigma [N, P]).
+
+    Where autograd records the call (training), it runs as its
+    `FullyConnected` layers. Otherwise (serving, inference, geometry) the
+    2-layer MLP runs in kernel K4 (`ops/triplane_mlp.py`) on the card, and
+    in K4's plain version on the CPU; on the card another `n_layers` is
+    refused, and on the CPU it runs as its layers.
+    """
 
     def __init__(self, cfg: GeneratorConfig, out_dim: int):
         super().__init__()
@@ -79,9 +89,17 @@ class TriPlaneMLP(nn.Module):
             setattr(self, f'fc{i}', FullyConnected(dims[i], dims[i + 1], activation=act))
 
     def forward(self, x: torch.Tensor):
-        for i in range(self.n_layers):
-            x = getattr(self, f'fc{i}')(x)
-        return x[..., :-1], x[..., -1]
+        records = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if records or (x.device.type == 'cpu' and self.n_layers != 2):
+            for i in range(self.n_layers):
+                x = getattr(self, f'fc{i}')(x)
+            return x[..., :-1], x[..., -1]
+        if self.n_layers != 2:
+            raise NotImplementedError(f'kernel K4 runs the 2-layer tri-plane MLP; n_layers '
+                                      f'{self.n_layers} runs only where gradients are recorded '
+                                      f'or on the CPU')
+        return triplane_mlp(x, *fold_fully_connected(self.fc0), *fold_fully_connected(self.fc1))
 
 
 class SynthesisNetwork(nn.Module):
@@ -138,6 +156,17 @@ class SynthesisNetwork(nn.Module):
         if self.camera_adaptor is None:
             raise ValueError('the camera adaptor is disabled')
         return self.camera_adaptor(camera_params, z, c)
+
+    def compute_densities(self, ws: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """Density at arbitrary points, for geometry extraction (the
+        counterpart of `tdgp/models/epigraf.py:207`), with the const noise:
+        ws [N, num_ws, w_dim], coords [N, P, 3] -> sigma [N, P]."""
+        return self.sample_densities(flatten_planes(self.decode_planes(ws)), coords)
+
+    def sample_densities(self, planes: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """sigma [N, P] at coords [N, P, 3] from decoded planes [N*3, H, W, F]."""
+        _, sigma = self.tri_plane_mlp(self._sample_fn(planes.device)(planes, coords))
+        return sigma
 
     def _sample_fn(self, device: torch.device):
         scale = self.cfg.camera.cube_scale

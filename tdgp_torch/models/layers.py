@@ -225,6 +225,6 @@ class Conv2dLayer(nn.Module):
         x = conv2d_resample(x, self.weight * self.weight_gain, f=self.resample_filter,
                             up=self.up, down=self.down, padding=self.padding,
                             flip_weight=(self.up == 1))
-        act_gain = activation_funcs[self.activation][1] * gain
+        act_gain = activation_funcs[self.activation].def_gain * gain
         clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=clamp)

@@ -12,6 +12,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Sequence
@@ -45,10 +46,21 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f'lib{name}-{digest[:16]}.so')
 
 
-def build(names: Sequence[str]) -> Dict[str, str]:
+def ptxas_summary(log: str) -> str:
+    """One line from `nvcc -Xptxas -v` output: the kernels, their registers,
+    spill stores and static shared memory."""
+    regs = [int(r) for r in re.findall(r'Used (\d+) registers', log)]
+    spills = sum(int(b) for b in re.findall(r'(\d+) bytes spill stores', log))
+    smem = [int(b) for b in re.findall(r'(\d+) bytes smem', log)] or [0]
+    return (f'{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers, '
+            f'{spills} bytes of spill stores, up to {max(smem)} bytes of static shared memory')
+
+
+def build(names: Sequence[str], ptxas_info: bool = False) -> Dict[str, str]:
     """Compile every named source that is not built yet, one nvcc process
     for each, all started together. Returns name -> library path; raises
-    with the compiler's output if any build fails."""
+    with the compiler's output if any build fails. With `ptxas_info`, prints
+    each build's `ptxas_summary` (the flag leaves the binary as it is)."""
     paths = {name: library_path(name) for name in names}
     todo = {name: path for name, path in paths.items() if not os.path.exists(path)}
     if not todo:
@@ -58,14 +70,17 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     procs = {}
     for name, path in todo.items():
         tmp = f'{path}.{os.getpid()}.tmp'
+        extra = ['-Xptxas', '-v'] if ptxas_info else []
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, '-o', tmp, sources()[name]],
+            [nvcc, *NVCC_FLAGS, *extra, '-o', tmp, sources()[name]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, todo[name])
+            if ptxas_info:
+                print(f'{name}.cu: {ptxas_summary(log)}')
         else:
             if os.path.exists(tmp):
                 os.remove(tmp)

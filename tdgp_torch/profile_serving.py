@@ -8,7 +8,11 @@ march in kernel K3), serves a warm-up request of batch 4 at 256x256, then
     decoding, and rendering (everything after the planes: rays, both passes
     of plane sampling + MLP, importance sampling, the merge and the marches),
   - traces the requests with torch.profiler and prints the device time by
-    operation, the device's busy share of the wall time and the peak memory.
+    operation, the device's busy share of the wall time and the peak memory,
+    and the port's own kernels by name (K3 the final march, K4 the tri-plane
+    MLP, K5 bias + activation): their device time, share and launches per
+    request. They are launched through ctypes, so they show up only among
+    the kernels, not among the operations.
 The last line is a JSON object of these numbers, with the card's name and
 power limit. Needs a CUDA device.
 """
@@ -35,6 +39,10 @@ RUN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 OVERRIDES = ['generator.ray_march_impl=fused', 'generator.fp32_only=true']
 BATCH = 4
 PSI = 0.7
+# the port's kernels on the served path: name -> a part of the CUDA kernels' names
+OWN_KERNELS = {'K3 ray_march_reduced': 'ray_march_reduced_kernel',
+               'K4 triplane_mlp': 'triplane_mlp_kernel',
+               'K5 bias_act': 'bias_act_'}
 
 
 def request(seed: int, cfg, device, batch: int = BATCH):
@@ -125,11 +133,19 @@ def main() -> int:
 
     top_ops = table('device time by operation:', ops, 20)
     top_kernels = table('device time by kernel:', kernels, 12)
+    own = {}
+    print("the port's kernels:")
+    for name, part in OWN_KERNELS.items():
+        found = [e for e in kernels if part in e.key]
+        ms = sum(_self_device_us(e) for e in found) / 1e3 / args.requests
+        calls = sum(e.count for e in found) / args.requests
+        own[name] = {'ms_per_request': ms, 'calls_per_request': calls, 'share': ms / device_ms}
+        print(f'{ms:9.3f} ms {100 * ms / device_ms:5.1f} %  x{calls:<6g} {name}')
     print(json.dumps({'card': card, 'batch': BATCH, 'resolution': G.cfg.img_resolution,
                       'stages_ms': stages, 'wall_ms_profiled': wall_ms,
                       'device_busy_ms': device_ms, 'device_busy_share': device_ms / wall_ms,
                       'peak_memory_gib': peak_gib, 'top_ops': top_ops,
-                      'top_kernels': top_kernels}))
+                      'top_kernels': top_kernels, 'own_kernels': own}))
     return 0
 
 
