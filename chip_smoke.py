@@ -22,9 +22,13 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   64^2 x 32 points per pass, planes 48 x 512^2 x 32) against
                   their plain versions, max abs diff <= 1e-5 x max |plain| on
                   every output (float32 sums in another order, and K1's
-                  atomics in an order that changes from run to run); kernel,
-                  plain, library and bound times. K1's bound counts the plane
-                  texels that the points' corners touch, not the whole planes.
+                  bins in an order that changes from run to run; K1 also at
+                  small shapes: F = 8, 16, partial strips, a ray's samples
+                  on one texel); kernel,
+                  plain, library and bound times. K1's bins on the card are
+                  held to the torch arithmetic `_bins` (the same entries in
+                  every strip). K1's bound counts the plane texels that the
+                  points' corners touch, not the whole planes.
   5. train check: one step's Gmain gradient at full width, batch 4, through
                   the kernels and through their plain versions on the card;
                   relative L2 difference <= 1e-3 for every parameter, also
@@ -40,7 +44,9 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   a sum of ~1e8 terms of random sign, which any other float32
                   order moves by ~1e-3.
   6. inference kernels: K4 (triplane_mlp) at the served shape, [4, 524288, 32]
-                  -> 64 -> 4, and K5 (bias_act) at [4, 512, 512, 64] (lrelu,
+                  -> 64 -> 4 (bound: the card's, with the products as
+                  3xTF32 on the tensor cores; the float32 CUDA cores' bound
+                  beside it), and K5 (bias_act) at [4, 512, 512, 64] (lrelu,
                   clamp 256; also as the NHWC view of an NCHW tensor) and at a
                   small shape for each of the nine activations, against their
                   plain versions: K4 <= 1e-5 x max |plain| (sums over 32 and 64
@@ -66,7 +72,10 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   small workload into a temporary directory.
   8. train:       the satellite 256^2 G+D step (`tdgp_torch.profile_training`:
                   float32, random weights from a seed, batch 16 of a
-                  synthetic batch): one warm-up step, then plain steps and one
+                  synthetic batch): one warm-up step, whose two K1 calls (the
+                  Gmain render's coarse and fine pass) are kept and K1 held
+                  on them as in 4, timed beside its bound, with the most
+                  (plane, point) corners on one texel; then plain steps and one
                   R1 step; losses finite, every parameter of G and D moved,
                   the EMA moved, K1 / K3 / K3-backward launched as often as
                   the step implies; ms per step, images/s at the 15:1
@@ -92,6 +101,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores, NVIDIA data sheet
 TRAIN_PLAIN_STEPS = 5       # timed plain steps of the training phase
 GRAD_LIMIT = 1e-3           # Gmain gradient, kernels vs plain: relative L2 per parameter
 DEPTH_ADAPTOR = 'synthesis.depth_adaptor.'  # the only parameters that may exceed it ...
@@ -232,20 +242,65 @@ def k3_work(b, r, s, c):
     return 4 * (n * s * (c + 2) + n * (c + 3)), n * s * (2 * c + 14)
 
 
-def bound(bytes_moved, flops):
-    """(least ms, 'bytes' or 'operations') on the card for the given work."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(bytes_moved, flops, flops_per_s=FP32_FLOPS):
+    """(least ms, 'bytes' or 'operations') on the card for the given work,
+    its operations at `flops_per_s`."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
-def touched_texels(splat, coords, scale, n3, h, w):
-    """Distinct in-plane texels among the 4 corners of every (plane, point):
-    what the splat must read of the planes for the coordinate gradient."""
+def corner_counts(splat, coords, scale, n3, h, w):
+    """How many (plane, point) corners land on each texel [N*3*H*W]: its
+    nonzeros are the texels the splat must read of the planes for the
+    coordinate gradient, its maximum the contention on one texel."""
     y0, x0, _, _, masks = splat._corners(coords, scale, h, w)
-    seen = torch.zeros(n3 * h * w, dtype=torch.bool, device=coords.device)
-    for idx, m in zip(splat._corner_index(y0, x0, h, w), masks):
-        seen[idx[m > 0]] = True
-    return int(seen.sum())
+    idx = torch.cat([i[m > 0] for i, m in zip(splat._corner_index(y0, x0, h, w), masks)])
+    return torch.bincount(idx, minlength=n3 * h * w)
+
+
+def k1_work(splat, planes, coords, scale, coords_grad=True):
+    """(bytes, flops, touched texels, most corners on one texel) of K1 on
+    these inputs: the touched texels of the planes (for the coordinate
+    gradient), all of g_planes; the cotangent, coords and g_coords."""
+    n3, h, w, f = planes.shape
+    n, p = coords.shape[0], coords.shape[1]
+    counts = corner_counts(splat, coords, scale, n3, h, w)
+    texels = int((counts > 0).sum())
+    bytes_moved = 4 * ((texels * f if coords_grad else 0) + n3 * h * w * f
+                       + n * p * (f + (6 if coords_grad else 3)))
+    flops = n * p * 3 * f * (20 if coords_grad else 8)  # 4 weighted adds, the coordinate gradient
+    return bytes_moved, flops, texels, int(counts.max())
+
+
+def bin_summary(splat, coords, h, w, scale):
+    """K1's bins for these points, in words: (plane, point) entries inside a
+    plane, entries after the copies at strip edges, the fullest strip."""
+    n3, p = 3 * coords.shape[0], coords.shape[1]
+    gxy = splat._plane_coords(coords, scale, h, w)
+    inside = int(((gxy[..., 0] >= -1) & (gxy[..., 0] < w) & (gxy[..., 1] >= -1)
+                  & (gxy[..., 1] < h)).sum())
+    _, offsets = splat.triplane_splat_bins(coords, h, w, scale)
+    sizes = offsets[1:] - offsets[:-1]
+    return (f'{inside} of {n3 * p} entries in their plane, {int(offsets[-1])} after the copies, '
+            f'at most {int(sizes.max())} in a strip, {int((sizes > 0).sum())} of {len(sizes)} '
+            f'strips not empty')
+
+
+def same_bins(splat, coords, scale, h, w):
+    """Whether the card's bins (`triplane_splat_bins`) hold the entries that
+    the torch arithmetic (`_bins`) puts in each strip."""
+    entries, offsets = splat.triplane_splat_bins(coords, h, w, scale)
+    ref_entries, ref_offsets = splat._bins(splat._plane_coords(coords, scale, h, w), h, w)
+    if not torch.equal(offsets, ref_offsets):
+        return False
+    n_entries = 3 * coords.shape[0] * coords.shape[1]
+
+    def keyed(ent, off):  # (bin, entry) pairs, sorted
+        rec = torch.arange(int(off[-1]), device=off.device, dtype=torch.int32)
+        b = torch.searchsorted(off, rec, right=True).long() - 1
+        return torch.sort(b * n_entries + ent[:len(rec)].long()).values
+
+    return torch.equal(keyed(entries, offsets), keyed(ref_entries, ref_offsets))
 
 
 def train_kernel_phase(ray_march, splat):
@@ -288,6 +343,29 @@ def train_kernel_phase(ray_march, splat):
                   replaces='tdgp/ops/pallas_kernels.py:251', max_abs_err=worst, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
+    # K1 at small shapes: the other instantiated widths, planes whose sides are
+    # not multiples of the strip's, the 32 samples of a ray on one texel (their
+    # own generator: the training shape's inputs below stay as they were)
+    g_small = torch.Generator(device='cuda').manual_seed(1)
+    for n, h, w, f, p, clustered in [(2, 40, 50, 8, 300, False), (3, 33, 17, 16, 777, False),
+                                     (2, 64, 64, 16, 4096, True), (2, 37, 21, 32, 1000, False)]:
+        planes = torch.randn(3 * n, h, w, f, device='cuda', generator=g_small)
+        coords = torch.rand(n, p, 3, device='cuda', generator=g_small) * 1.1 - 0.55
+        if clustered:
+            coords = (coords.view(n, p // 32, 32, 3)[:, :, :1] * 0.8 + 2e-3 * torch.rand(
+                n, p // 32, 32, 3, device='cuda', generator=g_small)).reshape(n, p, 3)
+        cot = torch.randn(n, p, f, device='cuda', generator=g_small)
+        check(same_bins(splat, coords, 0.5, h, w), f"K1's bins at F={f}, {h}x{w} differ")
+        for coords_grad in (True, False):
+            out = splat.triplane_splat(planes, coords, cot, 0.5, coords_grad)
+            ref = splat.triplane_sample_bwd_plain(planes, coords, cot, 0.5, coords_grad)
+            rel = [float((a - b_).abs().max() / b_.abs().max())
+                   for a, b_ in zip(out, ref) if b_ is not None]
+            check(all(e <= 1e-5 for e in rel),
+                  f'K1 at F={f}, planes {h}x{w} disagrees with its plain version: {rel}')
+    print('K1 at F = 8, 16, 32, planes 40x50, 33x17, 64x64 (rays on one texel), 37x21, with '
+          'and without the coordinate gradient: as its plain version (<= 1e-5 x max |plain|)')
+
     n, h, w, f, scale = 16, 512, 512, 32, 0.5
     p = 64 * 64 * 32  # points of one render pass per image
     planes = torch.randn(3 * n, h, w, f, device='cuda', generator=g)
@@ -295,16 +373,18 @@ def train_kernel_phase(ray_march, splat):
     coords[:, :64, 0] = scale        # on the last texel column of the x/y and x/z planes
     coords[:, 64:128, 1] = -scale    # on the first row
     cot = torch.randn(n, p, f, device='cuda', generator=g)
+    check(same_bins(splat, coords, scale, h, w), "K1's bins on the card differ from _bins")
     out = splat.triplane_splat(planes, coords, cot, scale)
     ref = splat.triplane_sample_bwd_plain(planes, coords, cot, scale)
     torch.cuda.synchronize()
     errs = [float((a - b_).abs().max()) for a, b_ in zip(out, ref)]
     rel = [e / float(b_.abs().max()) for e, b_ in zip(errs, ref)]
-    print(f'K1 at planes [{3 * n},{h},{w},{f}], {n} x {p} points: max abs diff / max |plain| '
-          f'of g_planes/g_coords = {rel}')
+    print(f'K1 at planes [{3 * n},{h},{w},{f}], {n} x {p} points: bins as _bins; max abs diff / '
+          f'max |plain| of g_planes/g_coords = {rel}')
     check(all(e <= 1e-5 for e in rel), 'K1 disagrees with its plain version')
     del out, ref
     ms = cuda_ms(lambda: splat.triplane_splat(planes, coords, cot, scale), 20)
+    bins_ms = cuda_ms(lambda: splat.triplane_splat_bins(coords, h, w, scale), 20)
     plain_ms = cuda_ms(lambda: splat.triplane_sample_bwd_plain(planes, coords, cot, scale), 3)
     # the one PyTorch call that computes the same adjoint: grid_sample's backward
     grid = torch.stack([coords[..., list(pr)] / scale for pr in ((0, 1), (0, 2), (1, 2))],
@@ -313,18 +393,17 @@ def train_kernel_phase(ray_march, splat):
     g_out = g_out.permute(0, 2, 1)[:, :, None]  # [3N, F, 1, P]
     library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
         g_out, planes.permute(0, 3, 1, 2), grid, 0, 0, True, [True, True]), 10)
-    # the touched texels of the planes, all of g_planes; the cotangent, coords and g_coords
-    texels = touched_texels(splat, coords, scale, 3 * n, h, w)
-    bytes_moved = 4 * (texels * f + 3 * n * h * w * f + n * p * (f + 6))
-    flops = n * p * 3 * f * 20  # 4 weighted adds + the coordinate gradient, per plane and feature
+    bytes_moved, flops, texels, most = k1_work(splat, planes, coords, scale)
     bound_ms, bound_by = bound(bytes_moved, flops)
-    print(f'K1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sampler_2d_backward '
-          f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms '
+    print(f'K1: kernel {ms:.4f} ms (its bins {bins_ms:.4f} ms; '
+          f'{bin_summary(splat, coords, h, w, scale)}), plain {plain_ms:.4f} ms, '
+          f'grid_sampler_2d_backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms '
           f'({bytes_moved / 1e9:.2f} GB by {bound_by}; {texels} of {3 * n * h * w} texels '
-          f'touched), {bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
+          f'touched, at most {most} corners on one), {bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
     k1 = dict(name='triplane_splat', route='cuda', source='tdgp_torch/csrc/splat.cu',
               replaces='tdgp/ops/splat.py:258', max_abs_err=max(errs), ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+              bins_ms=bins_ms)
     return k3_bwd, k1
 
 
@@ -417,15 +496,21 @@ def inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights)
             layers_ms = cuda_ms(lambda: fc1(fc0(feats)), 10)
         check(bias_act.bias_act.launches == k5_before, 'the yardstick launched K5')
     t = n * p
-    bound_ms, bound_by = bound(4 * (t * (f + out) + f * hid + hid + hid * out + out),
-                               t * (2 * f * hid + 2 * hid * out))
+    bytes_moved = 4 * (t * (f + out) + f * hid + hid + hid * out + out)
+    flops = t * (2 * f * hid + 2 * hid * out)
+    # the card's least time: the products as 3xTF32 on the tensor cores (three
+    # TF32 products each); the bound of the float32 CUDA cores beside it
+    bound_ms, bound_by = bound(bytes_moved, 3 * flops, TF32_FLOPS)
+    cuda_core_bound_ms, _ = bound(bytes_moved, flops)
     print(f'K4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two FullyConnected layers '
-          f'{layers_ms:.4f} ms, bound {bound_ms:.4f} ms (by {bound_by}), '
-          f'{t * (2 * f * hid + 2 * hid * out) / (ms * 1e-3) / 1e12:.1f} TFLOP/s')
+          f'{layers_ms:.4f} ms, bound {bound_ms:.4f} ms (by {bound_by}: {bytes_moved / 1e6:.1f} '
+          f'MB; '
+          f'3 x {flops / 1e9:.2f} GFLOP at TF32), CUDA-core bound {cuda_core_bound_ms:.4f} ms, '
+          f'{bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s')
     k4 = dict(name='triplane_mlp', route='cuda', source='tdgp_torch/csrc/triplane_mlp.cu',
               replaces='tdgp/ops/pallas_kernels.py:305', max_abs_err=max(errs), ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-              two_layer_ms=layers_ms)
+              cuda_core_bound_ms=cuda_core_bound_ms, two_layer_ms=layers_ms)
     del feats, got, ref
 
     x = torch.randn(4, 512, 512, 64, device='cuda', generator=g) * 100  # some beyond the clamp
@@ -579,19 +664,58 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
     return launches
 
 
-def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, printed,
-                device='cuda'):
-    """The satellite step at full width: warm-up, plain steps, one R1 step.
+def step_points_phase(calls):
+    """K1 on the arguments of its two calls in a training step (the coarse
+    and the fine render pass): against its plain version (<= 1e-5 x max
+    |plain|), its bins against `_bins`, its time beside its bound, and the
+    most (plane, point) corners on one texel."""
+    from tdgp_torch.ops import splat
+    readings = {}
+    for label, (planes, coords, g, scale, coords_grad) in calls:
+        n3, h, w, _ = planes.shape
+        planes, coords, g = planes.detach(), coords.detach(), g.detach()
+        check(same_bins(splat, coords, scale, h, w), f"K1's bins of the {label} pass differ")
+        out = splat.triplane_splat(planes, coords, g, scale, coords_grad)
+        ref = splat.triplane_sample_bwd_plain(planes, coords, g, scale, coords_grad)
+        torch.cuda.synchronize()
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(out, ref) if b is not None]
+        del out, ref
+        check(all(e <= 1e-5 for e in rel),
+              f'K1 disagrees with its plain version on the {label} pass')
+        ms = cuda_ms(lambda: splat.triplane_splat(planes, coords, g, scale, coords_grad), 20)
+        bins_ms = cuda_ms(lambda: splat.triplane_splat_bins(coords, h, w, scale), 20)
+        bytes_moved, flops, texels, most = k1_work(splat, planes, coords, scale, coords_grad)
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        print(f'K1 on the training step\'s {label} points (planes {list(planes.shape)}, coords '
+              f'{list(coords.shape)}, coordinate gradient {coords_grad}): max abs diff / max '
+              f'|plain| {rel}; kernel {ms:.4f} ms (its bins {bins_ms:.4f} ms; '
+              f'{bin_summary(splat, coords, h, w, scale)}), bound {bound_ms:.4f} ms '
+              f'({bytes_moved / 1e9:.2f} GB by {bound_by}; {texels} texels touched, at most '
+              f'{most} corners on one)')
+        readings.update({f'ms_step_{label}': ms, f'bound_ms_step_{label}': bound_ms,
+                         f'bins_ms_step_{label}': bins_ms,
+                         f'max_corners_per_texel_step_{label}': most,
+                         f'max_abs_err_step_{label}': max(rel)})
+    return readings
+
+
+def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, batch_size,
+                counters, printed, device='cuda'):
+    """The satellite step at full width: a warm-up step, whose K1 calls are
+    held and timed by `step_points_phase`, then plain steps and one R1 step.
     `counters` are checked against what the step implies, `printed` only
-    printed."""
+    printed. Returns the launches and the step-point readings of K1."""
     trainer = Trainer(cfg, device, seed=0)
     batch = make_batch(cfg, batch_size, 0, device)
     draws = Draws(torch.Generator(device=device).manual_seed(1))
     modules = {'G': trainer.G, 'D': trainer.D, 'G_ema': trainer.G_ema}
     before = {k: {n: p.detach().clone() for n, p in m.named_parameters()}
               for k, m in modules.items()}
-    trainer.step(batch, sched, False, draws)  # warm-up
+    calls = capture_splat_calls(trainer, batch, sched, draws)  # the warm-up step
     torch.cuda.synchronize()
+    k1_step = step_points_phase(calls)
+    del calls
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters + printed)
     plain_ms, history = [], []
@@ -631,7 +755,7 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, pr
           f'{cfg.training.batch_gpu}): plain ms {["%.1f" % t for t in plain_ms]}, median '
           f'{t_plain:.1f} ms; R1 step {r1_ms:.1f} ms; {imgs_per_s:.2f} images/s at 15:1; '
           f'peak memory {peak / 2**30:.2f} GiB')
-    return {**launches, **off_gradient}
+    return {**launches, **off_gradient}, k1_step
 
 
 def main():
@@ -736,11 +860,14 @@ def main():
         infer_launches = inference_phase(served, tmp_dir, RUN_DIR, OVERRIDES)
 
     with phase('train', seconds):
-        train_launches = train_phase(Trainer, Draws, sched, cfg, profile_training.make_batch,
-                                     profile_training.BATCH,
-                                     [splat.triplane_splat, ray_march.ray_march_reduced,
-                                      ray_march.ray_march_reduced_bwd],
-                                     [triplane_mlp.triplane_mlp, bias_act.bias_act])
+        train_launches, k1_step = train_phase(Trainer, Draws, sched, cfg,
+                                              profile_training.make_batch,
+                                              profile_training.capture_splat_calls,
+                                              profile_training.BATCH,
+                                              [splat.triplane_splat, ray_march.ray_march_reduced,
+                                               ray_march.ray_march_reduced_bwd],
+                                              [triplane_mlp.triplane_mlp, bias_act.bias_act])
+    k1.update(k1_step)
     by_path = {'serve': serve_launches, 'inference': infer_launches, 'train': train_launches}
     for k in (k3, k3_bwd, k1, k4, k5):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}

@@ -6,7 +6,9 @@ Port of `tdgp/ops/pallas_kernels.py:316 triplane_mlp_pallas` (kernel
 with the equalized-lr scales folded into w0 [F, HID], b0 [HID],
 w1 [HID, OUT] and b1 [OUT], as the TPU kernel takes them
 (`fold_fully_connected` folds a `FullyConnected`). The kernel is in
-`csrc/triplane_mlp.cu`; its source note gives the bound and the design.
+`csrc/triplane_mlp.cu`; its source note gives the bound and the design: the
+first product on the tensor cores as 3xTF32 (float32 accuracy from three
+TF32 products), the second on the CUDA cores in float32.
 
 `triplane_mlp` computes `triplane_mlp_plain` for CPU tensors, and only for
 them; for CUDA tensors it launches the kernel, counted in

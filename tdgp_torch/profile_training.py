@@ -10,8 +10,9 @@ of a synthetic real batch made on the card, schedules at 500 kimg. After a
 warm-up step it traces `--steps` plain steps and one R1 step with
 torch.profiler and prints the device time by phase (Gmain, camera
 regularizers, Dmain, R1, EMA, per run of each), by operation and by kernel
-(per step, averaged over the traced steps), the device's busy
-share of the wall time and the peak memory. The last line is a JSON object
+(per step, averaged over the traced steps), the port's own kernels (K1,
+K3, K3's backward) by name, the device's busy share of the wall time and the
+peak memory. The last line is a JSON object
 of these numbers, with the card's name and power limit. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -32,6 +33,14 @@ from tdgp_torch.training.train_step import PHASES, Trainer
 from tdgp_torch.utils.draws import Draws
 
 OVERRIDES = ['generator.fp32_only=true', 'discriminator.fp32_only=true']
+# the port's own kernels on the training path, by the names of their CUDA
+# functions (K1: its two binning kernels, the strip kernel and the
+# coordinate-gradient combination; its wrapper's memsets and offset sum are
+# left out)
+OWN_KERNELS = {'K1 triplane_splat': ('bin_count_kernel', 'bin_scatter_kernel',
+                                     'splat_strip_kernel', 'coords_grad_kernel'),
+               'K3 ray_march_reduced': ('ray_march_reduced_kernel',),
+               'K3 ray_march_reduced_bwd': ('ray_march_reduced_bwd_kernel',)}
 BATCH = 16
 CUR_NIMG = 500_000  # mid-training schedule values, as bench.py takes them
 
@@ -55,6 +64,39 @@ def make_batch(cfg: Config, n: int, seed: int, device) -> Dict[str, torch.Tensor
             'c': labels,
             'camera_angles': angles,
             'embs': torch.randn(n, cfg.dataset.embedding_dim, **kw)}
+
+
+def capture_splat_calls(trainer: Trainer, batch, sched, draws) -> List[Tuple[str, tuple]]:
+    """Runs one plain step of `trainer` and keeps the arguments of its calls
+    of kernel K1 (`ops.splat.triplane_splat`, the backward of the Gmain
+    render's plane sampling): [('coarse' | 'fine', (planes, coords, g,
+    scale, coords_grad))], in the order of the render passes' forwards."""
+    from tdgp_torch.models import epigraf
+    from tdgp_torch.ops import splat
+    sample, splat_fn = epigraf.triplane_sample, splat.triplane_splat
+    forwards, calls = [], []
+
+    def recorded_sample(planes, coords, scale):
+        if torch.is_grad_enabled() and planes.requires_grad:
+            forwards.append(coords.data_ptr())
+        return sample(planes, coords, scale)
+
+    def recorded_splat(planes, coords, g, scale, coords_grad=True):
+        calls.append((planes, coords, g, scale, coords_grad))
+        return splat_fn(planes, coords, g, scale, coords_grad)
+
+    recorded_splat.launches = splat_fn.launches  # the wrapper counts under its module name
+    epigraf.triplane_sample, splat.triplane_splat = recorded_sample, recorded_splat
+    try:
+        trainer.step(batch, sched, False, draws)
+    finally:
+        epigraf.triplane_sample, splat.triplane_splat = sample, splat_fn
+        splat_fn.launches = recorded_splat.launches
+    order = [len(forwards) - 1 - forwards[::-1].index(c[1].data_ptr()) for c in calls]
+    if len(calls) != 2 or len(set(order)) != 2:
+        raise RuntimeError(f'expected the coarse and the fine pass, got {len(calls)} calls '
+                           f'at forwards {order}')
+    return list(zip(('coarse', 'fine'), [c for _, c in sorted(zip(order, calls))]))
 
 
 def _self_device_us(event) -> float:
@@ -128,11 +170,19 @@ def main() -> int:
 
     top_ops = table('device time by operation:', ops, 25)
     top_kernels = table('device time by kernel:', kernels, 15)
+    print("the port's own kernels:")
+    own = {}
+    for name, parts in OWN_KERNELS.items():
+        found = [e for e in kernels if any(part in e.key for part in parts)]
+        ms = sum(_self_device_us(e) for e in found) / 1e3 / n_steps
+        calls = sum(e.count for e in found) / n_steps
+        own[name] = {'ms_per_step': ms, 'calls_per_step': calls, 'share': ms / device_ms}
+        print(f'{ms:9.3f} ms {100 * ms / device_ms:5.1f} %  x{calls:<6g} {name}')
     print(json.dumps({'card': card, 'batch': BATCH, 'steps': n_steps, 'r1_steps': 1,
                       'wall_ms_profiled': wall_ms, 'device_busy_ms': device_ms,
                       'device_busy_share': device_ms / wall_ms, 'phases_device_ms': phases,
                       'peak_memory_gib': peak_gib, 'top_ops': top_ops,
-                      'top_kernels': top_kernels}))
+                      'top_kernels': top_kernels, 'own_kernels': own}))
     return 0
 
 

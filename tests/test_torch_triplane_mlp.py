@@ -140,3 +140,38 @@ def test_wrapper_refuses_mismatched_weights():
     w0, b0, w1, b1 = map(torch.from_numpy, _folded_weights(8, 16, 4, seed=0))
     with pytest.raises(ValueError, match='do not fit'):
         triplane_mlp(torch.zeros(1, 3, 9), w0, b0, w1, b1)
+
+
+def _tf32(a):
+    """float32 -> the nearest TF32 value (10-bit mantissa, ties away from
+    zero), as `cvt.rna.tf32.f32` rounds."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_split_meets_the_card_limit_at_flagship_widths():
+    """K4 on the card runs x @ w0 as three TF32 products: with hi = tf32(v)
+    and lo = tf32(v - hi), x w0 = x_lo w_hi + x_hi w_lo + x_hi w_hi in
+    float32. Emulated here, with the second layer in float32 as the kernel
+    runs it, the split holds the plain version to the card's limit, 1e-5 x
+    max |plain|, where a single TF32 product does not."""
+    f, hid, out = 32, 64, 4
+    feats = (np.random.RandomState(5).randn(4, 4096, f) * 3).astype(np.float32)
+    w0, b0, w1, b1 = _folded_weights(f, hid, out, seed=3)
+    x_hi, w_hi = _tf32(feats), _tf32(w0)
+    x_lo, w_lo = _tf32(feats - x_hi), _tf32(w0 - w_hi)
+    np.testing.assert_array_equal(_tf32(x_hi), x_hi)
+    assert np.all(x_hi.view(np.uint32) & np.uint32(0x1FFF) == 0)
+
+    def mlp(first):
+        h = torch.nn.functional.leaky_relu(first + torch.from_numpy(b0), 0.2) * np.sqrt(2.0)
+        y = h @ torch.from_numpy(w1) + torch.from_numpy(b1)
+        return y[..., :-1], y[..., -1]
+
+    t = torch.from_numpy
+    three = t(x_lo) @ t(w_hi) + t(x_hi) @ t(w_lo) + t(x_hi) @ t(w_hi)
+    one = t(x_hi) @ t(w_hi)
+    ref = triplane_mlp_plain(t(feats), *map(t, (w0, b0, w1, b1)))
+    for got, limit_met in ((mlp(three), True), (mlp(one), False)):
+        rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref)]
+        assert all(r <= 1e-5 for r in rel) == limit_met, rel
