@@ -25,7 +25,7 @@
 // 30 times the L2.
 //
 // What the design does about it: as the TPU kernel sorted its entries by
-// window, this one bins them by strip, a STRIP_H x STRIP_W = 2 x 16 texel
+// window, this one bins them by strip, a STRIP_H x STRIP_W = 4 x 8 texel
 // region of one plane, and gives each strip one warp, which sums the strip
 // in its own shared memory and writes it to g_planes once, with 16-byte
 // stores, empty strips included (they read nothing and write zeros). No
@@ -33,6 +33,9 @@
 //  - Bins: a histogram kernel counts the entries of each strip, torch sums
 //    the counts into offsets, and a scatter kernel writes the entries to
 //    their strips (`ops/splat.py` `_bins` is the same arithmetic in torch).
+//    Both gather a block's entries by strip in a shared-memory table first,
+//    so that the samples of neighbouring rays, which fall on the same
+//    strips, cost one global atomic per strip and block.
 //    An entry goes to the strip of its base corner (its home) and, where
 //    its 2x2 footprint reaches into them, to the strips on the right, below
 //    and diagonally below, so that every warp walks its own bin only (the
@@ -43,9 +46,10 @@
 //    the warps of a block cannot share an accumulator cheaply; a block whose
 //    warps own rows of a tile has to stage its bin chunk by chunk between
 //    barriers and idles on the busiest warp; and a 17 x 17 x F halo of the
-//    planes in shared memory (37 KB) costs more occupancy than the few
-//    texel rows a strip's entries read again and again cost through the L1.
-//    Each of these was slower on the training step's points.
+//    planes in shared memory (37 KB) costs more occupancy than the 5 x 9
+//    texels a strip's entries read again and again cost through the L1.
+//    Each of these was slower on the training step's points, and so were
+//    strips of other shapes (2 x 16, 4 x 16, 8 x 8).
 //  - The warp streams its bin 32 entries at a time, lane l computing entry
 //    l's corners while the next 32 entries and their coordinates load; then
 //    4 entries at a time, their cotangent rows in flight, lane f on feature
@@ -63,7 +67,7 @@
 
 namespace {
 
-constexpr int kStripH = 2, kStripW = 16;  // texels of a strip (ops/splat.py STRIP_H, STRIP_W)
+constexpr int kStripH = 4, kStripW = 8;  // texels of a strip (ops/splat.py STRIP_H, STRIP_W)
 constexpr int kWarps = 2;      // strips of a block, one warp each
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -123,39 +127,90 @@ __device__ __forceinline__ void keys_of(const float* __restrict__ coords, long l
              plane, geo, keys);
 }
 
-// counts[b] = the entries of bin b. Neighbouring entries, the samples of one
-// ray, often share a bin: one atomic per bin and warp.
-__global__ void bin_count_kernel(const float* __restrict__ coords, int* __restrict__ counts,
-                                 long long n_entries, Geometry geo) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  int keys[4];
-  keys_of(coords, e, n_entries, geo, keys);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned peers = __match_any_sync(kFullMask, keys[i]);
-    if (keys[i] >= 0 && __ffs(peers) - 1 == lane) atomicAdd(counts + keys[i], __popc(peers));
+// A block's distinct bins in shared memory: open addressing over kSlots
+// slots, each a bin and how many of the block's entries it holds. A block of
+// kBinThreads entries has at most 4 kBinThreads keys, under kSlots, so the
+// table never fills. Integer atomics in shared memory are native.
+constexpr int kBinThreads = 256;
+constexpr int kSlots = 2048;
+
+struct BinTable {
+  int key[kSlots], count[kSlots], base[kSlots];
+};
+
+__device__ __forceinline__ void clear(BinTable& t) {
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
+    t.key[i] = -1;
+    t.count[i] = 0;
   }
 }
 
-// entries[cursor[b]++] = e for every bin b of entry e; cursor starts at the
-// bins' offsets. The order within a bin is that of the atomics; within a
-// warp's share of a bin, that of the lanes.
-__global__ void bin_scatter_kernel(const float* __restrict__ coords, int* __restrict__ cursor,
-                                   int* __restrict__ entries, long long n_entries, Geometry geo) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// The slot of bin k, claimed if new.
+__device__ __forceinline__ int slot_of(BinTable& t, int k) {
+  int h = (int)(((unsigned)k * 2654435761u) >> 21) & (kSlots - 1);
+  while (true) {
+    const int prev = atomicCAS(&t.key[h], -1, k);
+    if (prev == -1 || prev == k) return h;
+    h = (h + 1) & (kSlots - 1);
+  }
+}
+
+// For each key of the thread's entry: its slot and its rank among the
+// block's entries of that bin. Lanes of a warp with the same key make one
+// shared atomic (the samples of one ray often share a bin).
+__device__ __forceinline__ void insert_keys(BinTable& t, const int (&keys)[4], int (&slot)[4],
+                                            int (&rank)[4]) {
   const int lane = threadIdx.x & 31;
-  int keys[4];
-  keys_of(coords, e, n_entries, geo, keys);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const unsigned peers = __match_any_sync(kFullMask, keys[i]);
     const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if (keys[i] >= 0 && lane == leader) base = atomicAdd(cursor + keys[i], __popc(peers));
-    base = __shfl_sync(kFullMask, base, leader);
-    if (keys[i] >= 0) entries[base + __popc(peers & ((1u << lane) - 1u))] = (int)e;
+    int s = 0, first = 0;
+    if (keys[i] >= 0 && lane == leader) {
+      s = slot_of(t, keys[i]);
+      first = atomicAdd(&t.count[s], __popc(peers));
+    }
+    slot[i] = __shfl_sync(kFullMask, s, leader);
+    rank[i] = __shfl_sync(kFullMask, first, leader) + __popc(peers & ((1u << lane) - 1u));
   }
+}
+
+// counts[b] = the entries of bin b: one global atomic per bin and block.
+__global__ void __launch_bounds__(kBinThreads)
+bin_count_kernel(const float* __restrict__ coords, int* __restrict__ counts,
+                 long long n_entries, Geometry geo) {
+  __shared__ BinTable t;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  clear(t);
+  __syncthreads();
+  int keys[4], slot[4], rank[4];
+  keys_of(coords, e, n_entries, geo, keys);
+  insert_keys(t, keys, slot, rank);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x)
+    if (t.key[i] >= 0) atomicAdd(counts + t.key[i], t.count[i]);
+}
+
+// entries[cursor[b]++] = e for every bin b of entry e; cursor starts at the
+// bins' offsets. Each block reserves one range per bin with one global
+// atomic; the order within a bin is that of the blocks' atomics.
+__global__ void __launch_bounds__(kBinThreads)
+bin_scatter_kernel(const float* __restrict__ coords, int* __restrict__ cursor,
+                   int* __restrict__ entries, long long n_entries, Geometry geo) {
+  __shared__ BinTable t;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  clear(t);
+  __syncthreads();
+  int keys[4], slot[4], rank[4];
+  keys_of(coords, e, n_entries, geo, keys);
+  insert_keys(t, keys, slot, rank);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x)
+    if (t.key[i] >= 0) t.base[i] = atomicAdd(cursor + t.key[i], t.count[i]);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (keys[i] >= 0) entries[t.base[slot[i]] + rank[i]] = (int)e;
 }
 
 // An entry as the strip kernel sees it: its local corner (ly, lx), ly in
@@ -377,8 +432,8 @@ int tdgp_splat_bin_counts(const float* coords, int* counts, long long n_batch,
   cudaError_t err = cudaMemsetAsync(counts, 0, n_bins * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   const long long n_entries = 3 * n_batch * points_per_batch;
-  bin_count_kernel<<<(unsigned)((n_entries + 255) / 256), 256, 0, s>>>(coords, counts, n_entries,
-                                                                        geo);
+  bin_count_kernel<<<(unsigned)((n_entries + kBinThreads - 1) / kBinThreads), kBinThreads, 0, s>>>(
+      coords, counts, n_entries, geo);
   return (int)cudaGetLastError();
 }
 
@@ -392,8 +447,8 @@ int tdgp_splat_bin_entries(const float* coords, int* cursor, int* entries, long 
   if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins))
     return (int)cudaErrorInvalidValue;
   const long long n_entries = 3 * n_batch * points_per_batch;
-  bin_scatter_kernel<<<(unsigned)((n_entries + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      coords, cursor, entries, n_entries, geo);
+  bin_scatter_kernel<<<(unsigned)((n_entries + kBinThreads - 1) / kBinThreads), kBinThreads, 0,
+                       (cudaStream_t)stream>>>(coords, cursor, entries, n_entries, geo);
   return (int)cudaGetLastError();
 }
 

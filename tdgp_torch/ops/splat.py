@@ -149,7 +149,7 @@ def triplane_sample_bwd_plain(planes: torch.Tensor, coords: torch.Tensor, g: tor
 
 
 KERNEL_FEATS = (8, 16, 32)  # feature widths K1 is instantiated for (csrc/splat.cu)
-STRIP_H, STRIP_W = 2, 16  # texels of the strip that one warp of K1 sums (csrc/splat.cu)
+STRIP_H, STRIP_W = 4, 8  # texels of the strip that one warp of K1 sums (csrc/splat.cu)
 
 
 def _strips(h: int, w: int) -> Tuple[int, int]:
@@ -282,8 +282,9 @@ def triplane_splat_bins(coords: torch.Tensor, h: int, w: int, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_bins` on the card, for K1: the same bins from two small kernels of
     csrc/splat.cu (a histogram, then a scatter through cursors that start at
-    the offsets, which torch sums here), with the entries of a bin in the
-    order of the scatter's atomics. coords [N, P, 3] on a CUDA device ->
+    the offsets, which torch sums here, each aggregating a block's entries
+    by strip in shared memory first), with the entries of a bin in the order
+    of the scatter's atomics. coords [N, P, 3] on a CUDA device ->
     (entries [4 N*3 P] int32, of which the first offsets[-1] are used;
     offsets [n_bins + 1] int32)."""
     n, p = coords.shape[0], coords.shape[1]
