@@ -5,16 +5,33 @@
 
 Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
   1. kernel:      K3 (ray_march_reduced) against its plain PyTorch version at
-                  the serving shape (65,536 rays x 64 samples x 3 channels),
-                  max abs diff <= 1e-5 on every output; kernel, plain and
-                  bound times.
+                  the serving shape (65,536 rays x 64 samples x 3 channels)
+                  and at every width it is built for (S = 5 to 200, C = 1 to
+                  4), max abs diff <= 1e-5 on every output; timed warm (500
+                  back-to-back calls on the same inputs), warm with the calls
+                  enqueued ahead, cold (each call alone after a 256 MiB write
+                  that evicts the L2) and cold with a clean L2, with the SM
+                  and memory clocks beside each, and the host's time per call
+                  (`timed`), also at the training shape (16 x 4096 rays);
+                  plain and bound times. Then K3's merged entry
+                  (ray_march_merged: the coarse and fine sets merged and
+                  marched in one launch) against its plain version
+                  (unify_samples_sorted + the plain march) at the served chunk
+                  (32 + 32 samples, a quarter of the fine depths tied to
+                  coarse ones) and at small shapes with S1 != S2 for every
+                  width it is built for, in the four marcher settings, max
+                  abs diff <= 1e-5 on every output;
+                  timed in the same ways beside the two-step path it replaces
+                  (unify_samples_sorted + K3), its plain version and bound.
   2. serve:       the trained 256^2 flagship generator (tri-planes 3x512^2x32)
                   serves 3 requests of batch 4 after one warm-up; images
-                  [4,256,256,3], finite, in [0,1]; K3 launched once per ray
-                  chunk (4 per request) during the 3 requests.
-  3. cross-check: one request through the plain marcher on the card (<= 1e-4;
-                  `plain_versions` swaps the kernels' wrappers for their
-                  plain versions, which no config can select on the card),
+                  [4,256,256,3], finite, in [0,1]; K3's merged entry launched
+                  once per ray chunk (4 per request) during the 3 requests,
+                  the unmerged K3 never.
+  3. cross-check: one request through the plain merge and marcher on the card
+                  (<= 1e-4; no K3 launch; `plain_versions` swaps the kernels'
+                  wrappers for their plain versions, which no config can
+                  select on the card),
                   and the port on the CPU at a 64x64 output against the card
                   (<= 1e-3: the convolutions sum in another order).
   4. train kernels: K3's backward at 16 x 4096 rays x 64 samples x 3 channels
@@ -63,7 +80,8 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   of 32^3) marched into a mesh by the C++ marching; images in
                   [0, 1], a non-empty mesh; ms per batch, images/s, peak memory;
                   K4 launched 2 passes x 4 chunks per batch and once per density
-                  chunk, K3 4 times per batch, K5 once per bias_act call on a
+                  chunk, K3 merged 4 times per batch (unmerged never), K5
+                  once per bias_act call on a
                   CUDA tensor. Then one grid batch and the density grid again
                   with the plain versions of K4 and K5: image <= 1e-4 max abs,
                   sigma <= 1e-5 x max |sigma|. Then the two entry points
@@ -78,7 +96,7 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   (plane, point) corners on one texel; then plain steps and one
                   R1 step; losses finite, every parameter of G and D moved,
                   the EMA moved, K1 / K3 / K3-backward launched as often as
-                  the step implies; ms per step, images/s at the 15:1
+                  the step implies (K3 merged never); ms per step, images/s at the 15:1
                   plain:R1 cadence, peak memory; K4 and K5 launches printed as
                   they fall (the forwards the step runs without gradients).
 Serving (2) also counts K4 (8 per request) and K5 launches per request.
@@ -111,17 +129,19 @@ RAISED_LIMIT_CAP = 4e-3     # ... up to 2x their one-ulp floor, and never above 
 @contextlib.contextmanager
 def plain_versions(k1=True, k3=True, k4=False, k5=False):
     """The generator with the plain PyTorch versions of K1 (backward), K3
-    (forward and backward), K4 and K5 in place of the kernels' wrappers, on
-    the card: the reference the kernels' path is held against."""
+    (forward and backward, and the merged forward), K4 and K5 in place of
+    the kernels' wrappers, on the card: the reference the kernels' path is
+    held against."""
     from tdgp_torch.models import epigraf, layers, stylegan2
     from tdgp_torch.ops import bias_act, ray_march, splat, triplane_mlp
     from tdgp_torch.rendering import renderer
-    saved = (epigraf.triplane_sample, renderer.ray_march_reduced, epigraf.triplane_mlp,
-             layers.bias_act, stylegan2.bias_act)
+    saved = (epigraf.triplane_sample, renderer.ray_march_reduced, renderer.ray_march_merged,
+             epigraf.triplane_mlp, layers.bias_act, stylegan2.bias_act)
     if k1:
         epigraf.triplane_sample = splat.triplane_sample_reference
     if k3:
         renderer.ray_march_reduced = ray_march.ray_march_reduced_reference
+        renderer.ray_march_merged = ray_march.ray_march_merged_plain
     if k4:
         epigraf.triplane_mlp = triplane_mlp.triplane_mlp_plain
     if k5:
@@ -129,27 +149,31 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
     try:
         yield
     finally:
-        (epigraf.triplane_sample, renderer.ray_march_reduced, epigraf.triplane_mlp,
-         layers.bias_act, stylegan2.bias_act) = saved
+        (epigraf.triplane_sample, renderer.ray_march_reduced, renderer.ray_march_merged,
+         epigraf.triplane_mlp, layers.bias_act, stylegan2.bias_act) = saved
 
 
 class BiasActCalls:
     """Counts the calls of `bias_act` on CUDA tensors made by the models
     (`models/layers.py`, `models/stylegan2.py`) while it is entered: the
-    number of K5 launches a path without gradients should show; and, of
-    those, the calls on tensors that are not contiguous (K5 takes them as
-    strided views)."""
+    number of K5 launches a path without gradients should show; of those,
+    the calls on tensors that are not contiguous (K5 takes them as strided
+    views); and the bytes and operations of all of them (x read, y written,
+    the bias read; 4 operations an element), for K5's bound over a path."""
 
     def __enter__(self):
         from tdgp_torch.models import layers, stylegan2
-        self.count = self.strided = 0
+        self.count = self.strided = self.bytes = self.flops = 0
         self._saved = layers.bias_act, stylegan2.bias_act
         inner = layers.bias_act
 
-        def counted(x, *args, **kwargs):
-            self.count += x.is_cuda
-            self.strided += x.is_cuda and not x.is_contiguous()
-            return inner(x, *args, **kwargs)
+        def counted(x, b=None, **kwargs):
+            if x.is_cuda:
+                self.count += 1
+                self.strided += not x.is_contiguous()
+                self.bytes += 8 * x.numel() + (0 if b is None else 4 * b.numel())
+                self.flops += 4 * x.numel()
+            return inner(x, b, **kwargs)
 
         layers.bias_act = stylegan2.bias_act = counted
         return self
@@ -177,15 +201,27 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, iters, repeats=5, warmup_s=0.5):
+def hold(seconds):
+    """Keeps the card busy for about `seconds` (a spin kernel of that many
+    cycles at ~2 GHz), so that the host enqueues what follows before the card
+    reaches it."""
+    torch.cuda._sleep(int(seconds * 2e9))
+
+
+def cuda_ms(fn, iters, repeats=5, warmup_s=0.5, prefill=False):
     """Median over `repeats` of the mean time of `iters` back-to-back calls,
-    after `warmup_s` seconds of calls to bring the card to its clocks."""
+    after `warmup_s` seconds of calls to bring the card to its clocks. With
+    `prefill`, the card is held while the host enqueues the calls, so that
+    the time is the card's even where the host launches them more slowly
+    than the card runs them."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < warmup_s:
         fn()
         torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
+        if prefill:
+            hold(iters * 1e-4)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
@@ -196,19 +232,102 @@ def cuda_ms(fn, iters, repeats=5, warmup_s=0.5):
     return float(np.median(times))
 
 
+def cold_ms(fn, repeats=20, flush_mib=256, clean=False):
+    """Median over `repeats` single calls, each timed alone with CUDA events
+    right after a write of `flush_mib` MiB, which evicts the 50 MB L2 (the
+    card held meanwhile, so that the call is enqueued before the card
+    reaches it). With `clean`, a read of 64 MiB of another buffer follows
+    the write, so that the lines the call evicts need no write-back to
+    device memory."""
+    flush = torch.empty(flush_mib * 2 ** 18, device='cuda')
+    other = torch.ones(2 ** 24, device='cuda') if clean else None
+    fn()
+    times = []
+    for _ in range(repeats):
+        flush.fill_(1.0)
+        if clean:
+            other.sum()
+        hold(1e-3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def clocks():
+    """The card's SM and memory clocks (MHz), as nvidia-smi reads them now."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem',
+                           '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def host_us(fn, iters=200):
+    """Microseconds of host time per call of `fn` while the card is held:
+    the rate at which the host launches it (bounded below by the card's own
+    time once the launch queue fills, for a function of many launches)."""
+    torch.cuda.synchronize()
+    hold(iters * 5e-4)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def timed(label, fn, iters):
+    """K3's timings of `fn` (ms): warm (`iters` back-to-back calls, as the
+    kernels' times were taken before), warm with the calls enqueued ahead
+    (`prefill`), cold after a write and cold with a clean L2 (`cold_ms`);
+    each printed with the clocks read right after it; and the host's time
+    per call (`host_us`, in us)."""
+    out = {}
+    for key, measure in (('warm', lambda: cuda_ms(fn, iters)),
+                         ('warm_prefilled', lambda: cuda_ms(fn, iters, prefill=True)),
+                         ('cold', lambda: cold_ms(fn)),
+                         ('cold_clean', lambda: cold_ms(fn, clean=True))):
+        out[key] = measure()
+        print(f'{label} {key}: {out[key]:.4f} ms (sm, mem clocks {clocks()})')
+    out['host_us'] = host_us(fn)
+    print(f'{label}: the host takes {out["host_us"]:.1f} us per call')
+    return out
+
+
+K3_CASES = [('softplus', True, False), ('softplus', False, False), ('softplus', False, True),
+            ('relu', True, False)]  # (clamp_mode, use_inf_depth, last_back)
+
+
+def merged_sets(g, b, r, s1, s2, c):
+    """Two per-ray sorted sample sets as the renderer hands them to K3's
+    merged entry (depths, colours, raw densities of each), about a quarter
+    of the second set's depths equal to depths of the first (ties)."""
+    t1 = torch.rand(b, r, s1, device='cuda', generator=g).sort(-1).values * 0.5 + 0.75
+    t2 = torch.rand(b, r, s2, device='cuda', generator=g) * 0.5 + 0.75
+    pick = torch.randint(0, s1, (b, r, s2), device='cuda', generator=g)
+    tie = torch.rand(b, r, s2, device='cuda', generator=g) < 0.25
+    t2 = torch.where(tie, t1.gather(-1, pick), t2).sort(-1).values
+    return (t1, torch.randn(b, r, s1, c, device='cuda', generator=g),
+            torch.randn(b, r, s1, device='cuda', generator=g) * 2,
+            t2, torch.randn(b, r, s2, c, device='cuda', generator=g),
+            torch.randn(b, r, s2, device='cuda', generator=g) * 2)
+
+
 def kernel_phase(ray_march):
-    """K3 against its plain version at the serving shape: one ray chunk of
-    every image of a batch-4 request."""
+    """K3 against its plain version at the serving shape (one ray chunk of
+    every image of a batch-4 request), timed warm, cold and cold with a
+    clean L2, and at the training shape; then K3's merged entry against its
+    plain version (the served chunk with ties, and S1 != S2 at small
+    shapes), timed beside the two-step path it replaces."""
     g = torch.Generator(device='cuda').manual_seed(0)
     b, r, s, c = 4, 16384, 64, 3
     colors = torch.randn(b, r, s, c, device='cuda', generator=g)
     densities = torch.randn(b, r, s, device='cuda', generator=g) * 2
     depths = torch.rand(b, r, s, device='cuda', generator=g).sort(-1).values * 0.5 + 0.75
     worst = 0.0
-    for clamp_mode, inf_depth, last_back in [('softplus', True, False),
-                                             ('softplus', False, False),
-                                             ('softplus', False, True),
-                                             ('relu', True, False)]:
+    for clamp_mode, inf_depth, last_back in K3_CASES:
         args = (colors, densities, depths, clamp_mode, 1.0, inf_depth, last_back)
         out = ray_march.ray_march_reduced(*args)
         ref = ray_march.ray_march_reduced_plain(*args)
@@ -218,21 +337,102 @@ def kernel_phase(ray_march):
               f'max abs diff rgb/depth/wsum/ftrans = {errs}')
         check(all(e <= 1e-5 for e in errs), 'K3 disagrees with its plain version')
         worst = max(worst, *errs)
+    # every width the kernel is built for (lanes and samples per lane, C), and
+    # a ray of more than 128 samples, marched in passes
+    small = 0.0
+    for c_small in range(1, 5):
+        for s_small in (5, 16, 32, 64, 100, 200):
+            ins = (torch.randn(2, 300, s_small, c_small, device='cuda', generator=g),
+                   torch.randn(2, 300, s_small, device='cuda', generator=g) * 2,
+                   torch.rand(2, 300, s_small, device='cuda', generator=g).sort(-1).values + 0.5)
+            for opts in K3_CASES:
+                errs = [float((a - b_).abs().max()) for a, b_ in zip(
+                    ray_march.ray_march_reduced(*ins, opts[0], 1.0, *opts[1:]),
+                    ray_march.ray_march_reduced_plain(*ins, opts[0], 1.0, *opts[1:]))]
+                check(all(e <= 1e-5 for e in errs), f'K3 at S={s_small}, C={c_small}, {opts} '
+                      f'disagrees with its plain version: {errs}')
+                small = max(small, *errs)
+    print(f'K3 at S = 5, 16, 32, 64, 100, 200 x C = 1-4, 2 x 300 rays, in the {len(K3_CASES)} '
+          f'settings: max abs diff {small:.3g} (<= 1e-5)')
+    worst = max(worst, small)
     args = (colors, densities, depths, 'softplus', 1.0, True, False)
-    ms = cuda_ms(lambda: ray_march.ray_march_reduced(*args), 500)
+    times = timed(f'K3 at [{b},{r},{s},{c}]', lambda: ray_march.ray_march_reduced(*args), 500)
     plain_ms = cuda_ms(lambda: ray_march.ray_march_reduced_plain(*args), 50)
     bytes_moved, flops = k3_work(b, r, s, c)
     bound_ms, bound_by = bound(bytes_moved, flops)
-    print(f'K3 at [{b},{r},{s},{c}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'bound {1e3 * bound_ms:.1f} us ({bytes_moved / 1e6:.1f} MB by {bound_by}), '
-          f'{bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
-    clocks = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem,power.draw,'
-                             'temperature.gpu', '--format=csv,noheader'],
-                            capture_output=True, text=True, check=True)
-    print(f'clocks after timing (sm, mem, power, temperature): {clocks.stdout.strip()}')
-    return dict(name='ray_march_reduced', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
-                replaces='tdgp/ops/pallas_kernels.py:86', max_abs_err=worst, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f'K3 at [{b},{r},{s},{c}]: kernel {times["cold"]:.4f} ms cold, {times["warm"]:.4f} ms '
+          f'warm, plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.1f} us '
+          f'({bytes_moved / 1e6:.1f} MB by {bound_by}), '
+          f'{bytes_moved / (times["cold"] * 1e-3) / 1e12:.2f} TB/s cold')
+    del colors, densities, depths
+    b_t, r_t = 16, 4096  # one Gmain render of the training step
+    colors = torch.randn(b_t, r_t, s, c, device='cuda', generator=g)
+    densities = torch.randn(b_t, r_t, s, device='cuda', generator=g) * 2
+    depths = torch.rand(b_t, r_t, s, device='cuda', generator=g).sort(-1).values * 0.5 + 0.75
+    train_times = timed(f'K3 at the training shape [{b_t},{r_t},{s},{c}]',
+                        lambda: ray_march.ray_march_reduced(colors, densities, depths), 500)
+    del colors, densities, depths
+    k3 = dict(name='ray_march_reduced', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
+              replaces='tdgp/ops/pallas_kernels.py:86', max_abs_err=worst, ms=times['cold'],
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+              ms_warm=times['warm'], ms_warm_prefilled=times['warm_prefilled'],
+              ms_cold_clean=times['cold_clean'], host_us=times['host_us'],
+              ms_train_shape=train_times['cold'], ms_train_shape_warm=train_times['warm'],
+              ms_train_shape_warm_prefilled=train_times['warm_prefilled'],
+              ms_train_shape_cold_clean=train_times['cold_clean'])
+
+    worst = 0.0
+    shapes = [(b, r, 32, 32, c), (3, 200, 1, 127, 1)] + [  # every width the kernel is built for
+        (2, 300, s1, s2, c_small) for c_small in range(1, 5)
+        for s1, s2 in ((3, 5), (5, 11), (12, 20), (40, 24), (70, 58))]
+    for shape in shapes:
+        sets = merged_sets(g, *shape)
+        for clamp_mode, inf_depth, last_back in K3_CASES:
+            opts = (clamp_mode, 1.0, inf_depth, last_back)
+            out = ray_march.ray_march_merged(*sets, *opts)
+            ref = ray_march.ray_march_merged_plain(*sets, *opts)
+            torch.cuda.synchronize()
+            errs = [float((a - b_).abs().max()) for a, b_ in zip(out, ref)]
+            check(all(e <= 1e-5 for e in errs),
+                  f'K3 merged at [B,R,S1,S2,C] = {list(shape)} {clamp_mode} inf_depth={inf_depth} '
+                  f'last_back={last_back} disagrees with its plain version: {errs}')
+            worst = max(worst, *errs)
+    print(f'K3 merged at [B,R,S1,S2,C] = [{b},{r},32,32,{c}] with ties, [3,200,1,127,1], and '
+          f'[2,300,S1,S2,C] for (S1, S2) = (3, 5), (5, 11), (12, 20), (40, 24), (70, 58) and '
+          f'C = 1-4, each in the {len(K3_CASES)} settings: max abs diff of '
+          f'rgb/depth/wsum/ftrans {worst:.3g} (<= 1e-5)')
+    sets = merged_sets(g, b, r, 32, 32, c)
+
+    def two_step():  # the path before the merged entry: unify_samples_sorted, then K3
+        all_depths, all_colors, all_densities = ray_march.unify_samples_sorted(*sets)
+        return ray_march.ray_march_reduced(all_colors, all_densities, all_depths)
+
+    merged_times = timed(f'K3 merged at [{b},{r},32+32,{c}]',
+                         lambda: ray_march.ray_march_merged(*sets), 500)
+    two_times = timed('unify_samples_sorted + K3', two_step, 50)
+    merged_plain_ms = cuda_ms(lambda: ray_march.ray_march_merged_plain(*sets), 20)
+    bytes_moved, flops = k3_work(b, r, s, c)
+    flops += b * r * s * 7 * 2  # each sample's rank: a binary search of 7 steps
+    merged_bound_ms, merged_bound_by = bound(bytes_moved, flops)
+    print(f'K3 merged at [{b},{r},32+32,{c}]: kernel {merged_times["cold"]:.4f} ms cold, '
+          f'{merged_times["warm"]:.4f} ms warm; unify_samples_sorted + K3 '
+          f'{two_times["cold"]:.4f} ms cold, {two_times["warm"]:.4f} ms warm; plain '
+          f'{merged_plain_ms:.4f} ms; bound '
+          f'{1e3 * merged_bound_ms:.1f} us ({bytes_moved / 1e6:.1f} MB by {merged_bound_by}), '
+          f'{bytes_moved / (merged_times["cold"] * 1e-3) / 1e12:.2f} TB/s cold')
+    power = subprocess.run(['nvidia-smi', '--query-gpu=power.draw,temperature.gpu',
+                            '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    print(f'power and temperature after timing: {power.stdout.strip()}')
+    k3_merged = dict(name='ray_march_merged', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
+                     replaces='tdgp/ops/pallas_kernels.py:86',
+                     also_replaces='tdgp/rendering/renderer.py:281', max_abs_err=worst,
+                     ms=merged_times['cold'], plain_ms=merged_plain_ms, bound_ms=merged_bound_ms,
+                     bound_by=merged_bound_by, library_ms=None, ms_warm=merged_times['warm'],
+                     ms_warm_prefilled=merged_times['warm_prefilled'],
+                     ms_cold_clean=merged_times['cold_clean'], host_us=merged_times['host_us'],
+                     two_step_ms=two_times['cold'], two_step_ms_warm=two_times['warm'],
+                     two_step_ms_warm_prefilled=two_times['warm_prefilled'])
+    return k3, k3_merged
 
 
 def k3_work(b, r, s, c):
@@ -574,8 +774,8 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
 
     def read(what, k3_expected, k4_expected, calls):
         got = {c.__name__: c.launches for c in counters}
-        expected = {'ray_march_reduced': k3_expected, 'triplane_mlp': k4_expected,
-                    'bias_act': calls.count}
+        expected = {'ray_march_reduced': 0, 'ray_march_merged': k3_expected,
+                    'triplane_mlp': k4_expected, 'bias_act': calls.count}
         print(f'{what}: launches {got} (expected {expected})')
         check(got == expected, f'kernel launch counts of the {what}')
         for k, v in got.items():
@@ -744,7 +944,8 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
     n_micro = batch_size // (cfg.training.batch_gpu or batch_size)
     steps = TRAIN_PLAIN_STEPS + 1
     expected = {'triplane_splat': 2 * n_micro * steps,  # coarse and fine pass of each Gmain render
-                'ray_march_reduced': n_micro * steps, 'ray_march_reduced_bwd': n_micro * steps}
+                'ray_march_reduced': n_micro * steps, 'ray_march_reduced_bwd': n_micro * steps,
+                'ray_march_merged': 0}
     print(f'launches over {steps} steps: {launches} (expected {expected}); per step: '
           + ', '.join(f'{k} {v / steps:g}' for k, v in launches.items()))
     check(launches == expected, 'kernel launch counts of the training path')
@@ -784,7 +985,7 @@ def main():
             print(f'built {name}: {os.path.relpath(path, ROOT)}')
 
     with phase('kernel', seconds):
-        k3 = kernel_phase(ray_march)
+        k3, k3_merged = kernel_phase(ray_march)
 
     with phase('serve', seconds):
         G = load_generator(RUN_DIR, 'cuda', OVERRIDES)
@@ -794,7 +995,8 @@ def main():
         serve(*requests[0])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        served = [ray_march.ray_march_reduced, triplane_mlp.triplane_mlp, bias_act.bias_act]
+        served = [ray_march.ray_march_reduced, ray_march.ray_march_merged,
+                  triplane_mlp.triplane_mlp, bias_act.bias_act]
         reset_counts(served)
         images, times = [], []
         with BiasActCalls() as calls:
@@ -803,7 +1005,6 @@ def main():
                 images.append(serve(*req))
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-        launches = ray_march.ray_march_reduced.launches
         serve_launches = {c.__name__: c.launches for c in served}
         peak = torch.cuda.max_memory_allocated()
         res = gc.img_resolution
@@ -814,9 +1015,11 @@ def main():
             check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, 'pixels outside [0, 1]')
         print(f'images {tuple(images[0].shape)}, mean {float(images[0].mean()):.4f}, '
               f'std {float(images[0].std()):.4f}')
-        print(f'K3 launches over {len(requests)} requests: {launches} '
-              f'(expected {chunks} chunks x {len(requests)})')
-        check(launches == chunks * len(requests), 'K3 launch count')
+        print(f'K3 merged launches over {len(requests)} requests: '
+              f'{serve_launches["ray_march_merged"]} (expected {chunks} chunks x {len(requests)}); '
+              f'K3 unmerged: {serve_launches["ray_march_reduced"]} (expected 0)')
+        check(serve_launches['ray_march_merged'] == chunks * len(requests)
+              and serve_launches['ray_march_reduced'] == 0, 'K3 launch counts')
         print(f'K4 launches over {len(requests)} requests: {serve_launches["triplane_mlp"]} '
               f'(expected 2 passes x {chunks} chunks x {len(requests)}); K5: '
               f'{serve_launches["bias_act"]} (expected {calls.count} bias_act calls on CUDA '
@@ -824,16 +1027,22 @@ def main():
               f'{serve_launches["bias_act"] / len(requests):g} per request')
         check(serve_launches['triplane_mlp'] == 2 * chunks * len(requests), 'K4 launch count')
         check(serve_launches['bias_act'] == calls.count, 'K5 launch count')
+        k5_request_bound_ms, by = bound(calls.bytes / len(requests), calls.flops / len(requests))
+        print(f'K5 over a request: {calls.count / len(requests):g} launches, bound '
+              f'{k5_request_bound_ms:.4f} ms ({calls.bytes / len(requests) / 1e9:.3f} GB; by {by})')
         ms = [1e3 * t for t in times]
         print(f'serving batch {BATCH} at {res}x{res}: ms per request {["%.1f" % t for t in ms]}, '
               f'median {np.median(ms):.1f} ms, {BATCH / np.median(times):.2f} images/s, '
               f'peak memory {peak / 2**30:.2f} GiB')
 
     with phase('cross-check', seconds):
+        reset_counts(served[:2])
         with plain_versions():
             plain_img = serve(*requests[0])
+        check(ray_march.ray_march_merged.launches == ray_march.ray_march_reduced.launches == 0,
+              'the plain path launched K3')
         diff = float((plain_img - images[0]).abs().max())
-        print(f'card, K3 vs plain marcher: max abs image diff {diff:.3g}')
+        print(f'card, K3 merged vs the plain merge and marcher: max abs image diff {diff:.3g}')
         check(diff <= 1e-4, 'K3 image disagrees with the plain marcher')
         del plain_img
         card64 = make_serving_fn(G, truncation_psi=PSI, resolution=64)(*requests[0])
@@ -865,17 +1074,19 @@ def main():
                                               profile_training.capture_splat_calls,
                                               profile_training.BATCH,
                                               [splat.triplane_splat, ray_march.ray_march_reduced,
-                                               ray_march.ray_march_reduced_bwd],
+                                               ray_march.ray_march_reduced_bwd,
+                                               ray_march.ray_march_merged],
                                               [triplane_mlp.triplane_mlp, bias_act.bias_act])
     k1.update(k1_step)
     by_path = {'serve': serve_launches, 'inference': infer_launches, 'train': train_launches}
-    for k in (k3, k3_bwd, k1, k4, k5):
+    k5['bound_ms_per_request'] = k5_request_bound_ms
+    for k in (k3, k3_merged, k3_bwd, k1, k4, k5):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())
 
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
-    print(json.dumps({'kernels': [k3, k3_bwd, k1, k4, k5]}))
+    print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ module and variables) and runs where its parameters are. Rendering runs
 under `torch.no_grad()` and `exact_fp32`, rays `max_batch_res**2` at a
 time when the image has more, as `tdgp.inference.make_synthesis_fn` does:
 so on the card the tri-plane MLP runs in kernel K4, every bias +
-activation in kernel K5, and the final march in kernel K3. Frames come
+activation in kernel K5, and the merge of the coarse and fine samples
+with the final march in kernel K3's merged entry. Frames come
 back as numpy floats in [0, 1].
 
 Random draws: the per-seed z's are numpy's, as in the JAX package, so they

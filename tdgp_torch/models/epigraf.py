@@ -15,8 +15,10 @@ StyleGAN2 noise, jittered and importance-sampled rays, density noise and a
 random depth-adaptor pick, all from `draws`. Where gradients flow, plane
 sampling goes through `triplane_sample`, whose backward is kernel K1, and
 the final march through kernel K3 forward and backward. Where they do not
-(serving, inference, geometry), the MLP runs in kernel K4, and every
-bias + activation of the decoder and the mapping in kernel K5.
+(serving, inference, geometry), the MLP runs in kernel K4, every
+bias + activation of the decoder and the mapping in kernel K5, and the
+merge of the coarse and fine samples with the final march in K3's merged
+entry.
 """
 from __future__ import annotations
 

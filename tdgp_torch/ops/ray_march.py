@@ -1,11 +1,11 @@
 """Kernel K3: reduced classical volume integration and its gradient, in
-CUDA C++ for Hopper.
+CUDA C++ for Hopper, with a forward that also takes in the sample merge.
 
 Port of `tdgp/ops/pallas_kernels.py:ray_march_fused`: the forward replaces
 `ray_march_pallas` (kernel `:86`), the backward the analytic jnp VJP
 `_ray_march_bwd` (`:251`). Both packages reach it through the renderer's
-`_march_reduced` when `generator.ray_march_impl` is 'fused'. The kernels are
-in `csrc/ray_march.cu`; its source notes give the bounds and the design.
+final march when `generator.ray_march_impl` is 'fused'. The kernels are in
+`csrc/ray_march.cu`; its source notes give the bounds and the design.
 
 `ray_march_reduced` is differentiable (`RayMarchReduced`, which saves only
 the three inputs, as the JAX VJP does). For CUDA tensors its forward
@@ -15,6 +15,14 @@ and counts it in `ray_march_reduced_bwd.launches`. For CPU tensors, and
 only for them, it computes `ray_march_reduced_plain` and
 `ray_march_reduced_bwd_plain`, the same functions in plain PyTorch, which
 the tests and the on-card comparison use as the reference.
+
+`ray_march_merged` takes the two per-ray sorted sample sets of the render
+(coarse and fine) as the model evaluated them and computes what
+`unify_samples_sorted` followed by `ray_march_reduced` computes, in one
+kernel launch (counted in `ray_march_merged.launches`) for CUDA tensors and
+as `ray_march_merged_plain` for CPU tensors. It has no backward, and refuses
+CUDA inputs that autograd records: training merges with
+`unify_samples_sorted` and marches with `ray_march_reduced`.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from tdgp_torch.ops import cuda_build
 
 _CLAMP_MODES = {'softplus': 0, 'relu': 1}
 MAX_CHANNELS = 4
+MAX_MERGED = 128  # S1 + S2 that the merged kernel takes (kMaxMerged in csrc/ray_march.cu)
 
 
 def _last_delta(use_inf_depth: bool) -> float:
@@ -45,7 +54,7 @@ def classical_ray_march_plain(colors: torch.Tensor, densities: torch.Tensor,
     -> (rgb [B,R,C], depth [B,R], weights [B,R,S], final_transmittance [B,R]).
     """
     deltas = depths[..., 1:] - depths[..., :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], _last_delta(use_inf_depth))], -1)
+    deltas = torch.cat([deltas, torch.full_like(depths[..., :1], _last_delta(use_inf_depth))], -1)
     if clamp_mode == 'softplus':
         densities = F.softplus(sp_beta * densities) / sp_beta
     elif clamp_mode == 'relu':
@@ -73,6 +82,44 @@ def ray_march_reduced_plain(colors, densities, depths, clamp_mode: str = 'softpl
     return rgb, depth, weights.sum(-1), ftrans
 
 
+def unify_samples_sorted(depths1, colors1, densities1, depths2, colors2, densities2):
+    """Merge two per-ray sorted sample sets into one sorted set
+    (`tdgp/rendering/renderer.py:281`).
+
+    Merged positions come from comparison counts, strict for set 1 and
+    non-strict for set 2, so ties go to set 1 first and the positions are a
+    permutation; the values are scattered to them.
+    """
+    s1, s2 = depths1.shape[-1], depths2.shape[-1]
+    pos1 = torch.arange(s1, device=depths1.device) + (
+        depths2[..., None, :] < depths1[..., :, None]).sum(-1)
+    pos2 = torch.arange(s2, device=depths2.device) + (
+        depths1[..., None, :] <= depths2[..., :, None]).sum(-1)
+    pos = torch.cat([pos1, pos2], -1)                                   # [B,R,S]
+
+    def merge(v1, v2):
+        v = torch.cat([v1, v2], -1)
+        return torch.empty_like(v).scatter_(-1, pos, v)
+
+    all_depths = merge(depths1, depths2)
+    all_densities = merge(densities1, densities2)
+    colors = torch.cat([colors1, colors2], -2)
+    idx = pos[..., None].expand_as(colors)
+    all_colors = torch.empty_like(colors).scatter_(-2, idx, colors)
+    return all_depths, all_colors, all_densities
+
+
+def ray_march_merged_plain(depths1, colors1, densities1, depths2, colors2, densities2,
+                           clamp_mode: str = 'softplus', sp_beta: float = 1.0,
+                           use_inf_depth: bool = True, last_back: bool = False):
+    """`unify_samples_sorted` followed by `ray_march_reduced_plain`
+    -> (rgb [B,R,C], depth [B,R], weights_sum [B,R], final_transmittance [B,R])."""
+    depths, colors, densities = unify_samples_sorted(depths1, colors1, densities1, depths2,
+                                                     colors2, densities2)
+    return ray_march_reduced_plain(colors, densities, depths, clamp_mode, sp_beta,
+                                   use_inf_depth, last_back)
+
+
 def ray_march_reduced_bwd_plain(colors, densities, depths, g_rgb, g_depth, g_wsum,
                                 g_ftrans, clamp_mode: str = 'softplus', sp_beta: float = 1.0,
                                 use_inf_depth: bool = True, last_back: bool = False):
@@ -80,7 +127,7 @@ def ray_march_reduced_bwd_plain(colors, densities, depths, g_rgb, g_depth, g_wsu
     four cotangents, by the closed form of the JAX package's `_ray_march_bwd`
     -> (g_colors [B,R,S,C], g_densities [B,R,S], g_depths [B,R,S])."""
     deltas = depths[..., 1:] - depths[..., :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], _last_delta(use_inf_depth))], -1)
+    deltas = torch.cat([deltas, torch.full_like(depths[..., :1], _last_delta(use_inf_depth))], -1)
     if clamp_mode == 'softplus':
         sigma = F.softplus(sp_beta * densities) / sp_beta
         dsigma = torch.sigmoid(sp_beta * densities)
@@ -124,9 +171,13 @@ def _kernels():
     bwd = lib.tdgp_ray_march_reduced_bwd
     bwd.argtypes = [ctypes.c_void_p] * 10 + scalars
     bwd.restype = ctypes.c_int
+    merged = lib.tdgp_ray_march_merged
+    merged.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    merged.restype = ctypes.c_int
     lib.tdgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_cuda_error_string.restype = ctypes.c_char_p
-    return fwd, bwd, lib.tdgp_cuda_error_string
+    return fwd, bwd, merged, lib.tdgp_cuda_error_string
 
 
 def _launch(fn, error_string, what, device, tensors, n_rays, s, c, clamp_mode, sp_beta,
@@ -169,7 +220,7 @@ def _forward(colors, densities, depths, clamp_mode, sp_beta, use_inf_depth, last
     rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
     depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
                            for _ in range(3))
-    fwd, _, error_string = _kernels()
+    fwd, _, _, error_string = _kernels()
     _launch(fwd, error_string, 'ray_march_reduced', device,
             (colors, densities, depths, rgb, depth, wsum, ftrans), b * r, s, c,
             clamp_mode, sp_beta, use_inf_depth, last_back)
@@ -194,7 +245,7 @@ def ray_march_reduced_bwd(colors, densities, depths, g_rgb, g_depth, g_wsum, g_f
     grads = [g.to(torch.float32).contiguous() for g in (g_rgb, g_depth, g_wsum, g_ftrans)]
     g_colors = torch.empty_like(colors)
     g_densities, g_depths = torch.empty_like(densities), torch.empty_like(depths)
-    _, bwd, error_string = _kernels()
+    _, bwd, _, error_string = _kernels()
     _launch(bwd, error_string, 'ray_march_reduced_bwd', device,
             (colors, densities, depths, *grads, g_colors, g_densities, g_depths), b * r, s, c,
             clamp_mode, sp_beta, use_inf_depth, last_back)
@@ -249,5 +300,64 @@ def ray_march_reduced_reference(colors, densities, depths, clamp_mode: str = 'so
                                  use_inf_depth, last_back, True)
 
 
+def _check_merged(sets, clamp_mode: str) -> None:
+    if clamp_mode not in _CLAMP_MODES:
+        raise NotImplementedError(f'Unknown clamp mode: {clamp_mode}')
+    shapes = [tuple(t.shape) for t in sets]
+    (t1, c1, x1), (t2, c2, x2) = shapes[:3], shapes[3:]
+    if not (len(t1) == 3 and len(t2) == 3 and x1 == t1 and x2 == t2 and c1 == (*t1, c1[-1])
+            and c2 == (*t2, c1[-1]) and t1[:2] == t2[:2]):
+        raise ValueError(f'expected depths/densities [B,R,S1] and [B,R,S2] with colors '
+                         f'[B,R,S1,C] and [B,R,S2,C], got {shapes}')
+    if not (t1[2] >= 1 and t2[2] >= 1 and t1[2] + t2[2] <= MAX_MERGED):
+        raise ValueError(f'need S1, S2 >= 1 and S1 + S2 <= {MAX_MERGED}, got {t1[2]} + {t2[2]}')
+    if not 1 <= c1[-1] <= MAX_CHANNELS:
+        raise ValueError(f'need 1 <= C <= {MAX_CHANNELS}, got {c1[-1]}')
+    for t in sets:
+        if t.dtype != torch.float32:
+            raise TypeError(f'ray_march_merged takes float32, got {t.dtype}')
+        if t.device != sets[0].device:
+            raise ValueError(f'inputs on {sets[0].device} and {t.device}')
+        if not t.is_contiguous():
+            raise ValueError('ray_march_merged takes contiguous tensors')
+
+
+def ray_march_merged(depths1: torch.Tensor, colors1: torch.Tensor, densities1: torch.Tensor,
+                     depths2: torch.Tensor, colors2: torch.Tensor, densities2: torch.Tensor,
+                     clamp_mode: str = 'softplus', sp_beta: float = 1.0,
+                     use_inf_depth: bool = True, last_back: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The final march over the merge of two per-ray sorted sample sets:
+    depths [B,R,S1], colors [B,R,S1,C], densities [B,R,S1] and the same with
+    S2, float32, contiguous, S1 + S2 <= 128, C <= 4
+    -> (rgb [B,R,C], depth [B,R], weights_sum [B,R], final_transmittance [B,R]),
+    what `ray_march_merged_plain` computes. Not differentiable on the card."""
+    sets = (depths1, colors1, densities1, depths2, colors2, densities2)
+    _check_merged(sets, clamp_mode)
+    device = depths1.device
+    if device.type == 'cpu':
+        return ray_march_merged_plain(*sets, clamp_mode, sp_beta, use_inf_depth, last_back)
+    if device.type != 'cuda':
+        raise ValueError(f'ray_march_merged runs on CUDA or CPU tensors, not {device}')
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sets):
+        raise RuntimeError('ray_march_merged has no backward: where autograd records, merge '
+                           'with unify_samples_sorted and march with ray_march_reduced')
+    b, r, s1 = depths1.shape
+    s2, c = depths2.shape[2], colors1.shape[3]
+    rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
+    depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
+                           for _ in range(3))
+    _, _, merged, error_string = _kernels()
+    with torch.cuda.device(device):
+        err = merged(*[t.data_ptr() for t in (*sets, rgb, depth, wsum, ftrans)], b * r, s1, s2,
+                     c, _CLAMP_MODES[clamp_mode], float(sp_beta), _last_delta(use_inf_depth),
+                     int(last_back), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'ray_march_merged launch failed: {error_string(err).decode()}')
+    ray_march_merged.launches += 1
+    return rgb, depth, wsum, ftrans
+
+
 ray_march_reduced.launches = 0
 ray_march_reduced_bwd.launches = 0
+ray_march_merged.launches = 0

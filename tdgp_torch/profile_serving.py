@@ -7,6 +7,9 @@ march in kernel K3), serves a warm-up request of batch 4 at 256x256, then
   - times the stages of a request with CUDA events: mapping, tri-plane
     decoding, and rendering (everything after the planes: rays, both passes
     of plane sampling + MLP, importance sampling, the merge and the marches),
+    and counts the rendering's device operations (kernels, copies, memsets)
+    and their device time under torch.profiler (a synthesis pass less a
+    decoding pass),
   - traces the requests with torch.profiler and prints the device time by
     operation, the device's busy share of the wall time and the peak memory,
     and the port's own kernels by name (K3 the final march, K4 the tri-plane
@@ -41,6 +44,7 @@ BATCH = 4
 PSI = 0.7
 # the port's kernels on the served path: name -> a part of the CUDA kernels' names
 OWN_KERNELS = {'K3 ray_march_reduced': 'ray_march_reduced_kernel',
+               'K3 ray_march_merged': 'ray_march_merged_kernel',
                'K4 triplane_mlp': 'triplane_mlp_kernel',
                'K5 bias_act': 'bias_act_'}
 
@@ -61,6 +65,12 @@ def request(seed: int, cfg, device, batch: int = BATCH):
 def _self_device_us(event) -> float:
     return float(getattr(event, 'self_device_time_total',
                          getattr(event, 'self_cuda_time_total', 0.0)))
+
+
+def _device_ops(prof):
+    """(device operations, their device ms) of a profiled region."""
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in events), sum(_self_device_us(e) for e in events) / 1e3
 
 
 def main() -> int:
@@ -99,6 +109,19 @@ def main() -> int:
             stage_ms['render'].append(ev[2].elapsed_time(ev[3]) - ev[1].elapsed_time(ev[2]))
     stages = {k: float(np.median(v)) for k, v in stage_ms.items()}
     print('stage medians (ms): ' + ', '.join(f'{k} {v:.2f}' for k, v in stages.items()))
+    with torch.no_grad(), exact_fp32():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as decode_prof:
+            G.synthesis.decode_planes(ws)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as synthesis_prof:
+            G.synthesis(ws, cam, ray_chunk=G.cfg.max_batch_res ** 2)
+            torch.cuda.synchronize()
+    (decode_ops, decode_ms), (synthesis_ops, synthesis_ms) = (_device_ops(decode_prof),
+                                                              _device_ops(synthesis_prof))
+    render = {'device_ops': synthesis_ops - decode_ops, 'device_ms': synthesis_ms - decode_ms}
+    print(f'rendering under the profiler: {render["device_ops"]} device operations, '
+          f'{render["device_ms"]:.2f} ms of device time (decoding: {decode_ops}, '
+          f'{decode_ms:.2f} ms)')
 
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -141,8 +164,14 @@ def main() -> int:
         calls = sum(e.count for e in found) / args.requests
         own[name] = {'ms_per_request': ms, 'calls_per_request': calls, 'share': ms / device_ms}
         print(f'{ms:9.3f} ms {100 * ms / device_ms:5.1f} %  x{calls:<6g} {name}')
-    print(json.dumps({'card': card, 'batch': BATCH, 'resolution': G.cfg.img_resolution,
-                      'stages_ms': stages, 'wall_ms_profiled': wall_ms,
+    sm_mem = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem',
+                             '--format=csv,noheader'], capture_output=True, text=True,
+                            check=True).stdout.strip()
+    print(f'sm, mem clocks after the trace: {sm_mem}')
+    print(json.dumps({'card': card, 'clocks_sm_mem': sm_mem, 'batch': BATCH,
+                      'resolution': G.cfg.img_resolution,
+                      'stages_ms': stages, 'render_profiled': render,
+                      'wall_ms_profiled': wall_ms,
                       'device_busy_ms': device_ms, 'device_busy_share': device_ms / wall_ms,
                       'peak_memory_gib': peak_gib, 'top_ops': top_ops,
                       'top_kernels': top_kernels, 'own_kernels': own}))

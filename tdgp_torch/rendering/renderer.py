@@ -9,8 +9,12 @@ std is added to the densities, all drawn from `draws`. The coarse pass
 needs every per-sample weight for the importance sampler and marches in
 plain PyTorch without gradients (the JAX package stops them there); the
 final pass needs only the per-ray sums and goes through kernel K3
-(`tdgp_torch/ops/ray_march.py`), forward and backward; on CPU tensors its
-wrapper computes the plain versions. Only the classical marcher is ported.
+(`tdgp_torch/ops/ray_march.py`, `march_merged`): where autograd does not
+record, the merge of the coarse and fine samples and the march are one
+launch of its merged entry; where it records (training), the samples are
+merged by `unify_samples_sorted` and marched by K3's forward and backward.
+On CPU tensors the wrappers compute the plain versions. Only the classical
+marcher is ported.
 
 Shapes: colors [B, R, S, C]; densities and depths [B, R, S].
 """
@@ -21,7 +25,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from tdgp_torch.ops.ray_march import classical_ray_march_plain, ray_march_reduced
+from tdgp_torch.ops.ray_march import (classical_ray_march_plain, ray_march_merged,
+                                      ray_march_reduced, unify_samples_sorted)
 from tdgp_torch.utils.draws import Draws
 
 MARCH_IMPLS = ('fused', 'jnp')
@@ -37,9 +42,10 @@ class RenderOptions:
     sp_beta: float = 1.0
     use_inf_depth: bool = True
     last_back: bool = False
-    # 'fused': final march in kernel K3, forward and backward (their plain
-    # versions on CPU tensors); 'jnp', the JAX package's name for its plain
-    # path, is the same on CPU tensors and refused on the card
+    # 'fused': final march in kernel K3, its merged entry where autograd does
+    # not record, forward and backward where it does (their plain versions
+    # on CPU tensors); 'jnp', the JAX package's name for its plain path, is
+    # the same on CPU tensors and refused on the card
     march_impl: str = 'fused'
 
 
@@ -50,16 +56,37 @@ def classical_ray_march(colors: torch.Tensor, densities: torch.Tensor, depths: t
                                      opts.sp_beta, opts.use_inf_depth, opts.last_back)
 
 
+def _check_march_impl(opts: RenderOptions, device: torch.device) -> None:
+    if opts.march_impl not in MARCH_IMPLS:
+        raise ValueError(f'march_impl must be one of {MARCH_IMPLS}, got {opts.march_impl!r}')
+    if opts.march_impl == 'jnp' and device.type != 'cpu':
+        raise NotImplementedError("march_impl 'jnp' (the plain marcher) runs on CPU tensors "
+                                  "only; on the card the march runs in kernel K3 ('fused')")
+
+
 def march_reduced(colors: torch.Tensor, densities: torch.Tensor, depths: torch.Tensor,
                   opts: RenderOptions):
     """Final-pass march -> (rgb, depth, weights_sum, final_transmittance)."""
-    if opts.march_impl not in MARCH_IMPLS:
-        raise ValueError(f'march_impl must be one of {MARCH_IMPLS}, got {opts.march_impl!r}')
-    if opts.march_impl == 'jnp' and colors.device.type != 'cpu':
-        raise NotImplementedError("march_impl 'jnp' (the plain marcher) runs on CPU tensors "
-                                  "only; on the card the march runs in kernel K3 ('fused')")
+    _check_march_impl(opts, colors.device)
     return ray_march_reduced(colors, densities, depths, opts.clamp_mode, opts.sp_beta,
                              opts.use_inf_depth, opts.last_back)
+
+
+def march_merged(depths1, colors1, densities1, depths2, colors2, densities2,
+                 opts: RenderOptions):
+    """Final-pass march over the merge of two per-ray sorted sample sets
+    -> (rgb, depth, weights_sum, final_transmittance).
+
+    Where autograd records (training), `unify_samples_sorted` then
+    `march_reduced`, whose backward needs the merged tensors; elsewhere one
+    call of K3's merged entry, `ray_march_merged`."""
+    sets = (depths1, colors1, densities1, depths2, colors2, densities2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sets):
+        depths, colors, densities = unify_samples_sorted(*sets)
+        return march_reduced(colors, densities, depths, opts)
+    _check_march_impl(opts, depths1.device)
+    return ray_march_merged(*(t.contiguous() for t in sets), opts.clamp_mode, opts.sp_beta,
+                            opts.use_inf_depth, opts.last_back)
 
 
 def sample_stratified(batch: int, num_rays: int, num_steps: int, device: torch.device,
@@ -119,32 +146,6 @@ def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor, n_importance:
     return samples.reshape(batch, num_rays, n_importance)
 
 
-def unify_samples_sorted(depths1, colors1, densities1, depths2, colors2, densities2):
-    """Merge two per-ray sorted sample sets into one sorted set.
-
-    Merged positions come from comparison counts, strict for set 1 and
-    non-strict for set 2, so ties go to set 1 first and the positions are a
-    permutation; the values are scattered to them.
-    """
-    s1, s2 = depths1.shape[-1], depths2.shape[-1]
-    pos1 = torch.arange(s1, device=depths1.device) + (
-        depths2[..., None, :] < depths1[..., :, None]).sum(-1)
-    pos2 = torch.arange(s2, device=depths2.device) + (
-        depths1[..., None, :] <= depths2[..., :, None]).sum(-1)
-    pos = torch.cat([pos1, pos2], -1)                                   # [B,R,S]
-
-    def merge(v1, v2):
-        v = torch.cat([v1, v2], -1)
-        return torch.empty_like(v).scatter_(-1, pos, v)
-
-    all_depths = merge(depths1, depths2)
-    all_densities = merge(densities1, densities2)
-    colors = torch.cat([colors1, colors2], -2)
-    idx = pos[..., None].expand_as(colors)
-    all_colors = torch.empty_like(colors).scatter_(-2, idx, colors)
-    return all_depths, all_colors, all_densities
-
-
 RunModelFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -186,6 +187,5 @@ def importance_render(run_model: RunModelFn, ray_origins: torch.Tensor,
         sdist_fine = sample_importance(sdist_coarse, weights, n_fine, u_rand=u_rand)
     tdist_fine = s_to_t(sdist_fine)
     colors_fine, densities_fine = eval_model(tdist_fine, 'noise_fine')
-    all_depths, all_colors, all_densities = unify_samples_sorted(
-        tdist_coarse, colors_coarse, densities_coarse, tdist_fine, colors_fine, densities_fine)
-    return march_reduced(all_colors, all_densities, all_depths, opts)
+    return march_merged(tdist_coarse, colors_coarse, densities_coarse, tdist_fine, colors_fine,
+                        densities_fine, opts)

@@ -110,9 +110,15 @@ def test_unify_samples_sorted_with_ties():
         np.testing.assert_array_equal(p.numpy(), np.asarray(r))
 
 
-@pytest.mark.parametrize('march_impl', ['fused', 'jnp'])
-def test_importance_render(march_impl):
-    """The whole two-pass render over a smooth analytic field."""
+@pytest.mark.parametrize('march_impl,route', [
+    pytest.param('fused', 'merged', id='fused'), pytest.param('jnp', 'merged', id='jnp'),
+    pytest.param('fused', 'recording', id='fused-recording'),
+    pytest.param('jnp', 'recording', id='jnp-recording')])
+def test_importance_render(march_impl, route):
+    """The whole two-pass render over a smooth analytic field: where autograd
+    does not record, through K3's merged entry, which must also give what the
+    recording route gives; where it records (training), through
+    unify_samples_sorted and the differentiable march."""
     rng = np.random.RandomState(3)
     a = rng.randn(3, 3).astype(np.float32) * 3
     b = rng.randn(3).astype(np.float32) * 4
@@ -126,11 +132,23 @@ def test_importance_render(march_impl):
                                     resolution=(8, 8))
     opts = renderer.RenderOptions(num_proposal_steps=12, num_fine_steps=12, march_impl=march_impl)
     jopts = jax_renderer.RenderOptions(num_proposal_steps=12, num_fine_steps=12)
-    port = renderer.importance_render(
-        lambda x: field(x, torch.from_numpy(a), torch.from_numpy(b), torch.sin, torch.cos),
-        ro, rd, opts)
+
+    def render(record):
+        a_t = torch.from_numpy(a).requires_grad_(record)
+        with torch.set_grad_enabled(record):
+            return a_t, renderer.importance_render(
+                lambda x: field(x, a_t, torch.from_numpy(b), torch.sin, torch.cos), ro, rd, opts)
+
+    a_t, port = render(route == 'recording')
     ref = jax_renderer.importance_render(
         lambda x: field(x, jnp.asarray(a), jnp.asarray(b), jnp.sin, jnp.cos),
         jro, jrd, jax.random.PRNGKey(0), jopts, jitter=False)
     for p, r in zip(port, ref):
         _close(p, r)
+    if route == 'merged':
+        assert all(p.grad_fn is None for p in port)
+        for p, r in zip(port, render(True)[1]):
+            assert torch.equal(p, r.detach())
+    else:
+        port[0].sum().backward()
+        assert a_t.grad is not None and bool(torch.isfinite(a_t.grad).all())
