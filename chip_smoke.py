@@ -99,6 +99,27 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   the step implies (K3 merged never); ms per step, images/s at the 15:1
                   plain:R1 cadence, peak memory; K4 and K5 launches printed as
                   they fall (the forwards the step runs without gradients).
+  9. loop:        the ADA pipe (`tdgp_torch.training.augment`) at p = 1 with
+                  every group on, [16, 64, 64, 4] (one D pass of the synth256
+                  step), on the card against the CPU with the same draws:
+                  output and VJP <= 1e-4 x max |CPU|, an R1-style gradient of
+                  a gradient <= 1e-3 relative L2; its time at the step's
+                  groups. Then the training entry point in process,
+                  `tdgp_torch.scripts.train --preset synth256` (float32), on
+                  a 256-image 256^2 folder that
+                  `data_scripts/make_synthetic_dataset.py` writes: three
+                  ticks of four steps with ADA reacting every tick
+                  (ada_kimg 1), a snapshot every tick, fid2k_full (2048
+                  images of G_ema, the random projection detector) and the
+                  image grid at tick 3; stats.jsonl has the JAX loop's keys,
+                  ADA's p follows the controller's formula on the logged
+                  signs, the metric is finite, the snapshot's meta is the
+                  loop's place; K1 2 and K3 / K3's backward 1 per step, the
+                  merged K3 4 and K4 8 per render of 4 images, K5 once per
+                  bias_act call that autograd does not record. Then a resume
+                  from the snapshot for one more tick: cur_nimg, batch_idx
+                  and ada_p restored, losses finite. sec/kimg per tick,
+                  images/s, the metric's seconds, peak memory.
 Serving (2) also counts K4 (8 per request) and K5 launches per request.
 Prints the card's name and power limit, each phase's seconds, a JSON line
 of per-kernel numbers, and as its last line
@@ -156,20 +177,24 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
 class BiasActCalls:
     """Counts the calls of `bias_act` on CUDA tensors made by the models
     (`models/layers.py`, `models/stylegan2.py`) while it is entered: the
-    number of K5 launches a path without gradients should show; of those,
-    the calls on tensors that are not contiguous (K5 takes them as strided
-    views); and the bytes and operations of all of them (x read, y written,
-    the bias read; 4 operations an element), for K5's bound over a path."""
+    number of K5 launches a path without gradients should show; the calls
+    that autograd does not record (`unrecorded`: K5's launches on a path
+    that records some calls, as training does); the calls on tensors that
+    are not contiguous (K5 takes them as strided views); and the bytes and
+    operations of all of them (x read, y written, the bias read; 4
+    operations an element), for K5's bound over a path."""
 
     def __enter__(self):
         from tdgp_torch.models import layers, stylegan2
-        self.count = self.strided = self.bytes = self.flops = 0
+        self.count = self.strided = self.bytes = self.flops = self.unrecorded = 0
         self._saved = layers.bias_act, stylegan2.bias_act
         inner = layers.bias_act
 
         def counted(x, b=None, **kwargs):
             if x.is_cuda:
                 self.count += 1
+                self.unrecorded += not (torch.is_grad_enabled() and (
+                    x.requires_grad or (b is not None and b.requires_grad)))
                 self.strided += not x.is_contiguous()
                 self.bytes += 8 * x.numel() + (0 if b is None else 4 * b.numel())
                 self.flops += 4 * x.numel()
@@ -956,7 +981,242 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
           f'{cfg.training.batch_gpu}): plain ms {["%.1f" % t for t in plain_ms]}, median '
           f'{t_plain:.1f} ms; R1 step {r1_ms:.1f} ms; {imgs_per_s:.2f} images/s at 15:1; '
           f'peak memory {peak / 2**30:.2f} GiB')
-    return {**launches, **off_gradient}, k1_step
+    return {**launches, **off_gradient}, k1_step, imgs_per_s
+
+
+# the keys of a tick's line in the JAX loop's stats.jsonl (tdgp/training/loop.py
+# with the synth256 step: KD off, R1 in the tick, ADA, one metric)
+LOOP_KEYS = {
+    'Loss/G/loss', 'Loss/scores/fake', 'Loss/signs/fake', 'Loss/camera_dist/emd_loss',
+    'Loss/camera_dist/force_mean', 'Loss/D/loss', 'Loss/scores/real', 'Loss/signs/real',
+    'Timing/sec_per_tick', 'Timing/sec_per_kimg', 'Timing/data', 'Timing/step_dispatch',
+    'Timing/ada_sync', 'Timing/stats_sync', 'Progress/nerf_noise_std', 'Progress/blur_sigma',
+    'Progress/patch/min_scale', 'Progress/patch/beta', 'Progress/kd_weight',
+    'Progress/gpc_spoof_p', 'Progress/emd_multiplier', 'Progress/depth/progress',
+    'Progress/augment_p', 'timestamp'} | {
+    f'Camera/{tag}/{name}/{stat}' for tag in ('posterior', 'prior')
+    for name in ('yaw', 'pitch', 'fov', 'radius', 'look_at_x', 'look_at_y', 'look_at_z')
+    for stat in ('mean', 'std')}
+LOOP_PRESET, LOOP_RES, LOOP_IMAGES = 'synth256', 256, 256  # the loop phase's run and folder
+AUG_BATCH = (16, 64, 64, 4)  # one D pass of the synth256 step: batch 16 of 64^2 RGB-D patches
+AUG_LIMIT = 1e-4             # pipe card vs CPU, output and VJP: max abs diff / max |CPU|
+AUG_GG_LIMIT = 1e-3          # the gradient of a gradient: relative L2, as the card vs CPU check
+
+
+class Recording:
+    """A `Draws` that keeps every value it draws under its full name, so that
+    `Replay` can hand the same values to a second run."""
+
+    def __init__(self, draws, values):
+        self.draws, self.values = draws, values
+
+    def scope(self, name):
+        return Recording(self.draws.scope(name), self.values)
+
+    def _keep(self, name, value):
+        self.values[self.draws.prefix + name] = value
+        return value
+
+    def uniform(self, name, shape):
+        return self._keep(name, self.draws.uniform(name, shape))
+
+    def normal(self, name, shape):
+        return self._keep(name, self.draws.normal(name, shape))
+
+
+def augment_phase(Draws, Replay):
+    """The ADA pipe at p = 1 with every group on (the image filter, noise and
+    cutout too), on the card against the same pipe on the CPU with the same
+    draws: its output, its gradient in the images (a VJP) and an R1-style
+    gradient of a gradient (a small D's first weight's gradient of
+    ||d D(aug(x)) / dx||^2, D = two convolutions with softplus). Then the
+    pipe's time at the synth256 step's groups and a D pass's shape: forward,
+    and forward and backward (ADA's cost per plain step: Gmain's pass
+    differentiates through it, Dmain's two passes do not)."""
+    from tdgp_torch.config import AugmentCfg
+    from tdgp_torch.training.augment import AugmentPipe
+    from tdgp_torch.utils.misc import exact_fp32
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(AUG_BATCH, generator=g) * 2 - 1
+    cot = torch.randn(AUG_BATCH, generator=g)
+    w1 = torch.randn(16, AUG_BATCH[-1], 3, 3, generator=g) * 0.3
+    w2 = torch.randn(1, 16, 3, 3, generator=g) * 0.3
+    every = AugmentCfg(mode='ada', xflip=1.0, imgfilter=1.0, noise=1.0, cutout=1.0)
+    values = {}
+
+    def run(device, draws):
+        pipe = AugmentPipe(every, device=device)
+        with exact_fp32():
+            img = x.to(device).requires_grad_(True)
+            out = pipe(img, 1.0, draws)
+            (vjp,) = torch.autograd.grad(out, img, cot.to(device))
+            a = w1.to(device).requires_grad_(True)
+            img = x.to(device).requires_grad_(True)
+            h = torch.nn.functional.softplus(torch.nn.functional.conv2d(
+                pipe(img, 1.0, draws).permute(0, 3, 1, 2), a, padding=1))
+            logits = torch.nn.functional.conv2d(h, w2.to(device), padding=1).sum()
+            (grad,) = torch.autograd.grad(logits, img, create_graph=True)
+            (gg,) = torch.autograd.grad(grad.square().sum(), a)
+        return [t.detach().cpu() for t in (out, vjp, gg)]
+
+    AugmentPipe(every)(x, 1.0, Recording(Draws(torch.Generator().manual_seed(1)), values))
+    cpu = run('cpu', Replay(values))
+    card = run('cuda', Replay({k: v.cuda() for k, v in values.items()}, device='cuda'))
+    torch.cuda.synchronize()
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(card[:2], cpu[:2])]
+    gg_rel = float((card[2] - cpu[2]).norm() / cpu[2].norm())
+    print(f'augment pipe at p = 1, every group on, {list(AUG_BATCH)}: card vs CPU, max abs diff '
+          f'/ max |CPU| of the output {rel[0]:.3g} and the VJP {rel[1]:.3g} (<= {AUG_LIMIT}); '
+          f'gradient of a gradient, relative L2 {gg_rel:.3g} (<= {AUG_GG_LIMIT}); '
+          f'{len(values)} draws')
+    check(all(e <= AUG_LIMIT for e in rel), 'the augment pipe on the card disagrees with the CPU')
+    check(gg_rel <= AUG_GG_LIMIT, "the augment pipe's gradient of a gradient disagrees")
+
+    pipe = AugmentPipe(AugmentCfg(mode='ada'), device='cuda')  # the synth256 groups
+    draws = Draws(torch.Generator(device='cuda').manual_seed(2))
+    img = x.cuda().requires_grad_(True)
+    cot_cuda = cot.cuda()
+    with exact_fp32():
+        fwd_ms = cuda_ms(lambda: pipe(img.detach(), 1.0, draws), 20)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(pipe(img, 1.0, draws), img, cot_cuda), 20)
+    per_step = both_ms + 2 * fwd_ms
+    print(f'augment pipe, synth256 groups at p = 1, {list(AUG_BATCH)}: forward {fwd_ms:.3f} ms, '
+          f'forward and backward {both_ms:.3f} ms; {per_step:.3f} ms per plain step (Gmain '
+          f'forward and backward, Dmain two forwards)')
+    return {'aug_fwd_ms': fwd_ms, 'aug_fwd_bwd_ms': both_ms, 'aug_ms_per_step': per_step}
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def loop_phase(tmp_dir, counters, train_images_per_s):
+    """`python3 -m tdgp_torch.scripts.train --preset synth256` in process on a
+    256-image synthetic folder: three ticks of four steps (R1 at step 0),
+    ADA reacting every tick (ada_kimg 1), a snapshot every tick, fid2k_full
+    at tick 3 on 2048 images of G_ema, the image grid at tick 3; then a
+    resume for one more tick. Checks stats.jsonl's keys, ADA's p against
+    the controller's formula on the logged signs, the snapshot and what the
+    resume restores, the metric, and each kernel's launches against what
+    the loop implies. Returns the launches of the first run."""
+    import importlib.util
+    from tdgp_torch.scripts import train as train_script
+    from tdgp_torch.utils.draws import Draws, Replay
+
+    readings = augment_phase(Draws, Replay)
+    data_dir = os.path.join(tmp_dir, 'data')
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(ROOT, 'data_scripts', 'make_synthetic_dataset.py'),
+                    '--out', data_dir, '--res', str(LOOP_RES), '--n', str(LOOP_IMAGES),
+                    '--classes', '4'], check=True, timeout=300)
+    print(f'synthetic {LOOP_RES}^2 folder of {LOOP_IMAGES} images in '
+          f'{time.perf_counter() - t0:.1f} s')
+    tensorboard = importlib.util.find_spec('tensorboard') is not None
+    print(f'TensorBoard installed: {tensorboard}; training.tensorboard={str(tensorboard).lower()}')
+    from tdgp_torch.config import load_config
+    steps_per_tick, ticks = 4, 3
+    batch = load_config(preset=LOOP_PRESET).training.batch_size
+    overrides = ['generator.fp32_only=true', 'discriminator.fp32_only=true',
+                 f'dataset.path={data_dir}', f'training.tick_kimg={batch * steps_per_tick / 1e3}',
+                 'training.augment.ada_kimg=1', 'training.snap=1', f'training.val_freq={ticks}',
+                 f'training.image_snap={ticks}', f'training.tensorboard={str(tensorboard).lower()}']
+    max_kimg = batch * steps_per_tick * ticks / 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with BiasActCalls() as calls:
+        result = train_script.main(['--preset', LOOP_PRESET, '--run-root', tmp_dir,
+                                    '--max-kimg', str(max_kimg)] + overrides)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = result.trainer.cfg
+    gc = cfg.generator
+    run_dir = result.run_dir
+    lines = read_jsonl(os.path.join(run_dir, 'stats.jsonl'))
+    steps = steps_per_tick * ticks
+    check(result.cur_nimg == batch * steps and result.batch_idx == steps,
+          f'the loop stopped at {result.cur_nimg} images, step {result.batch_idx}')
+    check(len(lines) == ticks, f'{len(lines)} lines in stats.jsonl')
+    for i, line in enumerate(lines):
+        missing = LOOP_KEYS - set(line)
+        check(not missing, f'tick {i + 1} of stats.jsonl lacks {sorted(missing)}')
+        check(all(np.isfinite(v['mean']) for k, v in line.items() if k.startswith('Loss/')),
+              f'non-finite losses at tick {i + 1}')
+    check('Loss/D/r1_penalty' in lines[0], 'no R1 in the first tick')
+    a = cfg.training.augment
+    p, ps = 0.0, []
+    for line in lines:
+        signs = line['Loss/signs/real']['mean']
+        p = min(max(p + float(np.sign(signs - a.target)) * batch * a.ada_interval
+                    / (a.ada_kimg * 1000), 0.0), 1.0)
+        ps.append(p)
+    logged = [line['Progress/augment_p']['mean'] for line in lines]
+    print(f'ADA: signs/real per tick {[round(l["Loss/signs/real"]["mean"], 4) for l in lines]}, '
+          f'p logged {logged}, by the formula {ps}')
+    check(np.allclose(logged, ps, rtol=0, atol=1e-9), "ADA's p does not follow the controller")
+    check(abs(result.ada_p - ps[-1]) <= 1e-9, 'the loop ended with another p')
+    snap = os.path.join(run_dir, 'network-snapshot-000000')
+    with open(snap + '.meta.json') as f:
+        meta = json.load(f)
+    check(os.path.exists(os.path.join(snap, 'state.pt')), 'no snapshot written')
+    check(meta['cur_nimg'] == batch * steps and meta['batch_idx'] == steps
+          and abs(meta['ada_p'] - ps[-1]) <= 1e-9, f'snapshot meta {meta}')
+    metric = read_jsonl(os.path.join(run_dir, 'metric-fid2k_full.jsonl'))
+    check(len(metric) == 1, f'{len(metric)} metric lines')
+    fid = metric[0]['results']['fid2k_full']
+    check(np.isfinite(fid) and 'Metrics/fid2k_full' in lines[-1]
+          and not any('Metrics/eval_failed' in line for line in lines), 'fid2k_full failed')
+    check(os.path.exists(os.path.join(run_dir, f'fakes{0:06d}.png')), 'no image grid written')
+    chunks = (gc.img_resolution ** 2) // (gc.max_batch_res ** 2)
+    # the metric renders 4 images at a time from 256^2 (its 16 below), the grid 4
+    renders = 2048 // (4 if gc.img_resolution >= 256 else 16) + 16 // 4
+    expected = {'triplane_splat': 2 * steps, 'ray_march_reduced': steps,
+                'ray_march_reduced_bwd': steps, 'ray_march_merged': chunks * renders,
+                'triplane_mlp': 2 * chunks * renders, 'bias_act': calls.unrecorded}
+    print(f'loop launches over {steps} steps, fid2k_full (2048 images) and the image grid: '
+          f'{launches} (expected {expected}; K5: the bias_act calls that autograd does not '
+          f'record, of {calls.count} on CUDA tensors)')
+    check(launches == expected, 'kernel launch counts of the loop')
+    for i, line in enumerate(lines):
+        print(f'tick {i + 1} host seconds: ' + ', '.join(
+            f'{k[7:]} {v["mean"]:.4f} x {v["num"]}' for k, v in line.items()
+            if k.startswith('Timing/')))
+    sec_per_kimg = [line['Timing/sec_per_kimg']['mean'] for line in lines]
+    steady = float(np.mean(sec_per_kimg[1:]))
+    metric_s = metric[0]['total_time']
+    readings.update(loop_sec_per_kimg=sec_per_kimg, loop_images_per_s=1e3 / steady,
+                    fid2k_full=fid, metric_s=metric_s, loop_peak_gib=peak / 2 ** 30,
+                    loop_s=loop_s, ada_p=ps)
+    print(f'loop, {LOOP_PRESET} with ADA, batch {batch}: sec/kimg per tick '
+          f'{[round(v, 2) for v in sec_per_kimg]} (tick 1 has R1 and the warm-up), '
+          f'{1e3 / steady:.2f} images/s over ticks 2-3 beside '
+          f'{train_images_per_s:.2f} images/s of the train phase (satellite, no ADA, no loop, at '
+          f'15:1); fid2k_full {fid:.3f} in {metric_s:.1f} s; peak memory {peak / 2**30:.2f} GiB; '
+          f'{loop_s:.1f} s in all')
+
+    reset_counts(counters)
+    resumed = train_script.main(['--run-dir', run_dir, '--max-kimg',
+                                 str(batch * (steps + steps_per_tick) / 1e3),
+                                 'training.metrics=[]'])
+    torch.cuda.synchronize()
+    got = {c.__name__: c.launches for c in counters}
+    lines = read_jsonl(os.path.join(run_dir, 'stats.jsonl'))
+    print(f'resumed from {resumed.resumed_from} with {resumed.resume_meta}; stopped at '
+          f'{resumed.cur_nimg} images, step {resumed.batch_idx}, p {resumed.ada_p}; launches {got}')
+    check(resumed.resumed_from == snap and resumed.resume_meta == meta,
+          'resume read another snapshot')
+    check(resumed.cur_nimg == batch * (steps + steps_per_tick)
+          and resumed.batch_idx == steps + steps_per_tick, 'the resumed loop lost its place')
+    check(len(lines) == ticks + 1 and all(np.isfinite(v['mean']) for k, v in lines[-1].items()
+                                           if k.startswith('Loss/')), 'the resumed tick')
+    check(got['triplane_splat'] == 2 * steps_per_tick and got['ray_march_merged'] == 0,
+          'kernel launch counts of the resumed tick')
+    return launches, readings
 
 
 def main():
@@ -1069,7 +1329,7 @@ def main():
         infer_launches = inference_phase(served, tmp_dir, RUN_DIR, OVERRIDES)
 
     with phase('train', seconds):
-        train_launches, k1_step = train_phase(Trainer, Draws, sched, cfg,
+        train_launches, k1_step, train_images_per_s = train_phase(Trainer, Draws, sched, cfg,
                                               profile_training.make_batch,
                                               profile_training.capture_splat_calls,
                                               profile_training.BATCH,
@@ -1078,7 +1338,14 @@ def main():
                                                ray_march.ray_march_merged],
                                               [triplane_mlp.triplane_mlp, bias_act.bias_act])
     k1.update(k1_step)
-    by_path = {'serve': serve_launches, 'inference': infer_launches, 'train': train_launches}
+
+    with phase('loop', seconds), tempfile.TemporaryDirectory() as tmp_dir:
+        loop_launches, loop_readings = loop_phase(
+            tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
+                      ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
+                      triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
+    by_path = {'serve': serve_launches, 'inference': infer_launches, 'train': train_launches,
+               'loop': loop_launches}
     k5['bound_ms_per_request'] = k5_request_bound_ms
     for k in (k3, k3_merged, k3_bwd, k1, k4, k5):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
@@ -1086,6 +1353,7 @@ def main():
 
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
+    print(f'loop: {json.dumps(loop_readings)}')
     print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

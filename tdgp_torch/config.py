@@ -293,10 +293,8 @@ class AugmentCfg:
 
 @dataclass(frozen=True)
 class TrainingConfig:
-    """All fields of `tdgp.config.TrainingConfig`. The port's train step
-    reads the batch sizes, the Dmain/Gmain switches, `use_depth`,
-    `blur_real_depth_sigma`, `learn_camera_dist`, the EMA settings, the
-    optimizers and `augment.mode`; the loop's fields wait for the loop."""
+    """All fields of `tdgp.config.TrainingConfig`, read by the train step
+    (`training/train_step.py`) and the loop (`training/loop.py`)."""
     batch_size: int = 64
     batch_gpu: Optional[int] = None
     test_batch_gpu: int = 4
@@ -368,6 +366,62 @@ def satellite_config(c_dim: int = 0, resolution: int = 256) -> Config:
                   dataset=DatasetConfig(c_dim=c_dim, resolution=resolution))
 
 
+def synth_demo_config() -> Config:
+    """`tdgp.config.synth_demo_config` (the 'synth64' preset): the whole 3DGP
+    pipeline at 64^2 on the synthetic sphere set
+    (`data_scripts/make_synthetic_dataset.py`), tri-planes 3x128^2x16, 32^2
+    patches, KD off (the set has no embeddings), ADA with ada_kimg 100."""
+    cam = CameraConfig()
+    tri = TriPlaneCfg(res=128, feat_dim=16, mlp=TriPlaneMLPCfg(n_layers=2, hid_dim=32))
+    patch = PatchCfg(resolution=32, min_scale_trg=0.5, anneal_kimg=100,
+                     mbstd_group_size=4)
+    gen = GeneratorConfig(
+        z_dim=128, w_dim=128, c_dim=4, cbase=8192, cmax=256, img_resolution=64,
+        num_ray_steps=16, tri_plane=tri, patch=patch, camera=cam,
+        fp32_only=True,
+        nerf_noise_kimg_growth=100,
+        depth_adaptor=DepthAdaptorCfg(hid_dim=16, num_hid_layers=2,
+                                      kernel_size=3, anneal_kimg=100),
+        camera_adaptor=CameraAdaptorCfg(z_dim=128, c_dim=4, hid_dim=64,
+                                        embed_dim=8))
+    disc = DiscriminatorConfig(
+        c_dim=4, cbase=8192, cmax=256, input_resolution=32, img_channels=4,
+        num_additional_start_blocks=1, mbstd_group_size=4, patch=patch,
+        embedding_dim=0)
+    return Config(
+        camera=cam, generator=gen, discriminator=disc,
+        loss=LossConfig(r1_gamma=0.1, kd=KDCfg(weight=0.0), blur_fade_kimg=20),
+        training=TrainingConfig(batch_size=32, ema_kimg=10.0, tick_kimg=2,
+                                snap=5, image_snap=5, val_freq=5,
+                                metrics=('fid2k_full',),
+                                augment=AugmentCfg(mode='ada', ada_kimg=100)),
+        dataset=DatasetConfig(resolution=64, c_dim=4, use_embeddings=False),
+    )
+
+
+def synth256_config() -> Config:
+    """`tdgp.config.synth256_config` (the 'synth256' preset): the satellite
+    widths at 256^2 with 64^2 patches on the 256^2 synthetic sphere set,
+    KD off, c_dim 4, 100-kimg anneals, batch 16, ADA with ada_kimg 100."""
+    cfg = satellite_config(c_dim=4, resolution=256)
+    patch = dataclasses.replace(cfg.generator.patch, anneal_kimg=100)
+    gen = dataclasses.replace(
+        cfg.generator, patch=patch, nerf_noise_kimg_growth=100,
+        depth_adaptor=dataclasses.replace(cfg.generator.depth_adaptor,
+                                          anneal_kimg=100))
+    return dataclasses.replace(
+        cfg, generator=gen,
+        discriminator=dataclasses.replace(cfg.discriminator, embedding_dim=0),
+        loss=dataclasses.replace(cfg.loss, kd=KDCfg(weight=0.0)),
+        training=TrainingConfig(batch_size=16, tick_kimg=2,
+                                snap=5, image_snap=5, val_freq=5,
+                                metrics=('fid2k_full',),
+                                augment=AugmentCfg(mode='ada', ada_kimg=100)),
+        dataset=DatasetConfig(path='data/synth256', name='synth256',
+                              resolution=256, c_dim=4, use_embeddings=False),
+    )
+
+
 def tiny_test_config() -> Config:
     """`tdgp.config.tiny_test_config`, for tests."""
     cam = CameraConfig()
@@ -427,12 +481,29 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
     return cfg
 
 
+PRESETS = {
+    'default': Config,
+    'satellite': satellite_config,
+    'tiny': tiny_test_config,
+    'synth64': synth_demo_config,
+    'synth256': synth256_config,
+}
+
+
 def load_config(yaml_path: Optional[str] = None, overrides: Sequence[str] = (),
-                finalize: bool = True) -> Config:
-    cfg = Config()
+                preset: str = 'default', finalize: bool = True) -> Config:
+    """`preset`, overlaid with the YAML file (whose own 'preset' key, if it
+    has one, replaces the base), then with the dotted overrides, then
+    finalized. A JAX run's frozen `experiment_config.yaml` loads unchanged."""
+    if preset not in PRESETS:
+        raise ValueError(f'unknown preset {preset!r}; have {sorted(PRESETS)}')
+    cfg = PRESETS[preset]()
     if yaml_path:
         with open(yaml_path) as f:
             data = yaml.safe_load(f) or {}
+        base_preset = data.pop('preset', None)
+        if base_preset:
+            cfg = PRESETS[base_preset]()
         cfg = _overlay(cfg, data)
     cfg = apply_overrides(cfg, overrides)
     return finalize_config(cfg) if finalize else cfg

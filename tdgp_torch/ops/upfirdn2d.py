@@ -77,3 +77,15 @@ def upsample2d(x: torch.Tensor, f: torch.Tensor, up: int = 2) -> torch.Tensor:
     fw, fh = get_filter_size(f)
     padding = ((fw + up - 1) // 2, (fw - up) // 2, (fh + up - 1) // 2, (fh - up) // 2)
     return upfirdn2d(x, f, up=up, padding=padding, gain=up * up)
+
+
+def downsample2d(x: torch.Tensor, f: torch.Tensor, down: int = 2,
+                 padding: Union[int, Sequence[int]] = 0,
+                 flip_filter: bool = False) -> torch.Tensor:
+    """FIR-smoothed downsampling by `down`; `padding` (int or (x0, x1, y0,
+    y1), may be negative) is added to the filter's own."""
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = get_filter_size(f)
+    padding = (px0 + (fw - down + 1) // 2, px1 + (fw - down) // 2,
+               py0 + (fh - down + 1) // 2, py1 + (fh - down) // 2)
+    return upfirdn2d(x, f, down=down, padding=padding, flip_filter=flip_filter)

@@ -146,3 +146,38 @@ def compute_cam2world_matrix(camera_params: TensorGroup) -> torch.Tensor:
     c2w[:, :3, 3] = origins
     c2w[:, 3, 3] = 1.0
     return c2w
+
+
+def get_max_sampling_value(d: Dist) -> float:
+    """The largest value a distribution draws (inf for a normal with spread)."""
+    if d.dist == 'normal':
+        return d.mean if d.std <= 1e-8 else float('inf')
+    if d.dist in ('truncnorm', 'uniform'):
+        return d.max
+    raise NotImplementedError(d.dist)
+
+
+def validate_frustum(fov: float, near: float, far: float, radius: float,
+                     scale: float = 1.0, step: float = 1e-2) -> bool:
+    """Whether the viewing frustum between `near` and `far` stays inside the
+    [-scale, scale]^3 cube for every camera on the sphere of `radius` looking
+    at the origin (fov in degrees); on the CPU."""
+    num_angles = int((math.pi / 2) / step)
+    yaw = torch.linspace(0, 2 * math.pi, num_angles, dtype=torch.float64).float()
+    pitch = torch.linspace(0, math.pi, num_angles, dtype=torch.float64).clamp(
+        1e-7, math.pi - 1e-7).float()
+    yaw, pitch = torch.meshgrid(yaw, pitch, indexing='ij')
+    angles = torch.stack([yaw.reshape(-1), pitch.reshape(-1), torch.zeros(yaw.numel())], dim=1)
+    n = angles.shape[0]
+    c2w = compute_cam2world_matrix(TensorGroup(
+        angles=angles, radius=torch.full((n,), float(radius)), fov=torch.full((n,), float(fov)),
+        look_at=torch.zeros((n, 3))))
+    x = torch.tensor([-1.0, 1.0, -1.0, 1.0])
+    y = torch.tensor([1.0, 1.0, -1.0, -1.0])
+    z = -torch.ones(4) / math.tan(math.radians(fov) * 0.5)
+    rays_d_cam = normalize_vec(torch.stack([x, y, z], dim=1))               # [4, 3]
+    z_vals = torch.tensor([near, far], dtype=torch.float32)
+    dirs_world = torch.einsum('bij,pj->bpi', c2w[:, :3, :3], rays_d_cam)     # [n, 4, 3]
+    origins = c2w[:, :3, 3][:, None, None, :]
+    pts = origins + z_vals[None, None, :, None] * dirs_world[:, :, None, :]
+    return float(pts.min()) >= -scale and float(pts.max()) <= scale

@@ -10,7 +10,7 @@ gradient holds every sample's diagonal entry).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,14 +53,18 @@ def g_forward(G: Generator, z: torch.Tensor, c: torch.Tensor, camera_params: Ten
 # --------------------------------------------------------------- D forward
 
 def d_forward(D: Discriminator, img: torch.Tensor, c: torch.Tensor, sched: Schedules,
-              cfg: Config, patch_params=None, predict_feat: bool = False):
-    """The blur fade-in, the depth channel's own blur, then D."""
+              cfg: Config, patch_params=None, predict_feat: bool = False,
+              augment_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+    """The blur fade-in, the depth channel's own blur, the augment pipe
+    (`augment_fn`, when given), then D."""
     max_blur = cfg.loss.blur_init_sigma
     img = maybe_blur(img, sched.blur_sigma, max_blur)
     if cfg.training.use_depth:
         if img.shape[-1] != 4:
             raise ValueError(f'RGB-D expected, got {tuple(img.shape)}')
         img = blur_depth_channel(img, sched.blur_sigma, max_blur)
+    if augment_fn is not None:
+        img = augment_fn(img)
     return D(img, c, patch_params=patch_params, predict_feat=predict_feat)
 
 

@@ -17,15 +17,18 @@
 Gradients are averaged over `batch_gpu` microbatches (`r1_batch_gpu` for
 R1), scrubbed of NaN and Inf, and applied by Adam; D's Adam has the
 lazy-regularization ratio r1_interval / (r1_interval + 1) folded into its
-learning rate and betas. Every random choice comes from the `Draws` given
-to `step`; the tests replay the JAX package's draws through it. The step
-runs at float32, TF32 off.
+learning rate and betas. With `training.augment.mode` 'ada' or 'fixed', every
+D input passes through the ADA pipe (`training/augment.py`) at the
+schedules' `ada_p`, with draws of its own per phase and microbatch
+('aug/gmain/<i>', 'aug/dmain_fake/<i>', 'aug/dmain_real/<i>', 'aug/r1/<i>').
+Every random choice comes from the `Draws` given to `step`; the tests replay
+the JAX package's draws through it. The step runs at float32, TF32 off.
 
 Not ported, and refused with a `NotImplementedError` naming the setting:
-ADA (`training.augment.mode`), path-length regularization, style mixing,
-fresh Dmain fakes and the bf16 render views, bf16 blocks, the 2D StyleGAN2
-model, R1 rematerialization, G's gradient clipping and training over
-several devices.
+an augment mode other than 'noaug', 'ada' and 'fixed', path-length
+regularization, style mixing, fresh Dmain fakes and the bf16 render views,
+bf16 blocks, the 2D StyleGAN2 model, R1 rematerialization, G's gradient
+clipping and training over several devices.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.models.layers import init_weights
 from tdgp_torch.rendering.camera import sample_camera_params
 from tdgp_torch.training import losses
+from tdgp_torch.training.augment import AugmentPipe
 from tdgp_torch.training.patch import extract_patches, sample_patch_params, sample_random_c
 from tdgp_torch.training.schedules import Schedules
 from tdgp_torch.utils.draws import Draws
@@ -58,7 +62,7 @@ def check_supported(cfg: Config) -> None:
     t, l = cfg.training, cfg.loss
     refused = {
         'model_name': cfg.model_name == 'stylegan2',
-        'training.augment.mode': t.augment.mode != 'noaug',
+        'training.augment.mode': t.augment.mode not in ('noaug', 'ada', 'fixed'),
         'loss.pl_weight': l.pl_weight > 0,
         'loss.style_mixing_prob': l.style_mixing_prob > 0,
         'loss.r1_remat': l.r1_remat,
@@ -144,6 +148,19 @@ class Trainer:
         self.G_ema = copy.deepcopy(self.G).eval()
         _set_requires_grad(self.G_ema, False)
         self.g_opt, self.d_opt = make_optimizers(cfg, self.G, self.D)
+        self.augment_pipe = None
+        if cfg.training.augment.mode != 'noaug':
+            self.augment_pipe = AugmentPipe(cfg.training.augment,
+                                            num_color_channels=cfg.generator.img_channels,
+                                            device=self.device)
+
+    def _augment(self, draws: Draws, sched: Schedules, name: str):
+        """The augment pipe at `sched.ada_p` with the draws 'aug/<name>/...',
+        as the `augment_fn` of `losses.d_forward`; None without ADA."""
+        if self.augment_pipe is None:
+            return None
+        scope = draws.scope(f'aug/{name}')
+        return lambda img: self.augment_pipe(img, sched.ada_p, scope)
 
     @staticmethod
     def _apply(opt: torch.optim.Optimizer, module: nn.Module,
@@ -189,7 +206,7 @@ class Trainer:
         grads['d'] = self._apply(self.d_opt, D, keep)
         if do_r1 and cfg.loss.r1_gamma > 0:
             with record_function('r1'):
-                self._r1(batch, sched, real, rpp, n_micro, stats)
+                self._r1(batch, sched, draws, real, rpp, n_micro, stats)
             grads['r1'] = self._apply(self.d_opt, D, keep)
         with record_function('ema'):
             self._ema(sched.ema_beta)
@@ -212,7 +229,8 @@ class Trainer:
             sl = slice(i * m, (i + 1) * m)
             out, pp = losses.g_forward(G, zg[sl], cg[sl], camg.select(sl), condg[sl], sched, cfg,
                                        draws.scope(f'gmain/{i}'))
-            logits, _ = losses.d_forward(D, out.img, cg[sl], sched, cfg, patch_params=pp)
+            logits, _ = losses.d_forward(D, out.img, cg[sl], sched, cfg, patch_params=pp,
+                                         augment_fn=self._augment(draws, sched, f'gmain/{i}'))
             loss = losses.adv_loss_g(logits, cfg.loss.adv_loss_type).mean()
             (loss / n_micro).backward()
             accumulate('Loss/G/loss', loss)
@@ -275,11 +293,12 @@ class Trainer:
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
             fake_img, fake_pp = fakes[i]
-            fake_logits, _ = losses.d_forward(D, fake_img, cg[sl], sched, cfg,
-                                              patch_params=fake_pp)
-            real_logits, real_feats = losses.d_forward(D, real[sl], batch['c'][sl], sched, cfg,
-                                                       patch_params=rpp(sl),
-                                                       predict_feat=do_kd)
+            fake_logits, _ = losses.d_forward(
+                D, fake_img, cg[sl], sched, cfg, patch_params=fake_pp,
+                augment_fn=self._augment(draws, sched, f'dmain_fake/{i}'))
+            real_logits, real_feats = losses.d_forward(
+                D, real[sl], batch['c'][sl], sched, cfg, patch_params=rpp(sl),
+                predict_feat=do_kd, augment_fn=self._augment(draws, sched, f'dmain_real/{i}'))
             loss_fake = losses.adv_loss_d_fake(fake_logits, adv, clamp).mean()
             loss_real = losses.adv_loss_d_real(real_logits, adv, clamp).mean()
             total = loss_fake + loss_real
@@ -296,7 +315,7 @@ class Trainer:
             (total / n_micro).backward()
         return real, rpp
 
-    def _r1(self, batch, sched, real, rpp, n_micro, stats):
+    def _r1(self, batch, sched, draws, real, rpp, n_micro, stats):
         """The R1 penalty on real patches: a gradient of D's gradient."""
         cfg, D = self.cfg, self.D
         n = real.shape[0]
@@ -307,7 +326,8 @@ class Trainer:
         for i in range(n_r1):
             sl = slice(i * m_r1, (i + 1) * m_r1)
             img = real[sl].detach().requires_grad_(True)
-            logits, _ = losses.d_forward(D, img, batch['c'][sl], sched, cfg, patch_params=rpp(sl))
+            logits, _ = losses.d_forward(D, img, batch['c'][sl], sched, cfg, patch_params=rpp(sl),
+                                         augment_fn=self._augment(draws, sched, f'r1/{i}'))
             (r1_grads,) = torch.autograd.grad(logits.sum(), img, create_graph=True)
             penalty = r1_grads.square().sum(dim=(1, 2, 3))
             loss = penalty.mean() * (cfg.loss.r1_gamma / 2) * gain

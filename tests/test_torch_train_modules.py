@@ -587,7 +587,7 @@ def test_trainer_needs_a_card_unless_given_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize('setting,override', [
-    ('training.augment.mode', 'training.augment.mode=ada'),
+    ('training.augment.mode', 'training.augment.mode=adaptive'),
     ('loss.pl_weight', 'loss.pl_weight=2.0'),
     ('loss.style_mixing_prob', 'loss.style_mixing_prob=0.9'),
     ('loss.r1_remat', 'loss.r1_remat=true'),

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 from flax.core.scope import LazyRng
 
 from tdgp.config import asdict, tiny_test_config as jax_tiny
+from tdgp.infra.experiment import apply_overrides as jax_apply_overrides
 from tdgp.models.stylegan2 import sg2_block_resolutions
 from tdgp.rendering.camera import sample_camera_params as jax_sample_camera
 from tdgp.training import train_step as jts
@@ -43,12 +44,14 @@ from tdgp.training.patch import sample_patch_params as jax_patch_params
 from tdgp.training.patch import sample_random_c as jax_random_c
 from tdgp.training.schedules import compute_schedules as jax_schedules
 
-from tdgp_torch.config import tiny_test_config
+from tdgp_torch.config import apply_overrides, tiny_test_config
 from tdgp_torch.training.schedules import compute_schedules
 from tdgp_torch.training.train_step import Trainer
 from tdgp_torch.utils.draws import Replay
 from tdgp_torch.utils.tensor_group import TensorGroup
 from tdgp_torch.weights import _to_port_layout, flat_key, flatten_tree, load_train_state
+
+from _jax_draws import jax_pipe_draws
 
 N = 4
 CUR_NIMG = 300_000
@@ -107,34 +110,47 @@ def jax_state(cfg):
     return state, G, D
 
 
-def step_draws(cfg, rng, sched):
-    """Every draw the JAX step makes from `rng`, under the port's names."""
+def render_draws(cfg, key, n, sched, prefix):
+    """The draws of one Gmain render of `n` samples from its key."""
     gc = cfg.generator
-    k_gen_g, k_gen_d, k_gfwd, _, k_reg, _, _, _ = jax.random.split(rng, 8)
-    values = {'gen_g/spoof': T(jax.random.uniform(jax.random.split(k_gen_g, 4)[3], (N,))),
-              'gen_d/spoof': T(jax.random.uniform(jax.random.split(k_gen_d, 4)[3], (N,)))}
-    k_patch, k_noise, k_render, k_depth, _, _ = jax.random.split(jax.random.fold_in(k_gfwd, 0), 6)
-    pp = jax_patch_params(k_patch, N, gc.patch, min_scale=sched.patch_min_scale,
+    values = {}
+    k_patch, k_noise, k_render, k_depth, _, _ = jax.random.split(key, 6)
+    pp = jax_patch_params(k_patch, n, gc.patch, min_scale=sched.patch_min_scale,
                           beta=sched.patch_beta)
-    values['gmain/0/patch'] = {k: T(v) for k, v in pp.items()}
+    values[f'{prefix}/patch'] = {k: T(v) for k, v in pp.items()}
     for res in sg2_block_resolutions(0, gc.tri_plane.res):
         for name in (['conv1'] if res == 4 else ['conv0', 'conv1']):
-            key = flax_key(k_noise, 'synthesis', 'tri_plane_decoder', f'b{res}', name)
-            values[f'gmain/0/noise/b{res}/{name}'] = T(jax.random.normal(key, (N, res, res, 1)))
+            k = flax_key(k_noise, 'synthesis', 'tri_plane_decoder', f'b{res}', name)
+            values[f'{prefix}/noise/b{res}/{name}'] = T(jax.random.normal(k, (n, res, res, 1)))
     k_strat, k_n1, k_imp, k_n2 = jax.random.split(flax_key(k_render, 'synthesis'), 4)
     rays, s = gc.patch.resolution ** 2, gc.num_ray_steps
     values.update({
-        'gmain/0/render/jitter': T(jax.random.uniform(k_strat, (N, rays, s))),
-        'gmain/0/render/noise_coarse': T(jax.random.normal(k_n1, (N, rays * s))),
-        'gmain/0/render/u': T(jax.random.uniform(k_imp, (N * rays, s))),
-        'gmain/0/render/noise_fine': T(jax.random.normal(k_n2, (N, rays * s)))})
+        f'{prefix}/render/jitter': T(jax.random.uniform(k_strat, (n, rays, s))),
+        f'{prefix}/render/noise_coarse': T(jax.random.normal(k_n1, (n, rays * s))),
+        f'{prefix}/render/u': T(jax.random.uniform(k_imp, (n * rays, s))),
+        f'{prefix}/render/noise_fine': T(jax.random.normal(k_n2, (n, rays * s)))})
     n_out = gc.depth_adaptor.num_hid_layers + 1
     prog = float(sched.depth_progress)
     start_p = (1.0 / n_out) * (1.0 - prog) + gc.depth_adaptor.selection_start_p * prog
     slope = (1.0 - n_out * start_p) * 2.0 / (n_out * (n_out - 1))
-    logits = jnp.log(jnp.arange(n_out) * slope + start_p + 1e-12)[None].repeat(N, 0)
-    values['gmain/0/depth/select'] = T(jax.random.categorical(
+    logits = jnp.log(jnp.arange(n_out) * slope + start_p + 1e-12)[None].repeat(n, 0)
+    values[f'{prefix}/depth/select'] = T(jax.random.categorical(
         flax_key(k_depth, 'synthesis', 'depth_adaptor'), logits))
+    return values
+
+
+def step_draws(cfg, rng, sched, n_micro=1, n_micro_r1=1):
+    """Every draw the JAX step makes from `rng`, under the port's names. A
+    microbatch's draws come from its phase key folded with the index of its
+    first sample, as `make_train_step` folds them."""
+    gc = cfg.generator
+    k_gen_g, k_gen_d, k_gfwd, _, k_reg, _, k_aug, _ = jax.random.split(rng, 8)
+    values = {'gen_g/spoof': T(jax.random.uniform(jax.random.split(k_gen_g, 4)[3], (N,))),
+              'gen_d/spoof': T(jax.random.uniform(jax.random.split(k_gen_d, 4)[3], (N,)))}
+    m = N // n_micro
+    for i in range(n_micro):
+        values.update(render_draws(cfg, jax.random.fold_in(k_gfwd, i * m), m, sched,
+                                   f'gmain/{i}'))
     k_emd, k_fm, _ = jax.random.split(k_reg, 3)
     for name, key, n in (('emd', k_emd, gc.camera_adaptor.emd.num_samples),
                          ('force_mean', k_fm, 256)):
@@ -142,18 +158,31 @@ def step_draws(cfg, rng, sched):
         values[f'reg/{name}/batch'] = (
             T(jax.random.normal(k_z, (n, gc.z_dim))), T(jax_random_c(k_c, n, gc.c_dim)),
             port_cam(jax_sample_camera(k_cam, asdict(cfg.camera), n)))
+    if cfg.training.augment.mode != 'noaug':
+        res, ch = cfg.discriminator.input_resolution, cfg.discriminator.img_channels
+        for phase, fold, micro in (('gmain', 0, n_micro), ('dmain_fake', 1, n_micro),
+                                   ('dmain_real', 2, n_micro), ('r1', 3, n_micro_r1)):
+            mm = N // micro
+            for i in range(micro):
+                key = jax.random.fold_in(jax.random.fold_in(k_aug, fold), i * mm)
+                for name, v in jax_pipe_draws(cfg.training.augment, key, (mm, res, res, ch),
+                                              num_color_channels=gc.img_channels).items():
+                    values[f'aug/{phase}/{i}/{name}'] = v
     return values
 
 
-def run_step(cur_nimg, dtype=np.float32):
+def run_step(cur_nimg, dtype=np.float32, overrides=(), ada_p=0.0):
     """One step of both packages from the same weights, batch and draws
     -> (JAX stats, JAX new state, port stats, port trainer, the draws).
-    With dtype float64 the weights and the batch are float64; the caller
-    has turned on float64 in both frameworks."""
-    jcfg, cfg = fp32_d(jax_tiny()), fp32_d(tiny_test_config())
+    `overrides` are dotted config overrides for both packages, `ada_p` the
+    augment pipe's p. With dtype float64 the weights and the batch are
+    float64; the caller has turned on float64 in both frameworks."""
+    jcfg = jax_apply_overrides(fp32_d(jax_tiny()), overrides)
+    cfg = apply_overrides(fp32_d(tiny_test_config()), overrides)
     state, G, D = jax_state(jcfg)
     state = jax.tree.map(lambda a: a.astype(dtype) if a.dtype == np.float32 else a, state)
-    jsched, sched = jax_schedules(jcfg, cur_nimg), compute_schedules(cfg, cur_nimg)
+    jsched = jax_schedules(jcfg, cur_nimg, ada_p=ada_p)
+    sched = compute_schedules(cfg, cur_nimg, ada_p=ada_p)
     rs = np.random.RandomState(0)
     res, gc = jcfg.dataset.resolution, jcfg.generator
     batch = dict(
@@ -189,7 +218,9 @@ def run_step(cur_nimg, dtype=np.float32):
     pb = {k: T(v) for k, v in batch.items()}
     pb.update(gen_cam_g=port_cam(jb['gen_cam_g']), gen_cam_d=port_cam(jb['gen_cam_d']),
               real_pp_scales=T(pp['scales']), real_pp_offsets=T(pp['offsets']))
-    draws = Replay(step_draws(jcfg, rng, jsched))
+    bg, rbg = jcfg.training.batch_gpu, jcfg.loss.r1_batch_gpu
+    n_micro = N // bg if bg and bg < N else 1
+    draws = Replay(step_draws(jcfg, rng, jsched, n_micro, N // rbg if rbg else n_micro))
     port_stats = trainer.step(pb, sched, True, draws, return_grads=True)
     return stats, new_state, port_stats, trainer, draws
 
@@ -204,7 +235,7 @@ def test_every_draw_of_the_jax_step_is_replayed(steps):
     assert draws.used == set(draws.values)
 
 
-def test_losses(steps):
+def check_losses(steps):
     stats, _, port_stats, _, _ = steps
     names = [k for k in stats if not k.startswith('_')]
     assert set(names) == {k for k in port_stats if not k.startswith('_')}
@@ -213,9 +244,7 @@ def test_losses(steps):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
-def test_gradients(steps, phase):
-    """Gmain (with the camera regularizers), Dmain (with KD) and R1."""
+def check_gradients(steps, phase):
     stats, _, port_stats, _, _ = steps
     flat = flatten_tree({'params': stats['_debug'][f'{phase}_grads']})
     scale = max(float(np.abs(v).max()) for v in flat.values())
@@ -226,9 +255,7 @@ def test_gradients(steps, phase):
         np.testing.assert_allclose(g.numpy(), ref, rtol=1e-4, atol=1e-4 * scale, err_msg=name)
 
 
-@pytest.mark.parametrize('module', ['G', 'D', 'G_ema'])
-def test_parameters_and_buffers_after_the_step(steps, module):
-    """Adam's updates, the w_avg EMA and the G EMA."""
+def check_module(steps, module):
     _, s, _, trainer, _ = steps
     trees = {'G': {'params': s.g_params, 'consts': s.g_consts, 'ema': s.g_ema_coll},
              'D': {'params': s.d_params},
@@ -241,6 +268,52 @@ def test_parameters_and_buffers_after_the_step(steps, module):
         ref = _to_port_layout(name, flat[flat_key(name)], value.ndim)
         np.testing.assert_allclose(value.numpy(), ref, rtol=1e-4, atol=1e-4 * scale,
                                    err_msg=name)
+
+
+def check_part(steps, part):
+    """'draws' (every JAX draw replayed), 'losses', a phase's gradients ('g',
+    'd', 'r1') or a module after the step ('G', 'D', 'G_ema')."""
+    if part == 'draws':
+        assert steps[4].used == set(steps[4].values)
+    elif part == 'losses':
+        check_losses(steps)
+    elif part in ('g', 'd', 'r1'):
+        check_gradients(steps, part)
+    else:
+        check_module(steps, part)
+
+
+PARTS = ['draws', 'losses', 'g', 'd', 'r1', 'G', 'D', 'G_ema']
+
+
+def test_losses(steps):
+    check_losses(steps)
+
+
+@pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
+def test_gradients(steps, phase):
+    """Gmain (with the camera regularizers), Dmain (with KD) and R1."""
+    check_gradients(steps, phase)
+
+
+@pytest.mark.parametrize('module', ['G', 'D', 'G_ema'])
+def test_parameters_and_buffers_after_the_step(steps, module):
+    """Adam's updates, the w_avg EMA and the G EMA."""
+    check_module(steps, module)
+
+
+@pytest.fixture(scope='module')
+def micro_steps():
+    return run_step(CUR_NIMG, overrides=('training.batch_gpu=2', 'loss.r1_batch_gpu=4'))
+
+
+@pytest.mark.parametrize('part', PARTS)
+def test_microbatched_step(micro_steps, part):
+    """Gmain and Dmain in two microbatches of 2 (`batch_gpu`), R1 in one of 4
+    (`r1_batch_gpu`), against the JAX step's `lax.scan` accumulation with
+    the same settings: every draw, the losses, the gradients of each phase
+    and the modules after the step, at the limits above."""
+    check_part(micro_steps, part)
 
 
 def test_microbatched_step_runs_and_checks_batch_gpu():
