@@ -24,16 +24,23 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   timed in the same ways beside the two-step path it replaces
                   (unify_samples_sorted + K3), its plain version and bound.
   2. serve:       the trained 256^2 flagship generator (tri-planes 3x512^2x32)
-                  serves 3 requests of batch 4 after one warm-up; images
-                  [4,256,256,3], finite, in [0,1]; K3's merged entry launched
-                  once per ray chunk (4 per request) during the 3 requests,
-                  the unmerged K3 never.
-  3. cross-check: one request through the plain merge and marcher on the card
-                  (<= 1e-4; no K3 launch; `plain_versions` swaps the kernels'
-                  wrappers for their plain versions, which no config can
-                  select on the card),
-                  and the port on the CPU at a 64x64 output against the card
-                  (<= 1e-3: the convolutions sum in another order).
+                  at the precision it was trained at (its decoder's blocks
+                  64-512 in bf16), then at the float32 cut
+                  (generator.fp32_only=true): each serves 3 requests of batch
+                  4 after one warm-up; images [4,256,256,3], finite, in
+                  [0,1]; K3's merged entry launched once per ray chunk (4 per
+                  request) during the 3 requests, the unmerged K3 never; ms
+                  per request, images/s, peak memory of each, and the
+                  relative L2 between their images.
+  3. cross-check: one request (bf16 blocks) through the plain merge and
+                  marcher on the card (<= 1e-4; no K3 launch;
+                  `plain_versions` swaps the kernels' wrappers for their plain
+                  versions, which no config can select on the card), and the
+                  port on the CPU at a 64x64 output against the card: at the
+                  float32 cut <= 1e-3 max abs (the convolutions sum in another
+                  order), with bf16 blocks a relative L2 <=
+                  CROSS_BF16_OF_FLOOR x the bf16 floor (the card's bf16 image
+                  against its float32 one).
   4. train kernels: K3's backward at 16 x 4096 rays x 64 samples x 3 channels
                   and K1 (triplane_splat) at the training shape (batch 16,
                   64^2 x 32 points per pass, planes 48 x 512^2 x 32) against
@@ -47,7 +54,10 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   every strip). K1's bound counts the plane texels that the
                   points' corners touch, not the whole planes.
   5. train check: one step's Gmain gradient at full width, batch 4, through
-                  the kernels and through their plain versions on the card;
+                  the kernels and through their plain versions on the card,
+                  at the float32 cut as below, then with the bf16 blocks
+                  (every parameter within max(1e-3, BF16_FLOOR_FACTOR x its
+                  one-ulp floor), K1 and K3 not held alone);
                   relative L2 difference <= 1e-3 for every parameter, also
                   with K1 alone through its kernel (K3 alone is printed). The
                   depth adaptor's parameters alone (DEPTH_ADAPTOR), whose
@@ -71,7 +81,13 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   (elementwise; expf/tanhf ulps). Kernel, plain and bound
                   times; K4 also beside the two FullyConnected layers it
                   replaces (plain bias_act), a yardstick that the port no
-                  longer calls. No single PyTorch call computes either.
+                  longer calls. No single PyTorch call computes either. Then
+                  K5's bf16 instantiation at the same shapes in bf16 (and D's
+                  skip: linear, gain sqrt 1/2): bit for bit for linear and
+                  lrelu, at most one ulp for the others (the share printed);
+                  K5 at float32 and in bf16 at [4,512,512,64] timed warm,
+                  cold and cold with a clean L2 in turns, bf16 beside its
+                  bound (2 + 2 bytes an element).
   7. inference:   the trained flagship through `tdgp_torch.inference` and
                   `tdgp_torch.geometry` (loaded by the entry points'
                   `load_run`): a grid of seeds 0-15 at batch 4 with truncation
@@ -82,14 +98,19 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   K4 launched 2 passes x 4 chunks per batch and once per density
                   chunk, K3 merged 4 times per batch (unmerged never), K5
                   once per bias_act call on a
-                  CUDA tensor. Then one grid batch and the density grid again
-                  with the plain versions of K4 and K5: image <= 1e-4 max abs,
-                  sigma <= 1e-5 x max |sigma|. Then the two entry points
+                  CUDA tensor (by dtype). Then, at the float32 cut, one grid
+                  batch and the density grid through the kernels and with the
+                  plain versions of K4 and K5: image <= 1e-4 max abs, sigma
+                  <= 1e-5 x max |sigma| (with bf16 blocks a float32 ulp of K5
+                  flips bf16 roundings that the next blocks spread; K5 in
+                  bf16 is held bit for bit in 6). Then the two entry points
                   (`python3 -m tdgp_torch.scripts.inference`, image_grid and
                   video_grid, and `... .extract_geometry`), each run once on a
                   small workload into a temporary directory.
   8. train:       the satellite 256^2 G+D step (`tdgp_torch.profile_training`:
-                  float32, random weights from a seed, batch 16 of a
+                  at its own precision, G's blocks 64-512 and D's 256-32 in
+                  bf16, then at the float32 cut without the K1 holding;
+                  random weights from a seed, batch 16 of a
                   synthetic batch): one warm-up step, whose two K1 calls (the
                   Gmain render's coarse and fine pass) are kept and K1 held
                   on them as in 4, timed beside its bound, with the most
@@ -105,7 +126,8 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   output and VJP <= 1e-4 x max |CPU|, an R1-style gradient of
                   a gradient <= 1e-3 relative L2; its time at the step's
                   groups. Then the training entry point in process,
-                  `tdgp_torch.scripts.train --preset synth256` (float32), on
+                  `tdgp_torch.scripts.train --preset synth256` (its own
+                  precision: no override), on
                   a 256-image 256^2 folder that
                   `data_scripts/make_synthetic_dataset.py` writes: three
                   ticks of four steps with ADA reacting every tick
@@ -121,11 +143,14 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   and ada_p restored, losses finite. sec/kimg per tick,
                   images/s, the metric's seconds, peak memory.
 Serving (2) also counts K4 (8 per request) and K5 launches per request.
+K5's launches are counted by dtype everywhere: 'bias_act' (float32) and
+'bias_act_bf16' (bfloat16), each held to the `bias_act` calls of that dtype.
 Prints the card's name and power limit, each phase's seconds, a JSON line
-of per-kernel numbers, and as its last line
+of per-kernel numbers (K5 in bf16 its own entry), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result, when a phase fails or there is no card.
 """
+import collections
 import contextlib
 import json
 import os
@@ -145,6 +170,9 @@ TRAIN_PLAIN_STEPS = 5       # timed plain steps of the training phase
 GRAD_LIMIT = 1e-3           # Gmain gradient, kernels vs plain: relative L2 per parameter
 DEPTH_ADAPTOR = 'synthesis.depth_adaptor.'  # the only parameters that may exceed it ...
 RAISED_LIMIT_CAP = 4e-3     # ... up to 2x their one-ulp floor, and never above this
+K5_NAMES = {torch.float32: 'bias_act', torch.bfloat16: 'bias_act_bf16'}  # K5's launches by dtype
+CROSS_BF16_OF_FLOOR = 0.6   # card vs CPU at bf16: relative L2 over the bf16 floor
+BF16_FLOOR_FACTOR = 3       # the train check with bf16 blocks: limit = this x the one-ulp floor
 
 
 @contextlib.contextmanager
@@ -176,27 +204,31 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
 
 class BiasActCalls:
     """Counts the calls of `bias_act` on CUDA tensors made by the models
-    (`models/layers.py`, `models/stylegan2.py`) while it is entered: the
-    number of K5 launches a path without gradients should show; the calls
-    that autograd does not record (`unrecorded`: K5's launches on a path
-    that records some calls, as training does); the calls on tensors that
-    are not contiguous (K5 takes them as strided views); and the bytes and
-    operations of all of them (x read, y written, the bias read; 4
-    operations an element), for K5's bound over a path."""
+    (`models/layers.py`, `models/stylegan2.py`) while it is entered, by the
+    name K5's launches take (`launch_counts`: 'bias_act' float32,
+    'bias_act_bf16' bfloat16): the K5 launches a path without gradients
+    should show (`count`); those that autograd does not record
+    (`unrecorded`: K5's launches on a path that records some calls, as
+    training does); the calls on tensors that are not contiguous (K5 takes
+    them as strided views); and the bytes and operations of all of them (x
+    read, y written, the bias read, each in x's dtype; 4 operations an
+    element), for K5's bound over a path."""
 
     def __enter__(self):
         from tdgp_torch.models import layers, stylegan2
-        self.count = self.strided = self.bytes = self.flops = self.unrecorded = 0
+        self.count, self.unrecorded = collections.Counter(), collections.Counter()
+        self.strided = self.bytes = self.flops = 0
         self._saved = layers.bias_act, stylegan2.bias_act
         inner = layers.bias_act
 
         def counted(x, b=None, **kwargs):
             if x.is_cuda:
-                self.count += 1
-                self.unrecorded += not (torch.is_grad_enabled() and (
+                name = K5_NAMES[x.dtype]
+                self.count[name] += 1
+                self.unrecorded[name] += not (torch.is_grad_enabled() and (
                     x.requires_grad or (b is not None and b.requires_grad)))
                 self.strided += not x.is_contiguous()
-                self.bytes += 8 * x.numel() + (0 if b is None else 4 * b.numel())
+                self.bytes += x.element_size() * (2 * x.numel() + (0 if b is None else b.numel()))
                 self.flops += 4 * x.numel()
             return inner(x, b, **kwargs)
 
@@ -632,10 +664,14 @@ def train_kernel_phase(ray_march, splat):
     return k3_bwd, k1
 
 
-def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='cuda'):
+def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides,
+                      device='cuda'):
     """One step's Gmain gradient through the kernels and through the plain
-    versions, at full width and batch 4, held to GRAD_LIMIT (the depth
-    adaptor: see the module's docstring)."""
+    versions, at full width and batch 4, with the config `overrides`: at
+    float32 held to GRAD_LIMIT (the depth adaptor: see the module's
+    docstring); with bf16 blocks every parameter to max(GRAD_LIMIT,
+    BF16_FLOOR_FACTOR x its one-ulp floor), since a float32 ulp of the
+    rendered patch can flip a bf16 rounding in the decoder's backward."""
     from tdgp_torch.training import losses
     g_forward = losses.g_forward
 
@@ -645,8 +681,11 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='c
         img = out.img * (1 + 2.0 ** -24 * torch.randn(out.img.shape, device=device, generator=g))
         return type(out)(img=img, depth=out.depth), pp
 
+    bf16 = not train_config(overrides).generator.fp32_only
+    label = 'bf16 blocks' if bf16 else 'float32'
+
     def gmain_grads(k1_plain, k3_plain, perturb=False):
-        cfg = train_config(['generator.use_noise=false'])
+        cfg = train_config(list(overrides) + ['generator.use_noise=false'])
         trainer = Trainer(cfg, device, seed=0)
         losses.g_forward = one_ulp if perturb else g_forward
         try:
@@ -667,28 +706,32 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, device='c
         ref = gmain_grads(True, True)
         rel = rel_l2(gmain_grads(False, False), ref)
         floor = rel_l2(gmain_grads(True, True, perturb=True), ref)
-        k1_alone = rel_l2(gmain_grads(False, True), ref)
-        k3_alone = rel_l2(gmain_grads(True, False), ref)
+        if not bf16:
+            k1_alone = rel_l2(gmain_grads(False, True), ref)
+            k3_alone = rel_l2(gmain_grads(True, False), ref)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    for what, r in (('K1 alone', k1_alone), ('K3 alone', k3_alone)):
-        worst = max(r, key=r.get)
-        print(f'Gmain gradient, {what} vs plain: median relative L2 difference '
-              f'{float(np.median(list(r.values()))):.3g}, max {r[worst]:.3g} ({worst})')
-    check(max(k1_alone.values()) <= GRAD_LIMIT,
-          'the Gmain gradient through K1 alone disagrees with the plain path')
-    limit = {n: min(RAISED_LIMIT_CAP, max(GRAD_LIMIT, 2 * floor[n]))
-             if n.startswith(DEPTH_ADAPTOR) else GRAD_LIMIT for n in rel}
+    if bf16:
+        limit = {n: max(GRAD_LIMIT, BF16_FLOOR_FACTOR * floor[n]) for n in rel}
+    else:
+        for what, r in (('K1 alone', k1_alone), ('K3 alone', k3_alone)):
+            worst = max(r, key=r.get)
+            print(f'Gmain gradient, {what} vs plain: median relative L2 difference '
+                  f'{float(np.median(list(r.values()))):.3g}, max {r[worst]:.3g} ({worst})')
+        check(max(k1_alone.values()) <= GRAD_LIMIT,
+              'the Gmain gradient through K1 alone disagrees with the plain path')
+        limit = {n: min(RAISED_LIMIT_CAP, max(GRAD_LIMIT, 2 * floor[n]))
+                 if n.startswith(DEPTH_ADAPTOR) else GRAD_LIMIT for n in rel}
     name = max(rel, key=lambda n: rel[n] / limit[n])
     over = {n: f'{rel[n]:.3g} (limit {limit[n]:.3g}, floor {floor[n]:.3g})'
             for n in sorted(rel) if rel[n] > GRAD_LIMIT}
-    print(f'Gmain gradient, kernels vs plain versions: {len(rel)} parameters, median relative '
-          f'L2 difference {float(np.median(list(rel.values()))):.3g}, worst against its limit '
-          f'{rel[name]:.3g} ({name}; limit {limit[name]:.3g}); one-ulp floor of the step: median '
-          f'{float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g} '
+    print(f'Gmain gradient ({label}), kernels vs plain versions: {len(rel)} parameters, median '
+          f'relative L2 difference {float(np.median(list(rel.values()))):.3g}, worst against its '
+          f'limit {rel[name]:.3g} ({name}; limit {limit[name]:.3g}); one-ulp floor of the step: '
+          f'median {float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g} '
           f'({max(floor, key=floor.get)}); above {GRAD_LIMIT:g}: {over}')
     check(all(rel[n] <= limit[n] for n in rel),
-          'the Gmain gradient through the kernels disagrees with the plain path')
+          f'the Gmain gradient ({label}) through the kernels disagrees with the plain path')
 
 
 def inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights):
@@ -771,18 +814,106 @@ def inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights)
     k5 = dict(name='bias_act', route='cuda', source='tdgp_torch/csrc/bias_act.cu',
               replaces='tdgp/ops/pallas_kernels.py:41', max_abs_err=worst, ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    return k4, k5
+    return k4, k5, bf16_kernel_phase(bias_act, x, b, k5, g)
+
+
+def bf16_ulps(a, b):
+    """Distance in bf16 ulps of each element of two bf16 tensors of one layout."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_kernel_phase(bias_act, x, b, k5, g):
+    """K5's bf16 instantiation against its plain version (bit for bit for
+    linear and lrelu, at most one ulp for the others) at the largest served
+    bf16 call, [4, 512, 512, 64] (the 512^2 block of the flagship: lrelu,
+    gain sqrt 2, clamp 256), as its NHWC view of an NCHW tensor and at small
+    shapes for each activation; timed warm, cold and cold with a clean L2
+    beside K5 at float32 on the same values (`k5` gains those two)."""
+    bf = torch.bfloat16
+    xb = x.to(bf)
+    worst_ulp, worst_abs, shares = 0, 0.0, {}
+    with torch.no_grad():
+        cases = [('lrelu', xb, b, dict(clamp=256.0)),
+                 ('lrelu', xb.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), b,
+                  dict(clamp=256.0)),
+                 ('linear', xb, None, dict(gain=0.5 ** 0.5))]  # D's skip
+        for act in bias_act.activation_funcs:
+            cases += [(act, (torch.randn(1023, 16, device='cuda', generator=g) * 3).to(bf),
+                       torch.randn(16, device='cuda', generator=g),
+                       dict(alpha=0.3, gain=0.7, clamp=2.5)),
+                      (act, (torch.randn(4, 31, 33, 12, device='cuda', generator=g) * 3).to(bf),
+                       None, {}),
+                      (act, (torch.randn(4, 12, 8, 8, device='cuda', generator=g) * 3).to(bf)
+                       .permute(0, 2, 3, 1), torch.randn(12, device='cuda', generator=g), {})]
+        for act, xi, bi, opts in cases:
+            got = bias_act.bias_act(xi, bi, act=act, **opts)
+            ref = bias_act.bias_act_plain(xi, bi, act=act, **opts)
+            torch.cuda.synchronize()
+            check(got.dtype == bf and got.stride() == xi.stride(), 'K5 bf16 changed the layout')
+            ulps = bf16_ulps(got, ref)
+            share = float((ulps > 0).float().mean())
+            shares[act] = max(shares.get(act, 0.0), share)
+            worst_ulp = max(worst_ulp, int(ulps.max()))
+            worst_abs = max(worst_abs, float((got.float() - ref.float()).abs().max()))
+            if act in ('linear', 'lrelu'):
+                check(torch.equal(got, ref), f'K5 bf16 {act} at {tuple(xi.shape)} is not its '
+                                             f'plain version bit for bit')
+            check(int(ulps.max()) <= 1, f'K5 bf16 {act} at {tuple(xi.shape)}: {int(ulps.max())} '
+                                        f'ulps from its plain version')
+        print(f'K5 bf16 at {len(cases)} shapes and activations: at most {worst_ulp} ulp from the '
+              f'plain version; share of elements that differ by activation {shares}')
+
+        def served(t):
+            return lambda: bias_act.bias_act(t, b, act='lrelu', clamp=256.0)
+        times = {}
+        for label, t in (('float32', x), ('bf16', xb)):
+            times[label] = dict(warm=cuda_ms(served(t), 100), cold=cold_ms(served(t)),
+                                cold_clean=cold_ms(served(t), clean=True))
+            print(f'K5 {label} at [4,512,512,64] lrelu clamp 256: ' + ', '.join(
+                f'{k} {v:.4f} ms' for k, v in times[label].items()) + f' (sm, mem clocks '
+                f'{clocks()})')
+        plain_ms = cuda_ms(lambda: bias_act.bias_act_plain(xb, b, act='lrelu', clamp=256.0), 20)
+    bound_ms, bound_by = bound(4 * x.numel() + 2 * b.numel(), 4 * x.numel())
+    print(f'K5 bf16: plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (by {bound_by}: '
+          f'{(4 * x.numel() + 2 * b.numel()) / 1e6:.1f} MB), cold {times["bf16"]["cold"] / bound_ms:.2f}x '
+          f'its bound; float32 cold {times["float32"]["cold"] / k5["bound_ms"]:.2f}x its bound')
+    k5.update(cold_ms=times['float32']['cold'], cold_clean_ms=times['float32']['cold_clean'])
+    return dict(name='bias_act_bf16', route='cuda', source='tdgp_torch/csrc/bias_act.cu',
+                replaces='tdgp/ops/pallas_kernels.py:41', max_abs_err=worst_abs,
+                max_ulps=worst_ulp, ulp_share=shares, ms=times['bf16']['warm'],
+                cold_ms=times['bf16']['cold'], cold_clean_ms=times['bf16']['cold_clean'],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def reset_counts(counters):
     for c in counters:
         c.launches = 0
+        if hasattr(c, 'launches_by_dtype'):
+            c.launches_by_dtype.clear()
+
+
+def launch_counts(counters):
+    """{kernel name: launches} of the wrappers in `counters`; K5's split by
+    dtype into 'bias_act' (float32) and 'bias_act_bf16' (bfloat16)."""
+    got = {}
+    for c in counters:
+        if hasattr(c, 'launches_by_dtype'):
+            for dtype, name in K5_NAMES.items():
+                got[name] = c.launches_by_dtype[str(dtype).removeprefix('torch.')]
+        else:
+            got[c.__name__] = c.launches
+    return got
 
 
 def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
     """Seed grid, trajectory and mesh of the run's generator, through the
-    entry points' functions; then the plain K4 and K5; then the entry points."""
+    entry points' functions; then K4 and K5 against their plain versions at
+    the float32 cut; then the entry points."""
     from tdgp_torch import geometry, inference
+    from tdgp_torch.profile_serving import FP32
     from tdgp_torch.ops import bias_act, triplane_mlp
     from tdgp_torch.scripts import extract_geometry as geometry_script
     from tdgp_torch.scripts import inference as inference_script
@@ -798,9 +929,9 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
     launches = {}
 
     def read(what, k3_expected, k4_expected, calls):
-        got = {c.__name__: c.launches for c in counters}
+        got = launch_counts(counters)
         expected = {'ray_march_reduced': 0, 'ray_march_merged': k3_expected,
-                    'triplane_mlp': k4_expected, 'bias_act': calls.count}
+                    'triplane_mlp': k4_expected, **{n: calls.count[n] for n in K5_NAMES.values()}}
         print(f'{what}: launches {got} (expected {expected})')
         check(got == expected, f'kernel launch counts of the {what}')
         for k, v in got.items():
@@ -854,18 +985,24 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
           f'grid 128^3 + mesh {geo_s:.2f} s ({len(verts)} vertices, {len(faces)} faces); '
           f'peak memory {peak / 2**30:.2f} GiB')
 
+    # K4 and K5 against their plain versions at the float32 cut: with bf16 blocks a float32
+    # ulp of K5 in the float32 blocks can flip a bf16 rounding after them, which the
+    # following blocks spread (K5 in bf16 is its plain version bit for bit)
+    _, G32 = inference_script.load_run(run_dir, device=device, overrides=list(overrides) + FP32)
+    cams4 = cams.select(slice(0, batch))
+    kernel_imgs = inference.generate(G32, ws[:batch], cams4, batch_size=batch)
+    kernel_sigma = geometry.extract_density_grid(G32, ws[:1], 128, cfg.camera.cube_scale)
+    reset_counts(counters)
     with plain_versions(k1=False, k3=False, k4=True, k5=True):
-        plain_imgs = inference.generate(G, ws[:batch], cams.select(slice(0, batch)),
-                                        batch_size=batch)
-        plain_sigma = geometry.extract_density_grid(G, ws[:1], 128, cfg.camera.cube_scale)
+        plain_imgs = inference.generate(G32, ws[:batch], cams4, batch_size=batch)
+        plain_sigma = geometry.extract_density_grid(G32, ws[:1], 128, cfg.camera.cube_scale)
     check(triplane_mlp.triplane_mlp.launches == 0 and bias_act.bias_act.launches == 0,
           'the plain run launched K4 or K5')
-    diff = float(np.abs(plain_imgs - imgs[:batch]).max())
-    inner = (slice(1, -1),) * 3  # extract_geometry zeroed the border
-    sigma_rel = float(np.abs(plain_sigma[inner] - sigma[inner]).max()
-                      / np.abs(plain_sigma[inner]).max())
-    print(f'card, K4 + K5 vs their plain versions: max abs image diff {diff:.3g}; density '
-          f'grid max abs diff / max |sigma| {sigma_rel:.3g}')
+    del G32
+    diff = float(np.abs(plain_imgs - kernel_imgs).max())
+    sigma_rel = float(np.abs(plain_sigma - kernel_sigma).max() / np.abs(plain_sigma).max())
+    print(f'card, float32 cut, K4 + K5 vs their plain versions: max abs image diff {diff:.3g}; '
+          f'density grid max abs diff / max |sigma| {sigma_rel:.3g}')
     check(diff <= 1e-4, 'the image through K4 and K5 disagrees with the plain versions')
     check(sigma_rel <= 1e-5, 'the density grid through K4 and K5 disagrees with the plain versions')
     reset_counts(counters)
@@ -926,21 +1063,26 @@ def step_points_phase(calls):
 
 
 def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, batch_size,
-                counters, printed, device='cuda'):
+                counters, printed, label, device='cuda'):
     """The satellite step at full width: a warm-up step, whose K1 calls are
-    held and timed by `step_points_phase`, then plain steps and one R1 step.
-    `counters` are checked against what the step implies, `printed` only
-    printed. Returns the launches and the step-point readings of K1."""
+    held and timed by `step_points_phase` (unless `capture_splat_calls` is
+    None), then plain steps and one R1 step. `counters` are checked against
+    what the step implies, `printed` only printed. Returns the launches, the
+    step-point readings of K1 and images/s at 15:1."""
     trainer = Trainer(cfg, device, seed=0)
     batch = make_batch(cfg, batch_size, 0, device)
     draws = Draws(torch.Generator(device=device).manual_seed(1))
     modules = {'G': trainer.G, 'D': trainer.D, 'G_ema': trainer.G_ema}
     before = {k: {n: p.detach().clone() for n, p in m.named_parameters()}
               for k, m in modules.items()}
-    calls = capture_splat_calls(trainer, batch, sched, draws)  # the warm-up step
-    torch.cuda.synchronize()
-    k1_step = step_points_phase(calls)
-    del calls
+    k1_step = {}
+    if capture_splat_calls is None:
+        trainer.step(batch, sched, False, draws)  # the warm-up step
+    else:
+        calls = capture_splat_calls(trainer, batch, sched, draws)  # the warm-up step
+        torch.cuda.synchronize()
+        k1_step = step_points_phase(calls)
+        del calls
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters + printed)
     plain_ms, history = [], []
@@ -953,8 +1095,8 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
     history.append(trainer.step(batch, sched, True, draws))
     torch.cuda.synchronize()
     r1_ms = 1e3 * (time.perf_counter() - t0)
-    launches = {c.__name__: c.launches for c in counters}
-    off_gradient = {c.__name__: c.launches for c in printed}
+    launches = launch_counts(counters)
+    off_gradient = launch_counts(printed)
     peak = torch.cuda.max_memory_allocated()
 
     losses = {k: float(v) for k, v in history[-1].items()}
@@ -977,7 +1119,7 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
     print(f'launches over {steps} steps of the kernels off the gradient path: {off_gradient}')
     t_plain = float(np.median(plain_ms))
     imgs_per_s = 16 * batch_size / (15 * t_plain / 1e3 + r1_ms / 1e3)
-    print(f'training step, satellite 256^2, batch {batch_size} (batch_gpu '
+    print(f'training step, satellite 256^2, {label}, batch {batch_size} (batch_gpu '
           f'{cfg.training.batch_gpu}): plain ms {["%.1f" % t for t in plain_ms]}, median '
           f'{t_plain:.1f} ms; R1 step {r1_ms:.1f} ms; {imgs_per_s:.2f} images/s at 15:1; '
           f'peak memory {peak / 2**30:.2f} GiB')
@@ -1118,8 +1260,7 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
     from tdgp_torch.config import load_config
     steps_per_tick, ticks = 4, 3
     batch = load_config(preset=LOOP_PRESET).training.batch_size
-    overrides = ['generator.fp32_only=true', 'discriminator.fp32_only=true',
-                 f'dataset.path={data_dir}', f'training.tick_kimg={batch * steps_per_tick / 1e3}',
+    overrides = [f'dataset.path={data_dir}', f'training.tick_kimg={batch * steps_per_tick / 1e3}',
                  'training.augment.ada_kimg=1', 'training.snap=1', f'training.val_freq={ticks}',
                  f'training.image_snap={ticks}', f'training.tensorboard={str(tensorboard).lower()}']
     max_kimg = batch * steps_per_tick * ticks / 1e3
@@ -1132,7 +1273,7 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
                                     '--max-kimg', str(max_kimg)] + overrides)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    launches = launch_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     cfg = result.trainer.cfg
     gc = cfg.generator
@@ -1177,10 +1318,11 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
     renders = 2048 // (4 if gc.img_resolution >= 256 else 16) + 16 // 4
     expected = {'triplane_splat': 2 * steps, 'ray_march_reduced': steps,
                 'ray_march_reduced_bwd': steps, 'ray_march_merged': chunks * renders,
-                'triplane_mlp': 2 * chunks * renders, 'bias_act': calls.unrecorded}
+                'triplane_mlp': 2 * chunks * renders,
+                **{n: calls.unrecorded[n] for n in K5_NAMES.values()}}
     print(f'loop launches over {steps} steps, fid2k_full (2048 images) and the image grid: '
           f'{launches} (expected {expected}; K5: the bias_act calls that autograd does not '
-          f'record, of {calls.count} on CUDA tensors)')
+          f'record, of {dict(calls.count)} on CUDA tensors)')
     check(launches == expected, 'kernel launch counts of the loop')
     for i, line in enumerate(lines):
         print(f'tick {i + 1} host seconds: ' + ', '.join(
@@ -1204,7 +1346,7 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
                                  str(batch * (steps + steps_per_tick) / 1e3),
                                  'training.metrics=[]'])
     torch.cuda.synchronize()
-    got = {c.__name__: c.launches for c in counters}
+    got = launch_counts(counters)
     lines = read_jsonl(os.path.join(run_dir, 'stats.jsonl'))
     print(f'resumed from {resumed.resumed_from} with {resumed.resume_meta}; stopped at '
           f'{resumed.cur_nimg} images, step {resumed.batch_idx}, p {resumed.ada_p}; launches {got}')
@@ -1219,6 +1361,91 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
     return launches, readings
 
 
+def serve_run(G, served, requests, label):
+    """Serves `requests` with `G` after one warm-up: images [4, 256, 256, 3]
+    in [0, 1]; ms per request, images/s, peak memory; each kernel's launches
+    held to what a request implies (K3 merged 4, K4 8, K5 once per
+    `bias_act` call on a CUDA tensor, by dtype); K5's bound over a request."""
+    from tdgp_torch.profile_serving import BATCH, PSI
+    from tdgp_torch.serving import make_serving_fn
+    gc = G.cfg
+    serve = make_serving_fn(G, truncation_psi=PSI)
+    serve(*requests[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(served)
+    images, times = [], []
+    with BiasActCalls() as calls:
+        for req in requests:
+            t0 = time.perf_counter()
+            images.append(serve(*req))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = launch_counts(served)
+    peak = torch.cuda.max_memory_allocated()
+    res = gc.img_resolution
+    chunks = (res * res) // (gc.max_batch_res ** 2)
+    n = len(requests)
+    for img in images:
+        check(tuple(img.shape) == (BATCH, res, res, 3), f'image shape {tuple(img.shape)}')
+        check(bool(torch.isfinite(img).all()), 'non-finite pixels')
+        check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, 'pixels outside [0, 1]')
+    print(f'{label}: images {tuple(images[0].shape)}, mean {float(images[0].mean()):.4f}, '
+          f'std {float(images[0].std()):.4f}')
+    print(f'{label}: launches over {n} requests {launches}; expected K3 merged {chunks} x {n}, '
+          f'K3 unmerged 0, K4 2 x {chunks} x {n}, K5 the bias_act calls on CUDA tensors by '
+          f'dtype {dict(calls.count)} ({calls.strided} on tensors that are not contiguous)')
+    check(launches['ray_march_merged'] == chunks * n and launches['ray_march_reduced'] == 0,
+          'K3 launch counts')
+    check(launches['triplane_mlp'] == 2 * chunks * n, 'K4 launch count')
+    for name in K5_NAMES.values():
+        check(launches[name] == calls.count[name], f'K5 launch count ({name})')
+    bf16 = not gc.fp32_only
+    check((launches['bias_act_bf16'] > 0) == bf16, 'K5 bf16 launches where the blocks are not '
+                                                   'bf16, or none where they are')
+    k5_bound_ms, by = bound(calls.bytes / n, calls.flops / n)
+    print(f'{label}: K5 over a request {sum(calls.count.values()) / n:g} launches, bound '
+          f'{k5_bound_ms:.4f} ms ({calls.bytes / n / 1e9:.3f} GB; by {by})')
+    ms = [1e3 * t for t in times]
+    print(f'{label}: serving batch {BATCH} at {res}x{res}: ms per request '
+          f'{["%.1f" % t for t in ms]}, median {np.median(ms):.1f} ms, '
+          f'{BATCH / np.median(times):.2f} images/s, peak memory {peak / 2**30:.2f} GiB')
+    return dict(serve=serve, images=images, launches=launches, ms=float(np.median(ms)),
+                images_per_s=BATCH / float(np.median(times)), peak_gib=peak / 2 ** 30,
+                k5_bound_ms=k5_bound_ms)
+
+
+def cross_check_cpu(load_generator, make_serving_fn, G, req):
+    """The card against the port on the CPU at a 64x64 output: at the float32
+    cut (<= 1e-3 max abs: the convolutions sum in another order) and at the
+    flagship's own precision (relative L2 <= CROSS_BF16_OF_FLOOR x the bf16
+    floor, the relative L2 between the card's bf16 and float32 images: a
+    float32 sum in another order flips bf16 roundings, which the following
+    bf16 blocks spread)."""
+    from tdgp_torch.profile_serving import FP32, OVERRIDES, PSI, RUN_DIR
+    images = {}
+    for label, overrides in (('bf16', OVERRIDES), ('float32', OVERRIDES + FP32)):
+        card_G = G if label == 'bf16' else load_generator(RUN_DIR, 'cuda', overrides)
+        card = make_serving_fn(card_G, truncation_psi=PSI, resolution=64)(*req).cpu()
+        G_cpu = load_generator(RUN_DIR, 'cpu', overrides)
+        cpu = make_serving_fn(G_cpu, truncation_psi=PSI, resolution=64)(*[t.cpu() for t in req])
+        images[label] = card, cpu
+        del G_cpu
+    diff = float((images['float32'][0] - images['float32'][1]).abs().max())
+    print(f'card vs CPU at 64x64, float32 cut: max abs image diff {diff:.3g}')
+    check(diff <= 1e-3, 'card disagrees with the CPU at float32')
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    card, cpu = images['bf16']
+    floor = rel(card, images['float32'][0])
+    got = rel(card, cpu)
+    print(f'card vs CPU at 64x64, bf16 blocks: relative L2 {got:.4g}, bf16 floor {floor:.4g} '
+          f'({got / floor:.3f} of it; limit {CROSS_BF16_OF_FLOOR}); max abs '
+          f'{float((card - cpu).abs().max()):.3g}')
+    check(got <= CROSS_BF16_OF_FLOOR * floor, 'card disagrees with the CPU at bf16')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1227,7 +1454,7 @@ def main():
     from tdgp_torch import profile_training
     from tdgp_torch.models.layers import FullyConnected, init_weights
     from tdgp_torch.ops import bias_act, cuda_build, ray_march, splat, triplane_mlp
-    from tdgp_torch.profile_serving import BATCH, OVERRIDES, PSI, RUN_DIR, request
+    from tdgp_torch.profile_serving import FP32, OVERRIDES, RUN_DIR, request
     from tdgp_torch.serving import load_generator, make_serving_fn
     from tdgp_torch.training.schedules import compute_schedules
     from tdgp_torch.training.train_step import Trainer
@@ -1247,53 +1474,24 @@ def main():
     with phase('kernel', seconds):
         k3, k3_merged = kernel_phase(ray_march)
 
+    served = [ray_march.ray_march_reduced, ray_march.ray_march_merged,
+              triplane_mlp.triplane_mlp, bias_act.bias_act]
     with phase('serve', seconds):
-        G = load_generator(RUN_DIR, 'cuda', OVERRIDES)
-        gc = G.cfg
-        serve = make_serving_fn(G, truncation_psi=PSI)
-        requests = [request(seed, gc, 'cuda') for seed in range(3)]
-        serve(*requests[0])  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        served = [ray_march.ray_march_reduced, ray_march.ray_march_merged,
-                  triplane_mlp.triplane_mlp, bias_act.bias_act]
-        reset_counts(served)
-        images, times = [], []
-        with BiasActCalls() as calls:
-            for req in requests:
-                t0 = time.perf_counter()
-                images.append(serve(*req))
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-        serve_launches = {c.__name__: c.launches for c in served}
-        peak = torch.cuda.max_memory_allocated()
-        res = gc.img_resolution
-        chunks = (res * res) // (gc.max_batch_res ** 2)
-        for img in images:
-            check(tuple(img.shape) == (BATCH, res, res, 3), f'image shape {tuple(img.shape)}')
-            check(bool(torch.isfinite(img).all()), 'non-finite pixels')
-            check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, 'pixels outside [0, 1]')
-        print(f'images {tuple(images[0].shape)}, mean {float(images[0].mean()):.4f}, '
-              f'std {float(images[0].std()):.4f}')
-        print(f'K3 merged launches over {len(requests)} requests: '
-              f'{serve_launches["ray_march_merged"]} (expected {chunks} chunks x {len(requests)}); '
-              f'K3 unmerged: {serve_launches["ray_march_reduced"]} (expected 0)')
-        check(serve_launches['ray_march_merged'] == chunks * len(requests)
-              and serve_launches['ray_march_reduced'] == 0, 'K3 launch counts')
-        print(f'K4 launches over {len(requests)} requests: {serve_launches["triplane_mlp"]} '
-              f'(expected 2 passes x {chunks} chunks x {len(requests)}); K5: '
-              f'{serve_launches["bias_act"]} (expected {calls.count} bias_act calls on CUDA '
-              f'tensors, {calls.strided} of them on tensors that are not contiguous), '
-              f'{serve_launches["bias_act"] / len(requests):g} per request')
-        check(serve_launches['triplane_mlp'] == 2 * chunks * len(requests), 'K4 launch count')
-        check(serve_launches['bias_act'] == calls.count, 'K5 launch count')
-        k5_request_bound_ms, by = bound(calls.bytes / len(requests), calls.flops / len(requests))
-        print(f'K5 over a request: {calls.count / len(requests):g} launches, bound '
-              f'{k5_request_bound_ms:.4f} ms ({calls.bytes / len(requests) / 1e9:.3f} GB; by {by})')
-        ms = [1e3 * t for t in times]
-        print(f'serving batch {BATCH} at {res}x{res}: ms per request {["%.1f" % t for t in ms]}, '
-              f'median {np.median(ms):.1f} ms, {BATCH / np.median(times):.2f} images/s, '
-              f'peak memory {peak / 2**30:.2f} GiB')
+        G = load_generator(RUN_DIR, 'cuda', OVERRIDES)  # the precision it was trained at
+        dec = G.synthesis.tri_plane_decoder
+        bf16_blocks = [r for r in dec.resolutions if getattr(dec, f'b{r}').dtype is not None]
+        print(f'flagship decoder blocks in bf16: {bf16_blocks} (num_fp16_res '
+              f'{G.cfg.num_fp16_res}, fp32_only {G.cfg.fp32_only})')
+        check(bf16_blocks == [64, 128, 256, 512], 'the flagship is not served at its precision')
+        requests = [request(seed, G.cfg, 'cuda') for seed in range(3)]
+        serve_own = serve_run(G, served, requests, 'own precision (bf16 blocks 64-512)')
+        G32 = load_generator(RUN_DIR, 'cuda', OVERRIDES + FP32)
+        serve_fp32 = serve_run(G32, served, requests, 'float32 cut')
+        del G32
+        rel = float((serve_own['images'][0] - serve_fp32['images'][0]).norm()
+                    / serve_fp32['images'][0].norm())
+        print(f'served image, bf16 blocks vs float32 cut: relative L2 {rel:.4g}')
+        serve = serve_own['serve']
 
     with phase('cross-check', seconds):
         reset_counts(served[:2])
@@ -1301,17 +1499,11 @@ def main():
             plain_img = serve(*requests[0])
         check(ray_march.ray_march_merged.launches == ray_march.ray_march_reduced.launches == 0,
               'the plain path launched K3')
-        diff = float((plain_img - images[0]).abs().max())
+        diff = float((plain_img - serve_own['images'][0]).abs().max())
         print(f'card, K3 merged vs the plain merge and marcher: max abs image diff {diff:.3g}')
         check(diff <= 1e-4, 'K3 image disagrees with the plain marcher')
         del plain_img
-        card64 = make_serving_fn(G, truncation_psi=PSI, resolution=64)(*requests[0])
-        G_cpu = load_generator(RUN_DIR, 'cpu', OVERRIDES)
-        cpu64 = make_serving_fn(G_cpu, truncation_psi=PSI, resolution=64)(
-            *[t.cpu() for t in requests[0]])
-        diff = float((card64.cpu() - cpu64).abs().max())
-        print(f'card vs CPU at 64x64: max abs image diff {diff:.3g}')
-        check(diff <= 1e-3, 'card disagrees with the CPU')
+        cross_check_cpu(load_generator, make_serving_fn, G, requests[0])
 
     with phase('train kernels', seconds):
         k3_bwd, k1 = train_kernel_phase(ray_march, splat)
@@ -1319,24 +1511,31 @@ def main():
     cfg = profile_training.train_config()
     sched = compute_schedules(cfg, profile_training.CUR_NIMG)
     with phase('train check', seconds):
-        train_check_phase(Trainer, Draws, sched, profile_training.train_config,
-                          profile_training.make_batch)
+        for overrides in (profile_training.FP32, ()):
+            train_check_phase(Trainer, Draws, sched, profile_training.train_config,
+                              profile_training.make_batch, overrides)
 
     with phase('inference kernels', seconds):
-        k4, k5 = inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights)
+        k4, k5, k5_bf16 = inference_kernel_phase(bias_act, triplane_mlp, FullyConnected,
+                                                 init_weights)
 
     with phase('inference', seconds), tempfile.TemporaryDirectory() as tmp_dir:
         infer_launches = inference_phase(served, tmp_dir, RUN_DIR, OVERRIDES)
 
+    train_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
+                      ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged]
     with phase('train', seconds):
-        train_launches, k1_step, train_images_per_s = train_phase(Trainer, Draws, sched, cfg,
-                                              profile_training.make_batch,
-                                              profile_training.capture_splat_calls,
-                                              profile_training.BATCH,
-                                              [splat.triplane_splat, ray_march.ray_march_reduced,
-                                               ray_march.ray_march_reduced_bwd,
-                                               ray_march.ray_march_merged],
-                                              [triplane_mlp.triplane_mlp, bias_act.bias_act])
+        train_launches, k1_step, train_images_per_s = train_phase(
+            Trainer, Draws, sched, cfg, profile_training.make_batch,
+            profile_training.capture_splat_calls, profile_training.BATCH, train_counters,
+            [triplane_mlp.triplane_mlp, bias_act.bias_act], 'own precision (bf16 G and D)')
+        cfg32 = profile_training.train_config(profile_training.FP32)
+        train_fp32_launches, _, train_fp32_images_per_s = train_phase(
+            Trainer, Draws, sched, cfg32, profile_training.make_batch, None,
+            profile_training.BATCH, train_counters, [triplane_mlp.triplane_mlp, bias_act.bias_act],
+            'float32 cut')
+        print(f'satellite step: {train_images_per_s:.2f} images/s at its own precision, '
+              f'{train_fp32_images_per_s:.2f} at the float32 cut')
     k1.update(k1_step)
 
     with phase('loop', seconds), tempfile.TemporaryDirectory() as tmp_dir:
@@ -1344,17 +1543,19 @@ def main():
             tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
                       ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                       triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
-    by_path = {'serve': serve_launches, 'inference': infer_launches, 'train': train_launches,
-               'loop': loop_launches}
-    k5['bound_ms_per_request'] = k5_request_bound_ms
-    for k in (k3, k3_merged, k3_bwd, k1, k4, k5):
+    by_path = {'serve': serve_own['launches'], 'serve_float32': serve_fp32['launches'],
+               'inference': infer_launches, 'train': train_launches,
+               'train_float32': train_fp32_launches, 'loop': loop_launches}
+    k5['bound_ms_per_request'] = serve_fp32['k5_bound_ms']
+    k5_bf16['bound_ms_per_request'] = serve_own['k5_bound_ms']
+    for k in (k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())
 
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
     print(f'loop: {json.dumps(loop_readings)}')
-    print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5]}))
+    print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -162,7 +162,9 @@ class PatchCfg:
 class GeneratorConfig:
     """All fields of `tdgp.config.GeneratorConfig`, so that a JAX run's config
     loads strictly. The TPU layout knobs (`plane_pack`, `sample_save`,
-    `merged_splat`, `num_fp16_res`) are read by the JAX package only."""
+    `merged_splat`) are read by the JAX package only. Unless `fp32_only`,
+    the decoder's `num_fp16_res` highest-resolution blocks run in bfloat16
+    (`models/stylegan2.py`); `render_bf16` is refused."""
     z_dim: int = 512
     w_dim: int = 512
     c_dim: int = 0
@@ -211,6 +213,8 @@ class GeneratorConfig:
 
 @dataclass(frozen=True)
 class DiscriminatorConfig:
+    """Unless `fp32_only`, D's blocks from `num_fp16_res` levels below its
+    image resolution up run in bfloat16 (`models/discriminator.py`)."""
     c_dim: int = 0
     cbase: int = 32768
     cmax: int = 512
@@ -370,7 +374,8 @@ def synth_demo_config() -> Config:
     """`tdgp.config.synth_demo_config` (the 'synth64' preset): the whole 3DGP
     pipeline at 64^2 on the synthetic sphere set
     (`data_scripts/make_synthetic_dataset.py`), tri-planes 3x128^2x16, 32^2
-    patches, KD off (the set has no embeddings), ADA with ada_kimg 100."""
+    patches, KD off (the set has no embeddings), ADA with ada_kimg 100; G
+    at float32 (`fp32_only`), D's bf16 blocks on."""
     cam = CameraConfig()
     tri = TriPlaneCfg(res=128, feat_dim=16, mlp=TriPlaneMLPCfg(n_layers=2, hid_dim=32))
     patch = PatchCfg(resolution=32, min_scale_trg=0.5, anneal_kimg=100,
@@ -402,7 +407,8 @@ def synth_demo_config() -> Config:
 def synth256_config() -> Config:
     """`tdgp.config.synth256_config` (the 'synth256' preset): the satellite
     widths at 256^2 with 64^2 patches on the 256^2 synthetic sphere set,
-    KD off, c_dim 4, 100-kimg anneals, batch 16, ADA with ada_kimg 100."""
+    KD off, c_dim 4, 100-kimg anneals, batch 16, ADA with ada_kimg 100;
+    the bf16 blocks of G (64-512) and D (256-32) on."""
     cfg = satellite_config(c_dim=4, resolution=256)
     patch = dataclasses.replace(cfg.generator.patch, anneal_kimg=100)
     gen = dataclasses.replace(

@@ -7,7 +7,14 @@ features and a learned table; the encoding conditions the projection head
 and, through a hypernetwork, modulates conv1's input in every block. The
 epilogue runs minibatch-std, a conv and two dense layers, and, on real
 images with KD on, a head that predicts the image's ResNet-50 embedding.
-Float32 only (`fp32_only=True`).
+
+Unless `fp32_only`, the blocks from `fp16_resolution(image resolution,
+num_fp16_res)` up compute in bfloat16, as in the JAX package: such a block
+casts its input and the image to bf16 on entry and its layers compute in
+bf16 with float32 parameters (the casts are in `Conv2dLayer` and
+`bias_act`); the residual sum stays in bf16, and the epilogue casts back to
+float32 before the minibatch std. Gradients reach the float32 parameters
+and the float32 image through the casts.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from torch import nn
 
 from tdgp_torch.config import DiscriminatorConfig
 from tdgp_torch.models.layers import Conv2dLayer, FullyConnected, MappingNetwork, ScalarEncoder1d
-from tdgp_torch.models.stylegan2 import sg2_channel_dict
+from tdgp_torch.models.stylegan2 import fp16_resolution, sg2_channel_dict
 
 HYPER_DIM = 512  # width of the hypernetwork's output
 
@@ -28,9 +35,11 @@ HYPER_DIM = 512  # width of the hypernetwork's output
 class DiscriminatorBlock(nn.Module):
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
                  img_channels: int, down: int = 2, conv_clamp: Optional[float] = 256.0,
-                 hyper_mod: bool = False):
+                 hyper_mod: bool = False, dtype: Optional[torch.dtype] = None):
+        """dtype: torch.bfloat16 for a bf16 block, None for one in the
+        parameters' dtype (float32)."""
         super().__init__()
-        self.in_channels = in_channels
+        self.in_channels, self.dtype = in_channels, dtype
         if in_channels == 0:
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, 1, activation='lrelu',
                                        conv_clamp=conv_clamp)
@@ -44,8 +53,10 @@ class DiscriminatorBlock(nn.Module):
 
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.dtype or self.conv0.weight.dtype  # float32 blocks compute in float32
+        x = None if x is None else x.to(dtype)
         if self.in_channels == 0:
-            y = self.fromrgb(img)
+            y = self.fromrgb(img.to(dtype))
             x = x + y if x is not None else y
         y = self.skip(x, gain=math.sqrt(0.5))
         x = self.conv0(x)
@@ -93,6 +104,7 @@ class DiscriminatorEpilogue(nn.Module):
 
     def forward(self, x: torch.Tensor, cmap: Optional[torch.Tensor],
                 predict_feat: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        x = x.to(self.conv.weight.dtype)  # out of the bf16 blocks: float32
         if self.mbstd_num_channels > 0:
             x = minibatch_std(x, self.mbstd_group_size, self.mbstd_num_channels)
         x = self.conv(x).reshape(x.shape[0], -1)
@@ -108,9 +120,6 @@ class DiscriminatorEpilogue(nn.Module):
 class Discriminator(nn.Module):
     def __init__(self, cfg: DiscriminatorConfig):
         super().__init__()
-        if not cfg.fp32_only:
-            raise NotImplementedError('the port runs the discriminator at float32: '
-                                      'set discriminator.fp32_only=true')
         if cfg.camera_cond:
             raise NotImplementedError('discriminator.camera_cond is not ported')
         self.cfg = cfg
@@ -118,6 +127,7 @@ class Discriminator(nn.Module):
         res_log2 = int(np.log2(img_resolution))
         self.block_resolutions = [2 ** i for i in range(res_log2, 2, -1)]
         channels = sg2_channel_dict(cfg.cbase, cfg.cmax, cfg.fmaps, self.block_resolutions + [4])
+        bf16_from = fp16_resolution(img_resolution, cfg.num_fp16_res)
         self.use_patch_cond = cfg.patch.patch_params_cond
         cond_dim = cfg.c_dim
         if self.use_patch_cond:
@@ -136,7 +146,8 @@ class Discriminator(nn.Module):
                 tmp_channels=channels[res], out_channels=channels[res // 2],
                 img_channels=cfg.img_channels,
                 down=1 if i < cfg.num_additional_start_blocks else 2,
-                conv_clamp=cfg.conv_clamp, hyper_mod=cfg.hyper_mod))
+                conv_clamp=cfg.conv_clamp, hyper_mod=cfg.hyper_mod,
+                dtype=torch.bfloat16 if res >= bf16_from and not cfg.fp32_only else None))
         self.head_mapping = (MappingNetwork(z_dim=0, c_dim=cond_dim, w_dim=cmap_dim,
                                             num_ws=None, w_avg_beta=None,
                                             num_layers=cfg.map_depth)

@@ -5,8 +5,11 @@ planes (bilinear, align_corners=True) and average them, a small MLP maps the
 features to (rgb, sigma), and the two-pass renderer integrates along the
 rays. The depth adaptor turns the rendered depth into the fourth channel the
 discriminator sees, and the camera adaptor warps prior cameras into the
-learned camera distribution. The generator runs at float32 only
-(`fp32_only=True`).
+learned camera distribution. Unless `fp32_only`, the decoder's
+`num_fp16_res` highest-resolution blocks compute in bfloat16
+(`models/stylegan2.py`); the planes leave the decoder in float32, and the
+mapping, the sampling, the MLP and the renderer are float32 throughout
+(`render_bf16`, the JAX package's bf16 render streams, is refused).
 
 At eval (serving) noise is the stored const noise and sampling draws
 nothing, so a forward pass is a pure function of its inputs. In training
@@ -109,9 +112,6 @@ class SynthesisNetwork(nn.Module):
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
-        if not cfg.fp32_only:
-            raise NotImplementedError('the port runs the generator at float32: '
-                                      'set generator.fp32_only=true')
         if cfg.architecture != 'skip':
             raise NotImplementedError(f'architecture {cfg.architecture!r} is not ported')
         if cfg.render_bf16:
@@ -122,7 +122,8 @@ class SynthesisNetwork(nn.Module):
         self.tri_plane_decoder = SynthesisBlocksSequence(
             w_dim=cfg.w_dim, out_resolution=cfg.tri_plane.res,
             out_channels=cfg.tri_plane.feat_dim * 3, cbase=cfg.cbase, cmax=cfg.cmax,
-            fmaps=cfg.fmaps, use_noise=cfg.use_noise)
+            fmaps=cfg.fmaps, use_noise=cfg.use_noise, num_fp16_res=cfg.num_fp16_res,
+            fp32_only=cfg.fp32_only)
         self.tri_plane_mlp = TriPlaneMLP(cfg, out_dim=cfg.img_channels)
         self.depth_adaptor = (DepthAdaptor(cfg.depth_adaptor, cfg.camera.ray.start,
                                            cfg.camera.ray.end)

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from tdgp_torch.ops.bias_act import activation_funcs, bias_act
+from tdgp_torch.ops.bias_act import activation_funcs, bias_act, round_to
 from tdgp_torch.ops.conv2d_resample import conv2d_resample
 from tdgp_torch.ops.upfirdn2d import setup_filter
 from tdgp_torch.utils.draws import Draws
@@ -62,7 +62,8 @@ class FullyConnected(nn.Module):
             self.bias.fill_(self.bias_init / self.lr_multiplier)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight * self.weight_gain)
+        # as the JAX package: the weight cast to x's dtype, then scaled there
+        y = F.linear(x, self.weight.to(x.dtype) * round_to(self.weight_gain, x.dtype))
         b = None if self.bias is None else self.bias * self.lr_multiplier
         return bias_act(y, b, act=self.activation)
 
@@ -221,8 +222,10 @@ class Conv2dLayer(nn.Module):
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None,
                 gain: float = 1.0) -> torch.Tensor:
         if self.affine is not None:
-            x = x * (1.0 + torch.tanh(self.affine(c)))[:, None, None, :]
-        x = conv2d_resample(x, self.weight * self.weight_gain, f=self.resample_filter,
+            x = x * (1.0 + torch.tanh(self.affine(c))).to(x.dtype)[:, None, None, :]
+        # as the JAX package: the weight scaled in float32, then cast to x's dtype
+        x = conv2d_resample(x, (self.weight * self.weight_gain).to(x.dtype),
+                            f=self.resample_filter,
                             up=self.up, down=self.down, padding=self.padding,
                             flip_weight=(self.up == 1))
         act_gain = activation_funcs[self.activation].def_gain * gain

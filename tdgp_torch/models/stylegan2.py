@@ -1,6 +1,13 @@
-"""StyleGAN2 synthesis stack, NHWC, float32 (port of `tdgp/models/stylegan2.py`).
+"""StyleGAN2 synthesis stack, NHWC (port of `tdgp/models/stylegan2.py`).
 
-Only the skip architecture that the tri-plane decoder uses is ported. The
+Only the skip architecture that the tri-plane decoder uses is ported. Unless
+`fp32_only`, the `num_fp16_res` highest-resolution blocks (those from
+`fp16_resolution` up, never below 8x8) compute in bfloat16, as in the JAX
+package: a block casts its input to bf16, its layers compute in bf16 with
+float32 parameters and styles (the casts are in `modulated_conv2d` and
+`bias_act`), and its ToRGB output is cast back to float32, so the image
+skip adds in float32 and the output is float32. The other blocks compute in
+float32 and cast nothing. The
 noise is `noise_const * noise_strength` when no noise is given (serving),
 or the given N(0, 1) buffers [N, res, res, 1] times `noise_strength`
 (training; `SynthesisBlocksSequence.draw_noise` draws them beforehand, so
@@ -37,6 +44,11 @@ def sg2_channel_dict(cbase: int, cmax: int, fmaps: float, resolutions: List[int]
     return {res: min(int(cbase * fmaps) // res, cmax) for res in resolutions}
 
 
+def fp16_resolution(out_resolution: int, num_fp16_res: int) -> int:
+    """The lowest resolution whose block runs in bf16."""
+    return max(2 ** (int(np.log2(out_resolution)) + 1 - num_fp16_res), 8)
+
+
 def sg2_num_ws(in_resolution: int, out_resolution: int, has_input: bool = False) -> int:
     """w vectors consumed: 1 conv in a const-input first block, 2 in every
     other block, plus the last block's ToRGB."""
@@ -50,9 +62,9 @@ class SynthesisLayer(nn.Module):
     """Modulated conv + const noise + bias/lrelu/clamp."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
-                 up: int = 1, use_noise: bool = True):
+                 up: int = 1, use_noise: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.up = up
+        self.up, self.dtype = up, dtype
         self.use_noise = use_noise
         self.resolution = resolution
         self.affine = FullyConnected(w_dim, in_channels, bias_init=1.0)
@@ -75,6 +87,8 @@ class SynthesisLayer(nn.Module):
     def forward(self, x: torch.Tensor, w: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """noise: N(0, 1) [N, res, res, 1], or None for the const noise."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         styles = self.affine(w)
         if self.use_noise:
             noise = (self.noise_const[None, :, :, None] if noise is None else noise) \
@@ -100,19 +114,21 @@ class ToRGBLayer(nn.Module):
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """-> [N, H, W, out_channels] in the parameters' dtype (float32)."""
         styles = self.affine(w) * self.weight_gain
         x = modulated_conv2d(x, self.weight, styles, demodulate=False)
-        return bias_act(x, self.bias, clamp=CONV_CLAMP)
+        return bias_act(x, self.bias, clamp=CONV_CLAMP).to(self.weight.dtype)
 
 
 class SynthesisBlock(nn.Module):
     """One resolution level of the skip architecture: (up-)conv, conv, ToRGB."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
-                 img_channels: int, use_noise: bool = True):
+                 img_channels: int, use_noise: bool = True, dtype: Optional[torch.dtype] = None):
+        """dtype: torch.bfloat16 for a bf16 block, None for float32."""
         super().__init__()
-        self.in_channels = in_channels
-        kw = dict(w_dim=w_dim, resolution=resolution, use_noise=use_noise)
+        self.in_channels, self.dtype = in_channels, dtype
+        kw = dict(w_dim=w_dim, resolution=resolution, use_noise=use_noise, dtype=dtype)
         if in_channels == 0:
             self.const = nn.Parameter(torch.zeros(resolution, resolution, out_channels))
         else:
@@ -137,6 +153,8 @@ class SynthesisBlock(nn.Module):
         noise = noise or {}
         if self.in_channels == 0:
             x = self.const[None].expand(ws.shape[0], -1, -1, -1)
+            if self.dtype is not None:
+                x = x.to(self.dtype)
         else:
             x = self.conv0(x, ws[:, 0], noise.get('conv0'))
         x = self.conv1(x, ws[:, self.num_conv - 1], noise.get('conv1'))
@@ -147,19 +165,23 @@ class SynthesisBlock(nn.Module):
 
 
 class SynthesisBlocksSequence(nn.Module):
-    """SynthesisBlocks from 4x4 (a learned const) to `out_resolution`."""
+    """SynthesisBlocks from 4x4 (a learned const) to `out_resolution`; the
+    blocks from `fp16_resolution(out_resolution, num_fp16_res)` up run in
+    bfloat16 unless `fp32_only`."""
 
     def __init__(self, w_dim: int, out_resolution: int, out_channels: int,
                  cbase: int = 32768, cmax: int = 512, fmaps: float = 1.0,
-                 use_noise: bool = True):
+                 use_noise: bool = True, num_fp16_res: int = 4, fp32_only: bool = True):
         super().__init__()
         self.resolutions = sg2_block_resolutions(0, out_resolution)
         channels = sg2_channel_dict(cbase, cmax, fmaps, self.resolutions)
+        bf16_from = fp16_resolution(out_resolution, num_fp16_res)
         for idx, res in enumerate(self.resolutions):
             cin = channels[res // 2] if idx > 0 else 0
+            bf16 = res >= bf16_from and not fp32_only
             setattr(self, f'b{res}', SynthesisBlock(
                 cin, channels[res], w_dim=w_dim, resolution=res, img_channels=out_channels,
-                use_noise=use_noise))
+                use_noise=use_noise, dtype=torch.bfloat16 if bf16 else None))
         self.num_ws = sg2_num_ws(0, out_resolution)
 
     def draw_noise(self, draws: Draws, n: int) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -12,14 +12,24 @@ differentiable to any order (R1 differentiates the discriminator twice).
   - a CUDA tensor that autograd would record (grad mode on and `x` or `b`
     requiring grad, as in training): `bias_act_plain`, because K5 has no
     backward, in the JAX package either;
-  - any other CUDA tensor: kernel K5, counted in `bias_act.launches`, or an
-    error when the kernel does not take it (a dtype other than float32, a
-    layout that is not dense). It takes a view whose channel stride is not 1
-    (an NHWC view of an NCHW convolution output) as it is, without a copy,
-    and returns a tensor with the input's strides.
+  - any other CUDA tensor: kernel K5, counted in `bias_act.launches` (all
+    launches) and `bias_act.launches_by_dtype` ('float32', 'bfloat16'), or an
+    error when the kernel does not take it (a dtype other than float32 and
+    bfloat16, a layout that is not dense). It takes a view whose channel
+    stride is not 1 (an NHWC view of an NCHW convolution output) as it is,
+    without a copy, and returns a tensor with the input's strides.
+
+Below float32 (the bf16 blocks of the generator and the discriminator) the
+result is the JAX package's, which computes in `x.dtype`: the bias is cast
+to `x.dtype`, the constants alpha, gain and clamp are rounded to it (a
+Python float is weakly typed in JAX), and every operation rounds its result
+to it. So the activations whose JAX form is a chain of operations (sigmoid,
+softplus, selu, swish) run as that chain there (`Activation.stepwise`). At
+float32 each activation is the one PyTorch function, as before.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -35,6 +45,28 @@ class Activation(NamedTuple):
     func: Callable[[torch.Tensor, float], torch.Tensor]
     def_alpha: float
     def_gain: float
+    # below float32: the JAX package's chain of operations, each rounding to x.dtype
+    stepwise: Optional[Callable[[torch.Tensor, float], torch.Tensor]] = None
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+@functools.lru_cache(maxsize=None)
+def round_to(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as JAX rounds a weakly typed Python float
+    that meets an array of that dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _sigmoid_stepwise(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(torch.exp(-x) + 1.0)  # XLA's logistic, rounded per operation
+
+
+def _selu_stepwise(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    expm1 = torch.expm1(x.clamp_max(0.0)) * round_to(_SELU_ALPHA, x.dtype)
+    return torch.where(x > 0, x, expm1) * round_to(_SELU_SCALE, x.dtype)
 
 
 activation_funcs = {
@@ -42,11 +74,14 @@ activation_funcs = {
     'relu': Activation(lambda x, alpha: F.relu(x), 0.0, math.sqrt(2)),
     'lrelu': Activation(lambda x, alpha: F.leaky_relu(x, alpha), 0.2, math.sqrt(2)),
     'tanh': Activation(lambda x, alpha: torch.tanh(x), 0.0, 1.0),
-    'sigmoid': Activation(lambda x, alpha: torch.sigmoid(x), 0.0, 1.0),
+    'sigmoid': Activation(lambda x, alpha: torch.sigmoid(x), 0.0, 1.0,
+                          lambda x, alpha: _sigmoid_stepwise(x)),
     'elu': Activation(lambda x, alpha: F.elu(x), 0.0, 1.0),
-    'selu': Activation(lambda x, alpha: F.selu(x), 0.0, 1.0),
-    'softplus': Activation(lambda x, alpha: F.softplus(x), 0.0, 1.0),
-    'swish': Activation(lambda x, alpha: torch.sigmoid(x) * x, 0.0, math.sqrt(2)),
+    'selu': Activation(lambda x, alpha: F.selu(x), 0.0, 1.0, _selu_stepwise),
+    'softplus': Activation(lambda x, alpha: F.softplus(x), 0.0, 1.0,
+                           lambda x, alpha: x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))),
+    'swish': Activation(lambda x, alpha: torch.sigmoid(x) * x, 0.0, math.sqrt(2),
+                        lambda x, alpha: _sigmoid_stepwise(x) * x),
 }
 _ACT_CODES = {name: i for i, name in enumerate(activation_funcs)}  # the order of csrc/bias_act.cu
 
@@ -63,14 +98,19 @@ def bias_act_plain(x: torch.Tensor, b: Optional[torch.Tensor] = None, *, act: st
                    alpha: Optional[float] = None, gain: Optional[float] = None,
                    clamp: Optional[float] = None) -> torch.Tensor:
     """Add `b` along the last axis, apply `act` (with `alpha`, lrelu's slope),
-    scale by `gain`, clamp to +-clamp; None takes the activation's default."""
+    scale by `gain`, clamp to +-clamp; None takes the activation's default.
+    Computed in `x.dtype` (see the module's docstring)."""
     spec, alpha, gain = _resolve(act, alpha, gain, clamp)
+    func = spec.func
+    if x.element_size() < 4 and spec.stepwise is not None:
+        func = spec.stepwise
     if b is not None:
         x = x + b.to(x.dtype)
-    x = spec.func(x, alpha)
+    x = func(x, round_to(alpha, x.dtype))
     if gain != 1.0:
-        x = x * gain
+        x = x * round_to(gain, x.dtype)
     if clamp is not None:
+        clamp = round_to(clamp, x.dtype)
         x = x.clamp(-clamp, clamp)
     return x
 
@@ -81,7 +121,8 @@ def _kernel():
     fn = lib.tdgp_bias_act
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.tdgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_cuda_error_string.restype = ctypes.c_char_p
@@ -102,16 +143,19 @@ def channel_stride(x: torch.Tensor) -> Optional[int]:
     return x.stride(-1) if x.shape[-1] != 1 else 1
 
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's instantiations
+
+
 def _launch(x: torch.Tensor, b: Optional[torch.Tensor], act: str, alpha: float, gain: float,
             clamp: Optional[float]) -> torch.Tensor:
-    if x.dtype != torch.float32 or (b is not None and b.dtype != torch.float32):
-        raise TypeError(f'bias_act takes float32 on the card, got {x.dtype}')
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f'bias_act takes float32 or bfloat16 on the card, got {x.dtype}')
     c = x.shape[-1]
     if b is not None:
         if b.shape != (c,) or b.device != x.device:
             raise ValueError(f'bias {tuple(b.shape)} on {b.device} for x {tuple(x.shape)} '
                              f'on {x.device}')
-        b = b.contiguous()
+        b = b.to(x.dtype).contiguous()
     inner = channel_stride(x)
     if inner is None:
         raise ValueError(f'bias_act takes dense tensors, got shape {tuple(x.shape)} with '
@@ -123,19 +167,23 @@ def _launch(x: torch.Tensor, b: Optional[torch.Tensor], act: str, alpha: float, 
     if n == 0:
         return y
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, y) + ((b,) if b is not None else ()))
+    per_access = 16 // x.element_size()  # elements in one 16-byte load
     mode = 0
-    if aligned and inner == 1 and c % 4 == 0:
+    if aligned and inner == 1 and c % per_access == 0:
         mode = 1
-    elif aligned and inner % 4 == 0:
+    elif aligned and inner % per_access == 0:
         mode = 2
     fn, error_string = _kernel()
+    dtype = x.dtype
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), 0 if b is None else b.data_ptr(), y.data_ptr(), n, inner, c,
-                 _ACT_CODES[act], alpha, gain, math.inf if clamp is None else float(clamp),
-                 mode, torch.cuda.current_stream(x.device).cuda_stream)
+                 _ACT_CODES[act], round_to(alpha, dtype), round_to(gain, dtype),
+                 math.inf if clamp is None else round_to(clamp, dtype), mode,
+                 _DTYPE_CODES[dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'bias_act launch failed: {error_string(err).decode()}')
     bias_act.launches += 1
+    bias_act.launches_by_dtype[str(dtype).removeprefix('torch.')] += 1
     return y
 
 
@@ -154,4 +202,9 @@ def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None, *, act: str = 'l
     return _launch(x, b, act, alpha, gain, clamp)
 
 
-bias_act.launches = 0
+def reset_launches() -> None:
+    bias_act.launches = 0
+    bias_act.launches_by_dtype = collections.Counter()
+
+
+reset_launches()

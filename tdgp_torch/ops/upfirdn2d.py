@@ -7,6 +7,10 @@ and the downsampling are one strided depthwise `F.conv2d`, which PyTorch
 differentiates to any order. Tensors are
 NHWC; `permute(0, 3, 1, 2)` gives the channels-last NCHW view the
 convolution takes, without a copy. Filters are 2-D.
+
+In bfloat16 (the bf16 blocks) the filter, scaled by `gain` in float32, is
+cast to `x.dtype` as in the JAX package, and the output is in `x.dtype`
+(the convolution accumulates in float32 in cuDNN and oneDNN).
 """
 from __future__ import annotations
 
@@ -41,6 +45,21 @@ def setup_filter(f, device: Union[str, torch.device] = 'cpu') -> torch.Tensor:
     return f / f.sum()
 
 
+def conv2d(x: torch.Tensor, w: torch.Tensor, **kwargs) -> torch.Tensor:
+    """`F.conv2d` of NCHW `x` and `w` (`kwargs`: stride, padding, groups).
+
+    Below float32 a convolution accumulates in float32 and rounds its output
+    once, in cuDNN and in the JAX package. On CPU tensors the port computes
+    it so, as the float32 convolution of the operands rounded to `x.dtype`:
+    PyTorch's CPU bfloat16 convolution gives the same output, but its double
+    backward (R1) accumulates in bfloat16 on some shapes and loses most of
+    the gradient. The gradients of the casts are casts, so every derivative
+    is the float32 one rounded once, as in the JAX package."""
+    if x.device.type == 'cpu' and x.element_size() < 4:
+        return F.conv2d(x.float(), w.float(), **kwargs).to(x.dtype)
+    return F.conv2d(x, w, **kwargs)
+
+
 def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: int = 1, down: int = 1,
               padding: Union[int, Sequence[int]] = 0, flip_filter: bool = False,
               gain: float = 1.0) -> torch.Tensor:
@@ -52,7 +71,7 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: int = 1, down: int
 
     if f is None:
         f = torch.ones((1, 1), dtype=torch.float32, device=x.device)
-    f = f.to(device=x.device, dtype=x.dtype) * gain
+    f = (f.to(x.device) * gain).to(x.dtype)
     if not flip_filter:
         f = f.flip([0, 1])  # conv2d correlates; the FIR is a convolution
 
@@ -62,7 +81,7 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: int = 1, down: int
         x = x.reshape(n, h * up, w * up, c)
     x = F.pad(x, (0, 0, px0, px1, py0, py1))
     weight = f[None, None].expand(c, 1, *f.shape).contiguous()
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=down, groups=c)
+    y = conv2d(x.permute(0, 3, 1, 2), weight, stride=down, groups=c)
     return y.permute(0, 2, 3, 1)
 
 

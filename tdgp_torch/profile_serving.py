@@ -39,7 +39,8 @@ from tdgp_torch.utils.tensor_group import TensorGroup
 
 RUN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        'experiments', 'synth256-3dgp-p64-b16-8839f23-r5-flagship')
-OVERRIDES = ['generator.ray_march_impl=fused', 'generator.fp32_only=true']
+OVERRIDES = ['generator.ray_march_impl=fused']
+FP32 = ['generator.fp32_only=true']  # the float32 cut: every block in float32
 BATCH = 4
 PSI = 0.7
 # the port's kernels on the served path: name -> a part of the CUDA kernels' names
@@ -76,6 +77,8 @@ def _device_ops(prof):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--requests', type=int, default=3)
+    ap.add_argument('--override', action='append', default=[],
+                    help=f'dotted config override, repeatable ({FP32[0]}: the float32 cut)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_serving: no CUDA device')
@@ -83,7 +86,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f'card: {card}')
 
-    G = load_generator(RUN_DIR, 'cuda', OVERRIDES)
+    G = load_generator(RUN_DIR, 'cuda', OVERRIDES + args.override)
     serve = make_serving_fn(G, truncation_psi=PSI)
     req = request(0, G.cfg, 'cuda')
     z, c, angles, fov, radius, look_at = req
@@ -169,6 +172,7 @@ def main() -> int:
                             check=True).stdout.strip()
     print(f'sm, mem clocks after the trace: {sm_mem}')
     print(json.dumps({'card': card, 'clocks_sm_mem': sm_mem, 'batch': BATCH,
+                      'overrides': OVERRIDES + args.override,
                       'resolution': G.cfg.img_resolution,
                       'stages_ms': stages, 'render_profiled': render,
                       'wall_ms_profiled': wall_ms,

@@ -5,7 +5,9 @@
 Builds the trainer that `chip_smoke.py` drives, as `bench.py` builds the JAX
 one: `satellite_config(c_dim=0, resolution=256)` (tri-planes 3x512^2x32,
 64^2 patches, 32 + 32 ray steps, both adaptors, KD with 2048-d embeddings,
-R1 every 16 steps), float32 throughout, random weights from a seed, batch 16
+R1 every 16 steps), at its own precision (G's and D's bf16 blocks;
+`--override generator.fp32_only=true --override discriminator.fp32_only=true`
+is the float32 cut), random weights from a seed, batch 16
 of a synthetic real batch made on the card, schedules at 500 kimg. After a
 warm-up step it traces `--steps` plain steps and one R1 step with
 torch.profiler and prints the device time by phase (Gmain, camera
@@ -32,7 +34,7 @@ from tdgp_torch.training.schedules import compute_schedules
 from tdgp_torch.training.train_step import PHASES, Trainer
 from tdgp_torch.utils.draws import Draws
 
-OVERRIDES = ['generator.fp32_only=true', 'discriminator.fp32_only=true']
+FP32 = ['generator.fp32_only=true', 'discriminator.fp32_only=true']  # the float32 cut
 # the port's own kernels on the training path, by the names of their CUDA
 # functions (K1: its two binning kernels, the strip kernel and the
 # coordinate-gradient combination; its wrapper's memsets and offset sum are
@@ -46,9 +48,9 @@ CUR_NIMG = 500_000  # mid-training schedule values, as bench.py takes them
 
 
 def train_config(overrides=()) -> Config:
-    """The satellite 256^2 configuration at float32 (no finalize, as bench.py)."""
-    return apply_overrides(satellite_config(c_dim=0, resolution=256),
-                           OVERRIDES + list(overrides))
+    """The satellite 256^2 configuration (no finalize, as bench.py), with
+    dotted `overrides` (`FP32`: every block in float32)."""
+    return apply_overrides(satellite_config(c_dim=0, resolution=256), list(overrides))
 
 
 def make_batch(cfg: Config, n: int, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -111,6 +113,8 @@ def _device_us(event) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--steps', type=int, default=2)
+    ap.add_argument('--override', action='append', default=[],
+                    help='dotted config override, repeatable (FP32 gives the float32 cut)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_training: no CUDA device')
@@ -118,7 +122,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f'card: {card}')
 
-    cfg = train_config()
+    cfg = train_config(args.override)
     trainer = Trainer(cfg, 'cuda', seed=0)
     batch = make_batch(cfg, BATCH, 0, 'cuda')
     sched = compute_schedules(cfg, CUR_NIMG)
@@ -178,7 +182,8 @@ def main() -> int:
         calls = sum(e.count for e in found) / n_steps
         own[name] = {'ms_per_step': ms, 'calls_per_step': calls, 'share': ms / device_ms}
         print(f'{ms:9.3f} ms {100 * ms / device_ms:5.1f} %  x{calls:<6g} {name}')
-    print(json.dumps({'card': card, 'batch': BATCH, 'steps': n_steps, 'r1_steps': 1,
+    print(json.dumps({'card': card, 'overrides': args.override, 'batch': BATCH,
+                      'steps': n_steps, 'r1_steps': 1,
                       'wall_ms_profiled': wall_ms, 'device_busy_ms': device_ms,
                       'device_busy_share': device_ms / wall_ms, 'phases_device_ms': phases,
                       'peak_memory_gib': peak_gib, 'top_ops': top_ops,

@@ -16,8 +16,7 @@ from typing import Sequence
 
 import torch
 
-from tdgp_torch.scripts.inference import (DEFAULT_OVERRIDES, add_run_arguments, class_labels,
-                                          load_run, parse_seeds)
+from tdgp_torch.scripts.inference import add_run_arguments, class_labels, load_run, parse_seeds
 
 
 def main(argv: Sequence[str] | None = None) -> None:
@@ -33,7 +32,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     from tdgp_torch import geometry, inference
 
     cfg, G = load_run(args.run_dir, args.snapshot, args.device,
-                      args.override or DEFAULT_OVERRIDES)
+                      args.override or ())
     device = next(G.parameters()).device
     out_dir = args.out_dir or os.path.join(args.run_dir, 'geometry')
     os.makedirs(out_dir, exist_ok=True)

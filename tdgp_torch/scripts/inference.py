@@ -6,8 +6,10 @@
         --trajectory front_circle --num-frames 32 --output video.gif
 
 The flags are the JAX script's, plus `--device` (default cuda; cpu runs on
-the CPU) and `--override` (dotted config overrides; by default
-generator.fp32_only=true, since the port runs the generator in float32).
+the CPU) and `--override` (dotted config overrides, repeatable). The run is
+served at the precision it was trained at: the bf16 blocks of its
+`num_fp16_res` unless its config says `fp32_only`; `--override
+generator.fp32_only=true` runs every block in float32.
 `--snapshot` names the run's EMA export (`g_ema_leg1.npz` by default, as
 `scripts/infra/export_ema.py` writes it); orbax snapshots are not ported.
 """
@@ -26,9 +28,6 @@ from tdgp_torch.serving import WEIGHTS_FILE
 from tdgp_torch.utils.misc import resolve_device
 from tdgp_torch.weights import load_flat
 
-DEFAULT_OVERRIDES = ('generator.fp32_only=true',)
-
-
 def parse_seeds(spec: str) -> List[int]:
     """'0-3,7' -> [0, 1, 2, 3, 7]."""
     out = []
@@ -42,7 +41,7 @@ def parse_seeds(spec: str) -> List[int]:
 
 
 def load_run(run_dir: str, snapshot: str = WEIGHTS_FILE, device: str = 'cuda',
-             overrides: Sequence[str] = DEFAULT_OVERRIDES) -> Tuple[Config, Generator]:
+             overrides: Sequence[str] = ()) -> Tuple[Config, Generator]:
     """The run's config and its EMA generator from an `.npz` export (a path,
     or a file in `run_dir`), on `device`, in eval mode."""
     if not snapshot.endswith('.npz'):
@@ -84,7 +83,8 @@ def add_run_arguments(ap: argparse.ArgumentParser) -> None:
                     help=f'an EMA .npz export, a path or a file of the run (default {WEIGHTS_FILE})')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
     ap.add_argument('--override', action='append', default=None,
-                    help=f'dotted config override, repeatable (default: {" ".join(DEFAULT_OVERRIDES)})')
+                    help='dotted config override, repeatable (generator.fp32_only=true: '
+                         'every block in float32)')
 
 
 def main(argv: Sequence[str] | None = None) -> None:
@@ -104,7 +104,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     from tdgp_torch import inference
 
     cfg, G = load_run(args.run_dir, args.snapshot, args.device,
-                      args.override or DEFAULT_OVERRIDES)
+                      args.override or ())
     device = next(G.parameters()).device
     seeds = parse_seeds(args.seeds)
     c = class_labels(cfg, seeds, args.classes, device)

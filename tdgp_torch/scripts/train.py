@@ -1,7 +1,6 @@
 """Training entry point of the port (counterpart of `scripts/train.py`).
 
-    python3 -m tdgp_torch.scripts.train --preset synth256 \\
-        generator.fp32_only=true discriminator.fp32_only=true [--max-kimg 20]
+    python3 -m tdgp_torch.scripts.train --preset synth256 dataset.path=DIR [--max-kimg 20]
 
 `--preset` picks the base config, `--config` a YAML overlay (a JAX run's
 `experiment_config.yaml` loads unchanged), then dotted key=value overrides.
@@ -12,7 +11,9 @@ one from its frozen config and its newest snapshot. The in-loop metrics
 projection detector (`tdgp_torch.metrics.detectors`), the FID proxy of the
 JAX runs: the repo has no InceptionV3 weights. Every `training.image_snap`
 ticks a 4x4 grid of the EMA generator's images is written to the run
-directory. Runs on the card unless given `--device cpu`.
+directory. Runs on the card unless given `--device cpu`. A preset trains at
+its own precision (the bf16 blocks of G and D, unless `fp32_only`);
+`generator.fp32_only=true discriminator.fp32_only=true` is the float32 cut.
 """
 from __future__ import annotations
 

@@ -22,13 +22,17 @@ D input passes through the ADA pipe (`training/augment.py`) at the
 schedules' `ada_p`, with draws of its own per phase and microbatch
 ('aug/gmain/<i>', 'aug/dmain_fake/<i>', 'aug/dmain_real/<i>', 'aug/r1/<i>').
 Every random choice comes from the `Draws` given to `step`; the tests replay
-the JAX package's draws through it. The step runs at float32, TF32 off.
+the JAX package's draws through it. The step runs at the configuration's
+precision, TF32 off: G's and D's bf16 blocks (`num_fp16_res`, unless
+`fp32_only`) compute in bfloat16 with float32 parameters, and the gradients
+come back to float32 through each cast; Adam, the EMA, `w_avg` and the
+NaN/Inf scrub are float32.
 
 Not ported, and refused with a `NotImplementedError` naming the setting:
 an augment mode other than 'noaug', 'ada' and 'fixed', path-length
-regularization, style mixing, fresh Dmain fakes and the bf16 render views,
-bf16 blocks, the 2D StyleGAN2 model, R1 rematerialization, G's gradient
-clipping and training over several devices.
+regularization, style mixing, fresh Dmain fakes and the bf16 render views
+(`dmain_fake_bf16`, `gmain_render_bf16`), the 2D StyleGAN2 model, R1
+rematerialization, G's gradient clipping and training over several devices.
 """
 from __future__ import annotations
 
@@ -69,8 +73,6 @@ def check_supported(cfg: Config) -> None:
         'training.dmain_reuse_fakes': not t.dmain_reuse_fakes,
         'training.dmain_fake_bf16': t.dmain_fake_bf16,
         'training.gmain_render_bf16': t.gmain_render_bf16,
-        'generator.fp32_only': not cfg.generator.fp32_only,
-        'discriminator.fp32_only': not cfg.discriminator.fp32_only,
         'num_devices': cfg.num_devices > 1,
         'training.g_optim.grad_clip': t.g_optim.grad_clip is not None,
     }

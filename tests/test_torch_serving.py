@@ -184,12 +184,6 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         serving.load_generator(RUN_DIR, overrides=FP32)
 
 
-def test_generator_runs_at_float32_only():
-    gc = dataclasses.replace(tiny_test_config().generator, fp32_only=False)
-    with pytest.raises(NotImplementedError, match='fp32_only'):
-        Generator(gc)
-
-
 @pytest.mark.slow
 def test_flagship_serving_matches_jax_at_full_width():
     """Trained weights, full width (tri-planes 3x512^2x32), batch 1, 64x64 output."""

@@ -594,8 +594,6 @@ def test_trainer_needs_a_card_unless_given_the_cpu(monkeypatch):
     ('training.dmain_reuse_fakes', 'training.dmain_reuse_fakes=false'),
     ('training.dmain_fake_bf16', 'training.dmain_fake_bf16=true'),
     ('training.gmain_render_bf16', 'training.gmain_render_bf16=true'),
-    ('generator.fp32_only', 'generator.fp32_only=false'),
-    ('discriminator.fp32_only', 'discriminator.fp32_only=false'),
     ('model_name', 'model_name=stylegan2'),
     ('num_devices', 'num_devices=4'),
     ('training.g_optim.grad_clip', 'training.g_optim.grad_clip=1.0')])

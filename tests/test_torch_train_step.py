@@ -1,7 +1,9 @@
 """One G+D training step: the port's `Trainer.step` vs the JAX package's
 `make_train_step` in its controlled-inputs mode (train_step.py:226-232), on
-`tiny_test_config` with the discriminator at float32 (the port trains at
-float32 only), batch 4, R1 on.
+`tiny_test_config` with the discriminator at float32, batch 4, R1 on; and
+the same step at the config's own precision with G's bf16 blocks on
+(`generator.fp32_only=false`; D's are on by default), held to a share of
+its bf16 floor (the tests at the end of the file).
 
 Both start from the same weights: the JAX `TrainState` is carried into the
 port by `tdgp_torch.weights.load_train_state`; both optimizers start at zero.
@@ -26,6 +28,7 @@ atol = 1e-4 x the largest parameter (Adam moves a parameter whose gradient
 is near its eps by a step that rounding can change).
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -334,3 +337,93 @@ def test_microbatched_step_runs_and_checks_batch_gpu():
         bad = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, batch_gpu=3))
         Trainer(bad, 'cpu').step(batch, compute_schedules(cfg, CUR_NIMG), False,
                                  Draws(torch.Generator().manual_seed(0)))
+
+
+# ------------------------------------------------------------------ the bf16 blocks
+
+BF16 = ('generator.fp32_only=false', 'discriminator.fp32_only=false')
+# the conv weights of the tiny config's bf16 blocks: G's 8-32, D's 64-8
+BF16_CONVS = re.compile(r'(synthesis\.tri_plane_decoder\.b(8|16|32)|b(64|32|16|8))\.'
+                        r'(conv0|conv1|torgb|skip|fromrgb)\.weight$')
+LOSS_OF_FLOOR = 0.6       # each loss: |port - JAX| over the step's largest loss floor
+GRAD_OF_FLOOR = 1.0       # a phase's gradients, concatenated: relative L2 over the floor
+CONV_MEDIAN_OF_FLOOR = 0.8  # the bf16 blocks' conv weights: median of their ratios ...
+CONV_MAX_OF_FLOOR = 1.0     # ... and the largest
+
+
+@pytest.fixture(scope='module')
+def bf16_steps():
+    return run_step(CUR_NIMG, overrides=BF16)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def floor_ratios(bf16_steps, steps, phase, port_grads):
+    """(the phase's gradients concatenated, {bf16 conv weight: ratio}): the
+    relative L2 distance of `port_grads` to JAX's step in bf16 over that of
+    JAX's step in float32 (the floor)."""
+    ref = flatten_tree({'params': bf16_steps[0]['_debug'][f'{phase}_grads']})
+    ref32 = flatten_tree({'params': steps[0]['_debug'][f'{phase}_grads']})
+    got, want, want32, convs = [], [], [], {}
+    for name, g in port_grads.items():
+        r = _to_port_layout(name, ref[flat_key(name)], g.ndim)
+        r32 = _to_port_layout(name, ref32[flat_key(name)], g.ndim)
+        got.append(g.numpy().ravel()), want.append(r.ravel()), want32.append(r32.ravel())
+        if BF16_CONVS.match(name):
+            convs[name] = _rel(g.numpy(), r) / _rel(r, r32)
+    whole = _rel(np.concatenate(got), np.concatenate(want)) / _rel(np.concatenate(want),
+                                                                     np.concatenate(want32))
+    return whole, convs
+
+
+def test_bf16_step_keeps_float32_state(bf16_steps):
+    """The step at the tiny config's own precision: every draw replayed,
+    parameters, gradients and the EMA in float32, the blocks in bf16."""
+    _, _, port_stats, trainer, draws = bf16_steps
+    assert draws.used == set(draws.values)
+    dec = trainer.G.synthesis.tri_plane_decoder
+    assert dec.b32.dtype == torch.bfloat16 and dec.b4.dtype is None
+    assert trainer.D.b64.dtype == torch.bfloat16
+    for module in (trainer.G, trainer.D, trainer.G_ema):
+        assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+                   for p in module.parameters())
+    assert all(g.dtype == torch.float32 for grads in port_stats['_grads'].values()
+               for g in grads.values())
+
+
+def test_bf16_step_losses(bf16_steps, steps):
+    """Each loss within LOSS_OF_FLOOR x the step's loss floor (the largest
+    |JAX bf16 - JAX float32| of the step's losses; witness 0.39)."""
+    ref32, ref, port = steps[0], bf16_steps[0], bf16_steps[2]
+    names = [k for k in ref if not k.startswith('_')]
+    floor = max(abs(float(ref[k]) - float(ref32[k])) for k in names)
+    worst = max(abs(float(port[k]) - float(ref[k])) for k in names)
+    assert worst <= LOSS_OF_FLOOR * floor, (worst, floor)
+
+
+@pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
+def test_bf16_step_gradients(bf16_steps, steps, phase):
+    """Gmain, Dmain and R1 through the bf16 blocks against the JAX step at
+    the same precision. JAX on the CPU sums the gradients of biases, styles
+    and noise strengths in bf16, as far from their float32 sums as bf16 is
+    from float32, so the phase as a whole is held to its floor (witness:
+    0.95 / 0.80 / 0.55) and the bf16 blocks' conv weights, whose gradients
+    JAX sums in float32, to a share of theirs (median 0.40 / 0.65 / 0.44,
+    largest 0.57 / 0.81 / 0.49)."""
+    whole, convs = floor_ratios(bf16_steps, steps, phase, bf16_steps[2]['_grads'][phase])
+    assert len(convs) == (9 if phase == 'g' else 13), sorted(convs)
+    assert whole <= GRAD_OF_FLOOR, whole
+    assert float(np.median(list(convs.values()))) <= CONV_MEDIAN_OF_FLOOR, convs
+    assert max(convs.values()) <= CONV_MAX_OF_FLOOR, convs
+
+
+@pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
+def test_bf16_step_gradients_at_float32_miss_the_limit(bf16_steps, steps, phase):
+    """Mutation witness: the port's step at float32 (no bf16 block) is at
+    least the floor away from JAX's bf16 step on the conv weights (median
+    1.007 / 1.007 / 1.05)."""
+    _, convs = floor_ratios(bf16_steps, steps, phase, steps[2]['_grads'][phase])
+    assert float(np.median(list(convs.values()))) > CONV_MEDIAN_OF_FLOOR, convs
