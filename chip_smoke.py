@@ -22,7 +22,11 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   width it is built for, in the four marcher settings, max
                   abs diff <= 1e-5 on every output;
                   timed in the same ways beside the two-step path it replaces
-                  (unify_samples_sorted + K3), its plain version and bound.
+                  (unify_samples_sorted + K3), its plain version and bound; and at
+                  the training shape of Dmain's fresh fakes, [16, 4096, 32 + 32,
+                  C], the samples jittered as a training render draws them
+                  (`train_merged_sets`), for C = 1-4 in the four settings (<=
+                  1e-5), timed at C = 3.
   2. serve:       the trained 256^2 flagship generator (tri-planes 3x512^2x32)
                   at the precision it was trained at (its decoder's blocks
                   64-512 in bf16), then at the float32 cut
@@ -69,7 +73,14 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   cuDNN runs its deterministic algorithms here, and the
                   StyleGAN2 noise is off: the gradient of a noise strength is
                   a sum of ~1e8 terms of random sign, which any other float32
-                  order moves by ~1e-3.
+                  order moves by ~1e-3. Then D's Dmain gradient with fresh
+                  fakes (`training.dmain_reuse_fakes=false`), the fakes rendered
+                  without gradients through K3's merged entry, K4 and K5 and
+                  through their plain versions, at the float32 cut and with
+                  bf16 blocks, at the Gmain check's limits; the one-ulp floor
+                  there is an ulp on every float32 `bias_act` output of the
+                  render (`ulp_after_bias_act`). The fresh-fake image <= 1e-4
+                  at float32, <= BF16_FLOOR_FACTOR x its floor with bf16 blocks.
   6. inference kernels: K4 (triplane_mlp) at the served shape, [4, 524288, 32]
                   -> 64 -> 4 (bound: the card's, with the products as
                   3xTF32 on the tensor cores; the float32 CUDA cores' bound
@@ -118,8 +129,12 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   R1 step; losses finite, every parameter of G and D moved,
                   the EMA moved, K1 / K3 / K3-backward launched as often as
                   the step implies (K3 merged never); ms per step, images/s at the 15:1
-                  plain:R1 cadence, peak memory; K4 and K5 launches printed as
-                  they fall (the forwards the step runs without gradients).
+                  plain:R1 cadence, peak memory. Then the same step with fresh
+                  Dmain fakes at its own precision: K3's merged entry 1 and K4
+                  2 launches per Dmain microbatch (none with reused fakes), K5
+                  in every run once per bias_act call that autograd does not
+                  record, by dtype; its readings printed beside the reused
+                  fakes'.
   9. loop:        the ADA pipe (`tdgp_torch.training.augment`) at p = 1 with
                   every group on, [16, 64, 64, 4] (one D pass of the synth256
                   step), on the card against the CPU with the same draws:
@@ -138,11 +153,19 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   signs, the metric is finite, the snapshot's meta is the
                   loop's place; K1 2 and K3 / K3's backward 1 per step, the
                   merged K3 4 and K4 8 per render of 4 images, K5 once per
-                  bias_act call that autograd does not record. Then a resume
+                  bias_act call that autograd does not record. The run's own
+                  snapshot then goes through the entry points
+                  (`snapshot_phase`): `load_run` with 'latest', 'best' and its
+                  path gives the trainer's G_ema exactly; `scripts.inference
+                  --snapshot latest` renders seeds 0-3 (launches checked);
+                  `scripts.export_ema` and `load_run` of the `.npz` render the
+                  snapshot's images bit for bit; `scripts.calc_metrics
+                  --snapshot latest` at batch 16 gives the loop's fid2k_full
+                  within SNAPSHOT_FID_LIMIT relative. Then a resume
                   from the snapshot for one more tick: cur_nimg, batch_idx
                   and ada_p restored, losses finite. sec/kimg per tick,
                   images/s, the metric's seconds, peak memory.
-Serving (2) also counts K4 (8 per request) and K5 launches per request.
+Serving (2) also counts K4 (8 per request) and K5 launches per request, by dtype.
 K5's launches are counted by dtype everywhere: 'bias_act' (float32) and
 'bias_act_bf16' (bfloat16), each held to the `bias_act` calls of that dtype.
 Prints the card's name and power limit, each phase's seconds, a JSON line
@@ -372,6 +395,24 @@ def merged_sets(g, b, r, s1, s2, c):
             torch.randn(b, r, s2, device='cuda', generator=g) * 2)
 
 
+def train_merged_sets(g, b, r, s1, s2, c):
+    """The two sample sets of one training render without gradients (Dmain's
+    fresh fakes): coarse depths jittered in their bins (`sample_stratified`),
+    fine depths from the importance sampler on random coarse weights with a
+    stratified random u (`sample_importance`), colours and raw densities with
+    noise."""
+    from tdgp_torch.rendering import renderer
+    jitter = torch.rand(b, r, s1, device='cuda', generator=g)
+    t1 = renderer.sample_stratified(b, r, s1, torch.device('cuda'), 0.75, 1.25, jitter)
+    weights = torch.rand(b, r, s1, device='cuda', generator=g)
+    u = torch.rand(b * r, s2, device='cuda', generator=g)
+    t2 = renderer.sample_importance(t1, weights, s2, u_rand=u)
+    return (t1.contiguous(), torch.randn(b, r, s1, c, device='cuda', generator=g),
+            torch.randn(b, r, s1, device='cuda', generator=g) * 2, t2.contiguous(),
+            torch.randn(b, r, s2, c, device='cuda', generator=g),
+            torch.randn(b, r, s2, device='cuda', generator=g) * 2)
+
+
 def kernel_phase(ray_march):
     """K3 against its plain version at the serving shape (one ray chunk of
     every image of a batch-4 request), timed warm, cold and cold with a
@@ -477,6 +518,32 @@ def kernel_phase(ray_march):
           f'{merged_plain_ms:.4f} ms; bound '
           f'{1e3 * merged_bound_ms:.1f} us ({bytes_moved / 1e6:.1f} MB by {merged_bound_by}), '
           f'{bytes_moved / (merged_times["cold"] * 1e-3) / 1e12:.2f} TB/s cold')
+    # the training shape of Dmain's fresh fakes: 16 x 64^2 rays, 32 + 32 samples jittered as a
+    # training render draws them, at every channel width the kernel is built for
+    b_t, r_t = 16, 4096
+    train_worst = 0.0
+    for c_t in range(1, 5):
+        sets = train_merged_sets(g, b_t, r_t, 32, 32, c_t)
+        for clamp_mode, inf_depth, last_back in K3_CASES:
+            opts = (clamp_mode, 1.0, inf_depth, last_back)
+            out = ray_march.ray_march_merged(*sets, *opts)
+            ref = ray_march.ray_march_merged_plain(*sets, *opts)
+            torch.cuda.synchronize()
+            errs = [float((a - b_).abs().max()) for a, b_ in zip(out, ref)]
+            check(all(e <= 1e-5 for e in errs),
+                  f'K3 merged at the training shape [{b_t},{r_t},32+32,{c_t}] {clamp_mode} '
+                  f'inf_depth={inf_depth} last_back={last_back} disagrees with its plain '
+                  f'version: {errs}')
+            train_worst = max(train_worst, *errs)
+        del sets, out, ref
+    print(f'K3 merged at the training shape [{b_t},{r_t},32+32,C] with training jitter, C = 1-4, '
+          f'in the {len(K3_CASES)} settings: max abs diff {train_worst:.3g} (<= 1e-5)')
+    worst = max(worst, train_worst)
+    sets = train_merged_sets(g, b_t, r_t, 32, 32, c)
+    merged_train_times = timed(f'K3 merged at the training shape [{b_t},{r_t},32+32,{c}]',
+                               lambda: ray_march.ray_march_merged(*sets), 500)
+    merged_train_plain_ms = cuda_ms(lambda: ray_march.ray_march_merged_plain(*sets), 20)
+    del sets
     power = subprocess.run(['nvidia-smi', '--query-gpu=power.draw,temperature.gpu',
                             '--format=csv,noheader'], capture_output=True, text=True, check=True)
     print(f'power and temperature after timing: {power.stdout.strip()}')
@@ -488,7 +555,13 @@ def kernel_phase(ray_march):
                      ms_warm_prefilled=merged_times['warm_prefilled'],
                      ms_cold_clean=merged_times['cold_clean'], host_us=merged_times['host_us'],
                      two_step_ms=two_times['cold'], two_step_ms_warm=two_times['warm'],
-                     two_step_ms_warm_prefilled=two_times['warm_prefilled'])
+                     two_step_ms_warm_prefilled=two_times['warm_prefilled'],
+                     ms_train_shape=merged_train_times['cold'],
+                     ms_train_shape_warm=merged_train_times['warm'],
+                     ms_train_shape_warm_prefilled=merged_train_times['warm_prefilled'],
+                     ms_train_shape_cold_clean=merged_train_times['cold_clean'],
+                     plain_ms_train_shape=merged_train_plain_ms,
+                     max_abs_err_train_shape=train_worst)
     return k3, k3_merged
 
 
@@ -732,6 +805,118 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
           f'({max(floor, key=floor.get)}); above {GRAD_LIMIT:g}: {over}')
     check(all(rel[n] <= limit[n] for n in rel),
           f'the Gmain gradient ({label}) through the kernels disagrees with the plain path')
+
+
+FRESH = ['training.dmain_reuse_fakes=false']  # Dmain renders fresh fakes, without gradients
+
+
+@contextlib.contextmanager
+def ulp_after_bias_act(device):
+    """Every float32 `bias_act` output that autograd does not record (the
+    fresh-fake render's) changed by about one ulp (x (1 + 2^-24 n), n ~ N(0,
+    1)): the difference K5 at float32 makes to its plain version."""
+    from tdgp_torch.models import layers, stylegan2
+    saved = layers.bias_act, stylegan2.bias_act
+    inner = layers.bias_act
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def noisy(x, b=None, **kwargs):
+        y = inner(x, b, **kwargs)
+        if y.dtype == torch.float32 and not torch.is_grad_enabled():
+            y = y * (1 + 2.0 ** -24 * torch.randn(y.shape, device=y.device, generator=gen))
+        return y
+
+    layers.bias_act = stylegan2.bias_act = noisy
+    try:
+        yield
+    finally:
+        layers.bias_act, stylegan2.bias_act = saved
+
+
+def fresh_fakes_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides,
+                            device='cuda'):
+    """D's Dmain gradient with fresh fakes, at full width and batch 4 with
+    the config `overrides`: the fakes rendered without gradients through
+    K3's merged entry, K4 and K5, and through their plain versions
+    (`plain_versions(k3=True, k4=True, k5=True)`). The one-ulp floor is the
+    plain path's distance when every float32 `bias_act` output of the render
+    moves by about an ulp (`ulp_after_bias_act`, what K5 at float32 does;
+    with bf16 blocks such an ulp flips bf16 roundings in the blocks after
+    it). The Gmain check's limits: each parameter at float32 within
+    GRAD_LIMIT, with bf16 blocks within max(GRAD_LIMIT, BF16_FLOOR_FACTOR x
+    its floor); the fresh-fake image at float32 within 1e-4 max abs, with
+    bf16 blocks within BF16_FLOOR_FACTOR x the floor's image difference.
+    Returns the image's max abs difference."""
+    from tdgp_torch.training import losses
+    from tdgp_torch.ops import bias_act, ray_march, triplane_mlp
+    from tdgp_torch.utils.misc import exact_fp32
+    g_forward = losses.g_forward
+    images = {}
+
+    def fake_render(key):
+        def render(*args, **kwargs):
+            out, pp = g_forward(*args, **kwargs)
+            if not torch.is_grad_enabled():
+                images[key] = out.img
+            return out, pp
+        return render
+
+    cfg = train_config(list(overrides) + FRESH + ['generator.use_noise=false'])
+    bf16 = not cfg.generator.fp32_only
+    label = 'bf16 blocks' if bf16 else 'float32'
+
+    def dmain_grads(plain, perturb=False):
+        trainer = Trainer(cfg, device, seed=0)
+        batch = make_batch(cfg, 4, 2, device)
+        losses.g_forward = fake_render((plain, perturb))
+        reset_counts([ray_march.ray_march_merged, triplane_mlp.triplane_mlp, bias_act.bias_act])
+        try:
+            with (plain_versions(k1=True, k3=True, k4=True, k5=True) if plain
+                  else contextlib.nullcontext()), \
+                    (ulp_after_bias_act(device) if perturb else contextlib.nullcontext()), \
+                    exact_fp32():
+                trainer._dmain(batch, sched, Draws(torch.Generator(device=device).manual_seed(3)),
+                               1, lambda name, value: None, None, None)
+        finally:
+            losses.g_forward = g_forward
+        launched = (ray_march.ray_march_merged.launches, triplane_mlp.triplane_mlp.launches,
+                    bias_act.bias_act.launches)
+        check(not any(launched) if plain else all(launched),
+              f'the {"plain" if plain else "kernel"} fresh-fake render launched K3 merged, K4, '
+              f'K5 {launched}')
+        return {n: p.grad.detach().clone() for n, p in trainer.D.named_parameters()}
+
+    def rel_l2(a, b):
+        return {n: float((a[n] - r).norm() / r.norm().clamp_min(1e-30)) for n, r in b.items()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = dmain_grads(True)
+        rel = rel_l2(dmain_grads(False), ref)
+        floor = rel_l2(dmain_grads(True, perturb=True), ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    img_diff = float((images[(False, False)] - images[(True, False)]).abs().max())
+    img_floor = float((images[(True, True)] - images[(True, False)]).abs().max())
+    img_limit = BF16_FLOOR_FACTOR * img_floor if bf16 else 1e-4
+    limit = {n: max(GRAD_LIMIT, BF16_FLOOR_FACTOR * floor[n]) if bf16 else GRAD_LIMIT
+             for n in rel}
+    name = max(rel, key=lambda n: rel[n] / limit[n])
+    print(f'fresh-fake image ({label}, [{", ".join(map(str, images[(False, False)].shape))}]), '
+          f'K3 merged + K4 + K5 vs their plain versions: max abs diff {img_diff:.3g} (limit '
+          f'{img_limit:.3g}; one-ulp floor {img_floor:.3g})')
+    print(f'Dmain gradient with fresh fakes ({label}), kernels vs plain versions: {len(rel)} '
+          f'parameters, median relative L2 difference {float(np.median(list(rel.values()))):.3g}, '
+          f'worst against its limit {rel[name]:.3g} ({name}; limit {limit[name]:.3g}); one-ulp '
+          f'floor: median {float(np.median(list(floor.values()))):.3g}, max '
+          f'{max(floor.values()):.3g} ({max(floor, key=floor.get)})')
+    check(img_diff <= img_limit, f'the fresh-fake image ({label}) through K3 merged, K4 and K5 '
+                                 f'disagrees with the plain versions')
+    check(all(rel[n] <= limit[n] for n in rel),
+          f'the Dmain gradient with fresh fakes ({label}) through the kernels disagrees with '
+          f'the plain path')
+    return img_diff
 
 
 def inference_kernel_phase(bias_act, triplane_mlp, FullyConnected, init_weights):
@@ -1063,12 +1248,16 @@ def step_points_phase(calls):
 
 
 def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, batch_size,
-                counters, printed, label, device='cuda'):
+                counters, label, device='cuda'):
     """The satellite step at full width: a warm-up step, whose K1 calls are
     held and timed by `step_points_phase` (unless `capture_splat_calls` is
-    None), then plain steps and one R1 step. `counters` are checked against
-    what the step implies, `printed` only printed. Returns the launches, the
-    step-point readings of K1 and images/s at 15:1."""
+    None), then plain steps and one R1 step. Every kernel's launches are
+    held to what the step implies: K1 2, K3 and its backward 1 per Gmain
+    microbatch; with fresh Dmain fakes K3's merged entry 1 and K4 2 (coarse
+    and fine pass) per Dmain microbatch, else none; K5 once per `bias_act`
+    call that autograd does not record, by dtype. Returns the launches, the
+    step-point readings of K1 and the step's readings (ms per plain and R1
+    step, images/s at 15:1, peak memory)."""
     trainer = Trainer(cfg, device, seed=0)
     batch = make_batch(cfg, batch_size, 0, device)
     draws = Draws(torch.Generator(device=device).manual_seed(1))
@@ -1084,19 +1273,19 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
         k1_step = step_points_phase(calls)
         del calls
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(counters + printed)
+    reset_counts(counters)
     plain_ms, history = [], []
-    for _ in range(TRAIN_PLAIN_STEPS):
+    with BiasActCalls() as bias_calls:
+        for _ in range(TRAIN_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            history.append(trainer.step(batch, sched, False, draws))
+            torch.cuda.synchronize()
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
         t0 = time.perf_counter()
-        history.append(trainer.step(batch, sched, False, draws))
+        history.append(trainer.step(batch, sched, True, draws))
         torch.cuda.synchronize()
-        plain_ms.append(1e3 * (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    history.append(trainer.step(batch, sched, True, draws))
-    torch.cuda.synchronize()
-    r1_ms = 1e3 * (time.perf_counter() - t0)
+        r1_ms = 1e3 * (time.perf_counter() - t0)
     launches = launch_counts(counters)
-    off_gradient = launch_counts(printed)
     peak = torch.cuda.max_memory_allocated()
 
     losses = {k: float(v) for k, v in history[-1].items()}
@@ -1110,20 +1299,25 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
         check(not still, f'parameters of {k} did not move')
     n_micro = batch_size // (cfg.training.batch_gpu or batch_size)
     steps = TRAIN_PLAIN_STEPS + 1
+    fresh = 0 if cfg.training.dmain_reuse_fakes else 1
     expected = {'triplane_splat': 2 * n_micro * steps,  # coarse and fine pass of each Gmain render
                 'ray_march_reduced': n_micro * steps, 'ray_march_reduced_bwd': n_micro * steps,
-                'ray_march_merged': 0}
-    print(f'launches over {steps} steps: {launches} (expected {expected}); per step: '
-          + ', '.join(f'{k} {v / steps:g}' for k, v in launches.items()))
+                'ray_march_merged': fresh * n_micro * steps,
+                'triplane_mlp': fresh * 2 * n_micro * steps,
+                **{n: bias_calls.unrecorded[n] for n in K5_NAMES.values()}}
+    print(f'launches over {steps} steps: {launches} (expected {expected}; K5: the bias_act calls '
+          f'that autograd does not record, of {dict(bias_calls.count)} on CUDA tensors); per '
+          f'step: ' + ', '.join(f'{k} {v / steps:g}' for k, v in launches.items()))
     check(launches == expected, 'kernel launch counts of the training path')
-    print(f'launches over {steps} steps of the kernels off the gradient path: {off_gradient}')
     t_plain = float(np.median(plain_ms))
     imgs_per_s = 16 * batch_size / (15 * t_plain / 1e3 + r1_ms / 1e3)
     print(f'training step, satellite 256^2, {label}, batch {batch_size} (batch_gpu '
           f'{cfg.training.batch_gpu}): plain ms {["%.1f" % t for t in plain_ms]}, median '
           f'{t_plain:.1f} ms; R1 step {r1_ms:.1f} ms; {imgs_per_s:.2f} images/s at 15:1; '
           f'peak memory {peak / 2**30:.2f} GiB')
-    return {**launches, **off_gradient}, k1_step, imgs_per_s
+    readings = dict(plain_ms=t_plain, r1_ms=r1_ms, images_per_s=imgs_per_s,
+                    peak_gib=peak / 2 ** 30)
+    return launches, k1_step, readings
 
 
 # the keys of a tick's line in the JAX loop's stats.jsonl (tdgp/training/loop.py
@@ -1234,6 +1428,82 @@ def read_jsonl(path):
         return [json.loads(line) for line in f]
 
 
+SNAPSHOT_FID_LIMIT = 1e-4  # calc_metrics on the loop's snapshot vs the loop's value: relative
+
+
+def snapshot_phase(run_dir, trainer, counters, fid, tmp_dir, device='cuda'):
+    """The loop's own snapshot through the port's entry points: `load_run`
+    with 'latest', 'best' and the snapshot's path gives the trainer's G_ema
+    exactly; `scripts.inference --snapshot latest` renders a 4-seed grid
+    (K3 merged and K4 as one render batch implies, K5 once per `bias_act`
+    call); `scripts.export_ema` then `load_run` of the `.npz` renders the
+    snapshot's images bit for bit; `scripts.calc_metrics --snapshot latest`
+    at the loop's batch (16) gives the loop's fid2k_full within
+    SNAPSHOT_FID_LIMIT (expected equal: the same weights, draws, detector
+    and cached dataset statistics). Returns the readings."""
+    from tdgp_torch import inference
+    from tdgp_torch.scripts import calc_metrics, export_ema
+    from tdgp_torch.scripts import inference as inference_script
+    snap = os.path.join(run_dir, 'network-snapshot-000000')
+    ema = trainer.G_ema.state_dict()
+    t0 = time.perf_counter()
+    for ref in ('latest', 'best', snap):
+        _, G = inference_script.load_run(run_dir, ref, device)
+        state = G.state_dict()
+        check(state.keys() == ema.keys() and all(torch.equal(state[k], ema[k]) for k in ema),
+              f"load_run({ref!r}) is not the trainer's G_ema")
+        del G
+    gc = trainer.G_ema.cfg
+    chunks = (gc.img_resolution ** 2) // (gc.max_batch_res ** 2)
+    reset_counts(counters)
+    with BiasActCalls() as calls:
+        inference_script.main(['--run-dir', run_dir, '--snapshot', 'latest', '--seeds', '0-3',
+                               '--device', device,
+                               '--output', os.path.join(tmp_dir, 'snapshot_grid.png')])
+    torch.cuda.synchronize()
+    got = launch_counts(counters)
+    expected = {'triplane_splat': 0, 'ray_march_reduced': 0, 'ray_march_reduced_bwd': 0,
+                'ray_march_merged': chunks, 'triplane_mlp': 2 * chunks,
+                **{n: calls.count[n] for n in K5_NAMES.values()}}
+    print(f'scripts.inference --snapshot latest, seeds 0-3: launches {got} (expected {expected})')
+    check(got == expected, 'kernel launch counts of the snapshot grid')
+    check(os.path.exists(os.path.join(tmp_dir, 'snapshot_grid.png')), 'no grid written')
+
+    npz = export_ema.main(['--run-dir', run_dir, '--snapshot', 'latest'])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        images = []
+        for ref in ('latest', npz):
+            cfg, G = inference_script.load_run(run_dir, ref, device)
+            z = inference.sample_z_from_seeds(range(4), gc.z_dim, device)
+            c = inference_script.class_labels(cfg, list(range(4)), None, torch.device(device))
+            cams = inference.canonical_cameras(cfg, 4, G=G, z=z, c=c)
+            ws = inference.sample_ws_from_seeds(G, list(range(4)), c, cams.angles)
+            images.append(inference.generate(G, ws, cams, batch_size=4))
+            del G
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    check(np.array_equal(images[0], images[1]), 'the .npz export renders other images')
+    print(f'export_ema -> {os.path.basename(npz)}: load_run of it renders the snapshot\'s images '
+          f'bit for bit ({images[0].shape})')
+    entry_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    result = calc_metrics.main(['--run-dir', run_dir, '--snapshot', 'latest', '--metrics',
+                                'fid2k_full', '--batch-size', '16', '--device', device])
+    metric_s = time.perf_counter() - t0
+    offline = result[0]['results']['fid2k_full']
+    rel = abs(offline - fid) / abs(fid)
+    print(f'calc_metrics --snapshot latest: fid2k_full {offline!r} beside the loop\'s {fid!r} '
+          f'(relative difference {rel:.3g}, limit {SNAPSHOT_FID_LIMIT:g}) in {metric_s:.1f} s; '
+          f'load_run, the grid and the export {entry_s:.1f} s')
+    check(rel <= SNAPSHOT_FID_LIMIT, "calc_metrics disagrees with the loop's fid2k_full")
+    return {'snapshot_fid2k_full': offline, 'snapshot_fid_rel_diff': rel,
+            'snapshot_metric_s': metric_s, 'snapshot_entry_points_s': entry_s}
+
+
 def loop_phase(tmp_dir, counters, train_images_per_s):
     """`python3 -m tdgp_torch.scripts.train --preset synth256` in process on a
     256-image synthetic folder: three ticks of four steps (R1 at step 0),
@@ -1341,6 +1611,8 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
           f'15:1); fid2k_full {fid:.3f} in {metric_s:.1f} s; peak memory {peak / 2**30:.2f} GiB; '
           f'{loop_s:.1f} s in all')
 
+    readings.update(snapshot_phase(run_dir, result.trainer, counters, fid, tmp_dir))
+
     reset_counts(counters)
     resumed = train_script.main(['--run-dir', run_dir, '--max-kimg',
                                  str(batch * (steps + steps_per_tick) / 1e3),
@@ -1404,13 +1676,16 @@ def serve_run(G, served, requests, label):
     check((launches['bias_act_bf16'] > 0) == bf16, 'K5 bf16 launches where the blocks are not '
                                                    'bf16, or none where they are')
     k5_bound_ms, by = bound(calls.bytes / n, calls.flops / n)
-    print(f'{label}: K5 over a request {sum(calls.count.values()) / n:g} launches, bound '
+    per_request = {name: launches[name] / n for name in K5_NAMES.values()}
+    print(f'{label}: K5 over a request {sum(per_request.values()):g} launches '
+          f'({per_request["bias_act"]:g} float32 + {per_request["bias_act_bf16"]:g} bf16), bound '
           f'{k5_bound_ms:.4f} ms ({calls.bytes / n / 1e9:.3f} GB; by {by})')
     ms = [1e3 * t for t in times]
     print(f'{label}: serving batch {BATCH} at {res}x{res}: ms per request '
           f'{["%.1f" % t for t in ms]}, median {np.median(ms):.1f} ms, '
           f'{BATCH / np.median(times):.2f} images/s, peak memory {peak / 2**30:.2f} GiB')
-    return dict(serve=serve, images=images, launches=launches, ms=float(np.median(ms)),
+    return dict(serve=serve, images=images, launches=launches, k5_per_request=per_request,
+                ms=float(np.median(ms)),
                 images_per_s=BATCH / float(np.median(times)), peak_gib=peak / 2 ** 30,
                 k5_bound_ms=k5_bound_ms)
 
@@ -1514,6 +1789,11 @@ def main():
         for overrides in (profile_training.FP32, ()):
             train_check_phase(Trainer, Draws, sched, profile_training.train_config,
                               profile_training.make_batch, overrides)
+        fresh_image_diff = {}
+        for label, overrides in (('float32', profile_training.FP32), ('bf16', ())):
+            fresh_image_diff[label] = fresh_fakes_check_phase(
+                Trainer, Draws, sched, profile_training.train_config, profile_training.make_batch,
+                overrides)
 
     with phase('inference kernels', seconds):
         k4, k5, k5_bf16 = inference_kernel_phase(bias_act, triplane_mlp, FullyConnected,
@@ -1523,19 +1803,27 @@ def main():
         infer_launches = inference_phase(served, tmp_dir, RUN_DIR, OVERRIDES)
 
     train_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
-                      ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged]
+                      ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
+                      triplane_mlp.triplane_mlp, bias_act.bias_act]
     with phase('train', seconds):
-        train_launches, k1_step, train_images_per_s = train_phase(
+        train_launches, k1_step, train_own = train_phase(
             Trainer, Draws, sched, cfg, profile_training.make_batch,
             profile_training.capture_splat_calls, profile_training.BATCH, train_counters,
-            [triplane_mlp.triplane_mlp, bias_act.bias_act], 'own precision (bf16 G and D)')
+            'own precision (bf16 G and D)')
         cfg32 = profile_training.train_config(profile_training.FP32)
-        train_fp32_launches, _, train_fp32_images_per_s = train_phase(
+        train_fp32_launches, _, train_fp32 = train_phase(
             Trainer, Draws, sched, cfg32, profile_training.make_batch, None,
-            profile_training.BATCH, train_counters, [triplane_mlp.triplane_mlp, bias_act.bias_act],
-            'float32 cut')
-        print(f'satellite step: {train_images_per_s:.2f} images/s at its own precision, '
-              f'{train_fp32_images_per_s:.2f} at the float32 cut')
+            profile_training.BATCH, train_counters, 'float32 cut')
+        train_fresh_launches, _, train_fresh = train_phase(
+            Trainer, Draws, sched, profile_training.train_config(FRESH),
+            profile_training.make_batch, None, profile_training.BATCH, train_counters,
+            'own precision, fresh Dmain fakes (training.dmain_reuse_fakes=false)')
+        for what, r in (('reused fakes', train_own), ('fresh fakes', train_fresh),
+                        ('reused fakes, float32 cut', train_fp32)):
+            print(f'satellite step, {what}: {r["plain_ms"]:.1f} ms per plain step, '
+                  f'{r["r1_ms"]:.1f} ms per R1 step, {r["images_per_s"]:.2f} images/s at 15:1, '
+                  f'peak memory {r["peak_gib"]:.2f} GiB')
+    train_images_per_s = train_own['images_per_s']
     k1.update(k1_step)
 
     with phase('loop', seconds), tempfile.TemporaryDirectory() as tmp_dir:
@@ -1545,9 +1833,14 @@ def main():
                       triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
     by_path = {'serve': serve_own['launches'], 'serve_float32': serve_fp32['launches'],
                'inference': infer_launches, 'train': train_launches,
-               'train_float32': train_fp32_launches, 'loop': loop_launches}
+               'train_float32': train_fp32_launches, 'train_fresh_fakes': train_fresh_launches,
+               'loop': loop_launches}
     k5['bound_ms_per_request'] = serve_fp32['k5_bound_ms']
     k5_bf16['bound_ms_per_request'] = serve_own['k5_bound_ms']
+    k5['launches_per_request'] = {'own precision': serve_own['k5_per_request']['bias_act'],
+                                  'float32 cut': serve_fp32['k5_per_request']['bias_act']}
+    k5_bf16['launches_per_request'] = {'own precision':
+                                       serve_own['k5_per_request']['bias_act_bf16']}
     for k in (k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())
@@ -1555,6 +1848,9 @@ def main():
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
     print(f'loop: {json.dumps(loop_readings)}')
+    train_readings = {'reused_fakes': train_own, 'fresh_fakes': train_fresh,
+                      'reused_fakes_float32': train_fp32, 'fresh_fake_image_diff': fresh_image_diff}
+    print(f'train: {json.dumps(train_readings)}')
     print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -7,6 +7,9 @@ states and the state of the loop's random generator; beside it,
 `<snapshot>.meta.json` holds `cur_nimg` and the loop's own state
 (`batch_idx`, `ada_p`). The names, the 'latest' resume and the retention
 follow the JAX package, whose orbax snapshots the port does not read.
+`find_best_checkpoint` picks the snapshot with the lowest recorded metric,
+as the JAX package's does; `load_g_ema` reads a snapshot's EMA generator
+alone, for the entry points.
 """
 from __future__ import annotations
 
@@ -95,6 +98,39 @@ def resolve_resume(run_dir: str, resume: str) -> Optional[str]:
         snaps = list_snapshots(run_dir)
         return snaps[-1][1] if snaps else None
     return resume
+
+
+def find_best_checkpoint(run_dir: str, metric: str = 'fid2k_full') -> Optional[str]:
+    """The snapshot with the lowest value of `metric` in
+    metric-<metric>.jsonl among the snapshots that exist (the first of
+    equal values), else the newest snapshot; None without a snapshot."""
+    snaps = dict(list_snapshots(run_dir))
+    if not snaps:
+        return None
+    jsonl = os.path.join(run_dir, f'metric-{metric}.jsonl')
+    if os.path.exists(jsonl):
+        best_val, best_kimg = None, None
+        with open(jsonl) as f:
+            for line in f:
+                rec = json.loads(line)
+                val = rec.get('results', {}).get(metric)
+                kimg = snapshot_kimg(rec.get('snapshot'))
+                if val is None or kimg is None:
+                    continue
+                if kimg in snaps and (best_val is None or val < best_val):
+                    best_val, best_kimg = val, kimg
+        if best_kimg is not None:
+            return snaps[best_kimg]
+    return snaps[max(snaps)]
+
+
+def load_g_ema(path: str, G: torch.nn.Module) -> torch.nn.Module:
+    """Load the EMA generator's state of the snapshot at `path` into `G`
+    (read on the CPU; the rest of the snapshot is not kept); returns G."""
+    state = torch.load(os.path.join(path, STATE_FILE), map_location='cpu', weights_only=True,
+                       mmap=True)
+    G.load_state_dict(state['G_ema'])
+    return G
 
 
 def delete_snapshot(path: str) -> None:

@@ -49,12 +49,15 @@ class EvalContext:
     detector: Optional[Callable] = None      # images uint8 [N,H,W,3] -> features [N,D]
     cache_dir: Optional[str] = None
     batch_size: int = 16
+    batch_gpu: Optional[int] = None          # images rendered at once (None: automatic)
 
     def _resolve_batch_gpu(self) -> int:
-        """Images rendered at once: the whole batch below 256^2, else the
-        largest divisor of the batch up to 4 (the render's peak memory), as
-        in the JAX package."""
-        cap = self.batch_size if self.cfg.generator.img_resolution < 256 else 4
+        """Images rendered at once: the largest divisor of the batch up to
+        `batch_gpu`, by default up to the whole batch below 256^2 and 4 from
+        there (the render's peak memory), as in the JAX package."""
+        cap = self.batch_gpu
+        if cap is None:
+            cap = self.batch_size if self.cfg.generator.img_resolution < 256 else 4
         cap = max(1, min(cap, self.batch_size))
         while self.batch_size % cap:
             cap -= 1

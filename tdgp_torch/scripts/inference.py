@@ -10,8 +10,13 @@ the CPU) and `--override` (dotted config overrides, repeatable). The run is
 served at the precision it was trained at: the bf16 blocks of its
 `num_fp16_res` unless its config says `fp32_only`; `--override
 generator.fp32_only=true` runs every block in float32.
-`--snapshot` names the run's EMA export (`g_ema_leg1.npz` by default, as
-`scripts/infra/export_ema.py` writes it); orbax snapshots are not ported.
+`--snapshot` picks the weights: 'latest' or 'best' (the lowest fid2k_full
+in the run's metric-fid2k_full.jsonl, else the newest) of the port's own
+snapshots (`network-snapshot-*/state.pt`, which `tdgp_torch.scripts.train`
+writes), a snapshot directory, or an EMA `.npz` export (a path or a file of
+the run: `g_ema_leg1.npz` by default, as `scripts/infra/export_ema.py` and
+`tdgp_torch.scripts.export_ema` write it). The JAX package's orbax
+snapshots reach the port through their `.npz` export.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from tdgp_torch import checkpoint as ckpt
 from tdgp_torch.config import Config, load_config
 from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.serving import WEIGHTS_FILE
@@ -40,25 +46,40 @@ def parse_seeds(spec: str) -> List[int]:
     return out
 
 
+def resolve_snapshot(run_dir: str, snapshot: str, metric: str = 'fid2k_full') -> str:
+    """The path of `snapshot` of the run: 'latest', 'best' (by `metric`), a
+    snapshot directory, or an `.npz` export (a path or a file in `run_dir`)."""
+    if snapshot.endswith('.npz'):
+        candidates = [snapshot, os.path.join(run_dir, snapshot)]
+        path = next((p for p in candidates if os.path.exists(p)), None)
+        if path is None:
+            raise FileNotFoundError(f'no EMA export found; tried {candidates}')
+        return path
+    if snapshot == 'best':
+        path = ckpt.find_best_checkpoint(run_dir, metric=metric)
+    else:
+        path = ckpt.resolve_resume(run_dir, snapshot)
+    if not path or not os.path.exists(os.path.join(path, ckpt.STATE_FILE)):
+        raise FileNotFoundError(f'no snapshot {snapshot!r} in {run_dir} (found '
+                                f'{path or "no network-snapshot-*"})')
+    return path
+
+
 def load_run(run_dir: str, snapshot: str = WEIGHTS_FILE, device: str = 'cuda',
-             overrides: Sequence[str] = ()) -> Tuple[Config, Generator]:
-    """The run's config and its EMA generator from an `.npz` export (a path,
-    or a file in `run_dir`), on `device`, in eval mode."""
-    if not snapshot.endswith('.npz'):
-        raise NotImplementedError(
-            f'snapshot {snapshot!r}: the port reads EMA .npz exports only; orbax snapshots '
-            f"('latest', 'best', checkpoint paths) wait for ROADMAP §1 item 2 (loop, data, "
-            f'snapshots)')
-    candidates = [snapshot, os.path.join(run_dir, snapshot)]
-    path = next((p for p in candidates if os.path.exists(p)), None)
-    if path is None:
-        raise FileNotFoundError(f'no EMA export found; tried {candidates}')
+             overrides: Sequence[str] = (), metric: str = 'fid2k_full'
+             ) -> Tuple[Config, Generator]:
+    """The run's config and its EMA generator from `snapshot` (see
+    `resolve_snapshot`), on `device`, in eval mode."""
     device = resolve_device(device)
+    path = resolve_snapshot(run_dir, snapshot, metric)
     cfg = load_config(os.path.join(run_dir, 'experiment_config.yaml'), overrides,
                       finalize=False)
     G = Generator(cfg.generator)
-    with np.load(path) as flat:
-        load_flat(G, flat)
+    if path.endswith('.npz'):
+        with np.load(path) as flat:
+            load_flat(G, flat)
+    else:
+        ckpt.load_g_ema(path, G)
     return cfg, G.to(device).eval()
 
 
@@ -80,7 +101,8 @@ def class_labels(cfg: Config, seeds: Sequence[int], classes: str | None,
 def add_run_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument('--run-dir', required=True)
     ap.add_argument('--snapshot', default=WEIGHTS_FILE,
-                    help=f'an EMA .npz export, a path or a file of the run (default {WEIGHTS_FILE})')
+                    help=f'latest | best | a snapshot directory | an EMA .npz export, a path '
+                         f'or a file of the run (default {WEIGHTS_FILE})')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
     ap.add_argument('--override', action='append', default=None,
                     help='dotted config override, repeatable (generator.fp32_only=true: '

@@ -3,7 +3,8 @@
     python3 -m tdgp_torch.scripts.train --preset synth256 dataset.path=DIR [--max-kimg 20]
 
 `--preset` picks the base config, `--config` a YAML overlay (a JAX run's
-`experiment_config.yaml` loads unchanged), then dotted key=value overrides.
+`experiment_config.yaml` loads unchanged), then dotted key=value overrides
+(anywhere among the flags).
 A new run directory is made under `--run-root`, named after the config and
 the git hash, with the frozen config in it; `--run-dir` resumes an existing
 one from its frozen config and its newest snapshot. The in-loop metrics
@@ -93,7 +94,7 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument('--max-kimg', type=float, default=None)
     ap.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     ap.add_argument('overrides', nargs='*', help='dotted key=value overrides')
-    args = ap.parse_args(argv)
+    args = ap.parse_intermixed_args(argv)
 
     if args.run_dir and args.config is None:
         frozen = os.path.join(args.run_dir, 'experiment_config.yaml')

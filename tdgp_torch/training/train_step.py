@@ -7,9 +7,13 @@
     (the conditioning angles spoofed with probability `gpc_spoof_p`), D
     scores them, and G takes the non-saturating loss, plus the camera
     adaptor's EMD, force-mean and Lipschitz regularizers once per step;
-  - Dmain: D scores Gmain's fakes, detached (`dmain_reuse_fakes`), against
-    patches of the real batch, with the KD loss on the real branch; before
-    it, the mapping's `w_avg` moves toward a fresh batch's mean w;
+  - Dmain: D scores fakes against patches of the real batch, with the KD
+    loss on the real branch: Gmain's fakes, detached (`dmain_reuse_fakes`,
+    the default), or fresh ones that the updated G renders per microbatch
+    without gradients from Dmain's own z, labels and cameras, scored with
+    those labels; before it, the mapping's `w_avg` moves toward that
+    batch's mean w (the training render reads no `w_avg`: it takes no
+    truncation);
   - R1 (`do_r1`): the gradient penalty on real patches, a gradient of a
     gradient through D (`torch.autograd.grad(create_graph=True)`);
   - the G EMA.
@@ -30,13 +34,15 @@ NaN/Inf scrub are float32.
 
 Not ported, and refused with a `NotImplementedError` naming the setting:
 an augment mode other than 'noaug', 'ada' and 'fixed', path-length
-regularization, style mixing, fresh Dmain fakes and the bf16 render views
-(`dmain_fake_bf16`, `gmain_render_bf16`), the 2D StyleGAN2 model, R1
+regularization, style mixing, the bf16 render views (`dmain_fake_bf16`
+with fresh fakes, `gmain_render_bf16`; with reused fakes `dmain_fake_bf16`
+has no effect and a warning says so, as in the JAX package), the 2D StyleGAN2 model, R1
 rematerialization, G's gradient clipping and training over several devices.
 """
 from __future__ import annotations
 
 import copy
+import warnings
 from typing import Dict, Iterable, Optional, Union
 
 import torch
@@ -62,16 +68,23 @@ PHASES = ('gmain', 'camera_regs', 'dmain', 'r1', 'ema')
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for each setting the port does not train."""
+    """Raise NotImplementedError for each setting the port does not train;
+    warn that `dmain_fake_bf16` has no effect while Dmain reuses Gmain's
+    fakes, as the JAX step does."""
     t, l = cfg.training, cfg.loss
+    if t.dmain_fake_bf16 and t.dmain_reuse_fakes:
+        warnings.warn('training.dmain_fake_bf16 has no effect while '
+                      'training.dmain_reuse_fakes is enabled (the default): '
+                      'Dmain renders no fresh fakes. Set '
+                      'training.dmain_reuse_fakes=false to use it.', stacklevel=3)
     refused = {
         'model_name': cfg.model_name == 'stylegan2',
         'training.augment.mode': t.augment.mode not in ('noaug', 'ada', 'fixed'),
         'loss.pl_weight': l.pl_weight > 0,
         'loss.style_mixing_prob': l.style_mixing_prob > 0,
         'loss.r1_remat': l.r1_remat,
-        'training.dmain_reuse_fakes': not t.dmain_reuse_fakes,
-        'training.dmain_fake_bf16': t.dmain_fake_bf16,
+        'training.dmain_fake_bf16 (the bf16 render views, ROADMAP.md section 1 item 3)':
+            t.dmain_fake_bf16 and not t.dmain_reuse_fakes,
         'training.gmain_render_bf16': t.gmain_render_bf16,
         'num_devices': cfg.num_devices > 1,
         'training.g_optim.grad_clip': t.g_optim.grad_clip is not None,
@@ -218,7 +231,8 @@ class Trainer:
 
     def _gmain(self, batch, sched, draws, n_micro, accumulate):
         """Gmain's gradients into G; returns the labels and, per microbatch,
-        the detached fakes with their patch parameters for Dmain."""
+        the detached fakes with their patch parameters for Dmain (None
+        when Dmain renders fresh ones)."""
         cfg, G, D = self.cfg, self.G, self.D
         n = batch['img'].shape[0]
         m = n // n_micro
@@ -226,7 +240,7 @@ class Trainer:
             draws.scope('gen_g'), n, cfg, sched, batch.get('gen_c_g'),
             batch.get('gen_camera_angles_g'), batch.get('gen_z_g'), batch.get('gen_cam_g'))
         _set_requires_grad(D, False)
-        fakes = []
+        fakes = [] if cfg.training.dmain_reuse_fakes else None
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
             out, pp = losses.g_forward(G, zg[sl], cg[sl], camg.select(sl), condg[sl], sched, cfg,
@@ -238,7 +252,8 @@ class Trainer:
             accumulate('Loss/G/loss', loss)
             accumulate('Loss/scores/fake', logits.mean())
             accumulate('Loss/signs/fake', torch.sign(logits).mean())
-            fakes.append((out.img.detach(), pp))
+            if fakes is not None:
+                fakes.append((out.img.detach(), pp))
         _set_requires_grad(D, True)
         return cg, fakes
 
@@ -263,15 +278,17 @@ class Trainer:
                 stats.update({k: v.detach() for k, v in reg_stats.items()})
 
     def _dmain(self, batch, sched, draws, n_micro, accumulate, cg, fakes):
-        """The w_avg update, then Dmain's gradients into D on the reused fakes
-        and real patches; returns the real patches and their parameters."""
+        """The w_avg update, then Dmain's gradients into D on the fakes and
+        real patches; returns the real patches and their parameters. With
+        `fakes` None each microbatch's fakes are rendered here by the
+        updated G, without gradients, with the draws 'dmain/<i>/...'."""
         cfg, G, D = self.cfg, self.G, self.D
         adv, clamp = cfg.loss.adv_loss_type, cfg.discriminator.logits_clamp_val
         do_kd = cfg.loss.kd.weight > 0
         patch = cfg.generator.patch
         n = batch['img'].shape[0]
         m = n // n_micro
-        zd, cd, _, condd = sample_gen_inputs(
+        zd, cd, camd, condd = sample_gen_inputs(
             draws.scope('gen_d'), n, cfg, sched, batch.get('gen_c_d'),
             batch.get('gen_camera_angles_d'), batch.get('gen_z_d'), batch.get('gen_cam_d'))
         with torch.no_grad():  # the w_avg EMA, from the updated G
@@ -294,9 +311,16 @@ class Trainer:
 
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
-            fake_img, fake_pp = fakes[i]
+            if fakes is None:
+                with torch.no_grad():
+                    out, fake_pp = losses.g_forward(G, zd[sl], cd[sl], camd.select(sl),
+                                                    condd[sl], sched, cfg,
+                                                    draws.scope(f'dmain/{i}'))
+                fake_img, fake_c = out.img.float(), cd[sl]
+            else:
+                (fake_img, fake_pp), fake_c = fakes[i], cg[sl]
             fake_logits, _ = losses.d_forward(
-                D, fake_img, cg[sl], sched, cfg, patch_params=fake_pp,
+                D, fake_img, fake_c, sched, cfg, patch_params=fake_pp,
                 augment_fn=self._augment(draws, sched, f'dmain_fake/{i}'))
             real_logits, real_feats = losses.d_forward(
                 D, real[sl], batch['c'][sl], sched, cfg, patch_params=rpp(sl),

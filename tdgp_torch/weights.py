@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's arrays -> the port's modules.
+"""Weight bridge between the JAX package's arrays and the port's modules.
 
 A trained generator is stored as flat arrays named 'params/...', 'ema/...'
 and 'consts/...' (the layout `scripts/infra/export_ema.py` writes and
@@ -10,6 +10,10 @@ of a JAX `G.init` gives the same names). A port parameter or buffer
 Layouts: dense weights [in, out] -> [out, in]; conv weights
 [kh, kw, ci, co] -> [co, ci, kh, kw]; everything else, the NHWC const input
 and the embedding tables included, is taken as it is.
+
+`flat_from_module` is the inverse of `load_flat`: a port module as those
+flat arrays, with the JAX names and layouts, so that both packages read
+the file it is saved to.
 
 `load_train_state` carries a whole JAX `TrainState` (G with its adaptors,
 its consts and 'ema' collection, D, and the EMA copy of G), given as nested
@@ -38,6 +42,22 @@ def _to_port_layout(name: str, value: np.ndarray, ndim: int) -> np.ndarray:
     if name.endswith('weight') and ndim == 4:
         return value.transpose(3, 2, 0, 1)
     return value
+
+
+def _to_jax_layout(name: str, value: np.ndarray) -> np.ndarray:
+    if name.endswith('weight') and value.ndim == 2:
+        return value.T
+    if name.endswith('weight') and value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    return value
+
+
+def flat_from_module(module: nn.Module) -> Dict[str, np.ndarray]:
+    """Every parameter and persistent buffer of `module` as
+    {'<collection>/a/b/c': array} in the JAX package's layout: what
+    `load_flat` reads back. The arrays are copies."""
+    return {flat_key(name): _to_jax_layout(name, value.detach().cpu().numpy()).copy()
+            for name, value in module.state_dict().items()}
 
 
 def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:

@@ -265,8 +265,13 @@ def test_load_run_matches_the_jax_config_and_weights(tiny, tiny_run):
 
 
 def test_entry_points_refuse_orbax_snapshots_and_need_a_card(tiny_run, monkeypatch):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        inference_script.load_run(tiny_run, 'latest', device='cpu')
+    """A run directory without the port's own snapshots (`network-snapshot-*`
+    with its `state.pt`) has no 'latest' or 'best' for the entry points;
+    the JAX package's orbax snapshots reach the port through their `.npz`
+    export."""
+    for snapshot in ('latest', 'best'):
+        with pytest.raises(FileNotFoundError, match='no snapshot'):
+            inference_script.load_run(tiny_run, snapshot, device='cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         inference_script.main(['--run-dir', tiny_run])

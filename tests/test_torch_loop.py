@@ -226,6 +226,15 @@ def test_train_script_on_the_cpu(folder, tmp_path, capsys):
     assert again.batch_idx == 3 * STEPS_PER_TICK
 
 
+def test_train_script_takes_overrides_between_its_options(folder, capsys):
+    """Dotted overrides may come before, between and after the flags."""
+    train_script.main(['--preset', 'tiny', f'dataset.path={folder}', '--device', 'cpu',
+                       'training.dmain_reuse_fakes=false', '--dry-run', 'loss.kd.weight=0'])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed['training']['dmain_reuse_fakes'] is False
+    assert printed['loss']['kd']['weight'] == 0 and printed['dataset']['path'] == folder
+
+
 def test_train_script_needs_a_card_unless_given_the_cpu(folder, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

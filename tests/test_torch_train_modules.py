@@ -591,15 +591,25 @@ def test_trainer_needs_a_card_unless_given_the_cpu(monkeypatch):
     ('loss.pl_weight', 'loss.pl_weight=2.0'),
     ('loss.style_mixing_prob', 'loss.style_mixing_prob=0.9'),
     ('loss.r1_remat', 'loss.r1_remat=true'),
-    ('training.dmain_reuse_fakes', 'training.dmain_reuse_fakes=false'),
-    ('training.dmain_fake_bf16', 'training.dmain_fake_bf16=true'),
+    ('training.dmain_fake_bf16',
+     'training.dmain_fake_bf16=true training.dmain_reuse_fakes=false'),
     ('training.gmain_render_bf16', 'training.gmain_render_bf16=true'),
     ('model_name', 'model_name=stylegan2'),
     ('num_devices', 'num_devices=4'),
     ('training.g_optim.grad_clip', 'training.g_optim.grad_clip=1.0')])
 def test_trainer_refuses_unported_settings(setting, override):
-    cfg = pcfg.apply_overrides(fp32_d(pcfg.tiny_test_config()), [override])
+    """`override` holds one or more overrides, space-separated."""
+    cfg = pcfg.apply_overrides(fp32_d(pcfg.tiny_test_config()), override.split())
     with pytest.raises(NotImplementedError, match=setting.replace('.', r'\.')):
+        Trainer(cfg, 'cpu')
+
+
+def test_dmain_fake_bf16_with_reused_fakes_warns_as_jax():
+    """With Dmain reusing Gmain's fakes (the default) there is no Dmain
+    render for the bf16 view: the JAX step warns that the setting has no
+    effect, and so does the port; with fresh fakes it is refused above."""
+    cfg = pcfg.apply_overrides(fp32_d(pcfg.tiny_test_config()), ['training.dmain_fake_bf16=true'])
+    with pytest.warns(UserWarning, match='dmain_fake_bf16 has no effect'):
         Trainer(cfg, 'cpu')
 
 

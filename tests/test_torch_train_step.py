@@ -147,13 +147,18 @@ def step_draws(cfg, rng, sched, n_micro=1, n_micro_r1=1):
     microbatch's draws come from its phase key folded with the index of its
     first sample, as `make_train_step` folds them."""
     gc = cfg.generator
-    k_gen_g, k_gen_d, k_gfwd, _, k_reg, _, k_aug, _ = jax.random.split(rng, 8)
+    k_gen_g, k_gen_d, k_gfwd, k_dfwd, k_reg, _, k_aug, _ = jax.random.split(rng, 8)
     values = {'gen_g/spoof': T(jax.random.uniform(jax.random.split(k_gen_g, 4)[3], (N,))),
               'gen_d/spoof': T(jax.random.uniform(jax.random.split(k_gen_d, 4)[3], (N,)))}
     m = N // n_micro
     for i in range(n_micro):
         values.update(render_draws(cfg, jax.random.fold_in(k_gfwd, i * m), m, sched,
                                    f'gmain/{i}'))
+    if not cfg.training.dmain_reuse_fakes:  # Dmain's fresh fakes, rendered per microbatch
+        k_dg = jax.random.split(k_dfwd, 3)[0]
+        for i in range(n_micro):
+            values.update(render_draws(cfg, jax.random.fold_in(k_dg, i * m), m, sched,
+                                       f'dmain/{i}'))
     k_emd, k_fm, _ = jax.random.split(k_reg, 3)
     for name, key, n in (('emd', k_emd, gc.camera_adaptor.emd.num_samples),
                          ('force_mean', k_fm, 256)):
@@ -174,19 +179,11 @@ def step_draws(cfg, rng, sched, n_micro=1, n_micro_r1=1):
     return values
 
 
-def run_step(cur_nimg, dtype=np.float32, overrides=(), ada_p=0.0):
-    """One step of both packages from the same weights, batch and draws
-    -> (JAX stats, JAX new state, port stats, port trainer, the draws).
-    `overrides` are dotted config overrides for both packages, `ada_p` the
-    augment pipe's p. With dtype float64 the weights and the batch are
-    float64; the caller has turned on float64 in both frameworks."""
-    jcfg = jax_apply_overrides(fp32_d(jax_tiny()), overrides)
-    cfg = apply_overrides(fp32_d(tiny_test_config()), overrides)
-    state, G, D = jax_state(jcfg)
-    state = jax.tree.map(lambda a: a.astype(dtype) if a.dtype == np.float32 else a, state)
-    jsched = jax_schedules(jcfg, cur_nimg, ada_p=ada_p)
-    sched = compute_schedules(cfg, cur_nimg, ada_p=ada_p)
-    rs = np.random.RandomState(0)
+def make_inputs(jcfg, jsched, seed=0, dtype=np.float32):
+    """A batch of N with the controlled generator inputs (z, labels, cameras)
+    and the real patches' parameters, from numpy seed `seed` and JAX key
+    42 + seed -> (the JAX batch, the port's batch)."""
+    rs = np.random.RandomState(seed)
     res, gc = jcfg.dataset.resolution, jcfg.generator
     batch = dict(
         img=rs.uniform(-1, 1, (N, res, res, 3)).astype(dtype),
@@ -201,31 +198,89 @@ def run_step(cur_nimg, dtype=np.float32, overrides=(), ada_p=0.0):
         gen_c_d=np.eye(4, dtype=dtype)[(np.arange(N) + 2) % 4])
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jb['sample_idx'] = jnp.arange(N, dtype=jnp.int32)
-    ks = jax.random.split(jax.random.PRNGKey(42), 3)
+    ks = jax.random.split(jax.random.PRNGKey(42 + seed), 3)
     jb['gen_cam_g'] = jax_sample_camera(ks[0], asdict(jcfg.camera), N)
     jb['gen_cam_d'] = jax_sample_camera(ks[1], asdict(jcfg.camera), N)
     pp = jax_patch_params(ks[2], N, gc.patch, min_scale=jsched.patch_min_scale,
                           beta=jsched.patch_beta)
     jb['real_pp_scales'], jb['real_pp_offsets'] = pp['scales'], pp['offsets']
-    rng = jax.random.PRNGKey(7)
-    step = jax.jit(lambda s, b, r, sc: jts.make_train_step(jcfg, G, D, controlled=True)(
-        s, b, r, sc, do_r1=True))
-    new_state, stats = jax.device_get(step(state, jb, rng, jsched))
+    pb = {k: T(v) for k, v in batch.items()}
+    pb.update(gen_cam_g=port_cam(jb['gen_cam_g']), gen_cam_d=port_cam(jb['gen_cam_d']),
+              real_pp_scales=T(pp['scales']), real_pp_offsets=T(pp['offsets']))
+    return jb, pb
 
+
+def port_trainer(cfg, state, dtype=np.float32):
+    """A CPU `Trainer` holding the weights of the JAX `TrainState` `state`."""
     trainer = Trainer(cfg, 'cpu')
     for module in (trainer.G, trainer.D, trainer.G_ema):
         module.to(torch.from_numpy(np.zeros((), dtype)).dtype)
     s = jax.device_get(state)
     load_train_state(trainer, s.g_params, s.g_consts, s.g_ema_coll, s.d_params, s.ema_params,
                      s.ema_ema_coll)
-    pb = {k: T(v) for k, v in batch.items()}
-    pb.update(gen_cam_g=port_cam(jb['gen_cam_g']), gen_cam_d=port_cam(jb['gen_cam_d']),
-              real_pp_scales=T(pp['scales']), real_pp_offsets=T(pp['offsets']))
+    return trainer
+
+
+def replay(jcfg, rng, jsched):
+    """The JAX step's draws from `rng`, for the port (`step_draws`), with
+    its microbatches."""
     bg, rbg = jcfg.training.batch_gpu, jcfg.loss.r1_batch_gpu
     n_micro = N // bg if bg and bg < N else 1
-    draws = Replay(step_draws(jcfg, rng, jsched, n_micro, N // rbg if rbg else n_micro))
-    port_stats = trainer.step(pb, sched, True, draws, return_grads=True)
-    return stats, new_state, port_stats, trainer, draws
+    return Replay(step_draws(jcfg, rng, jsched, n_micro, N // rbg if rbg else n_micro))
+
+
+@dataclasses.dataclass
+class Setup:
+    """The configs, JAX state, schedules, batch and key of one step."""
+    jcfg: object
+    cfg: object
+    state: object
+    G: object
+    D: object
+    jsched: object
+    sched: object
+    jb: dict
+    pb: dict
+    rng: object
+    dtype: type
+
+
+def setup_step(cur_nimg, dtype=np.float32, overrides=(), ada_p=0.0):
+    """`overrides` are dotted config overrides for both packages, `ada_p`
+    the augment pipe's p. With dtype float64 the weights and the batch are
+    float64; the caller has turned on float64 in both frameworks."""
+    jcfg = jax_apply_overrides(fp32_d(jax_tiny()), overrides)
+    cfg = apply_overrides(fp32_d(tiny_test_config()), overrides)
+    state, G, D = jax_state(jcfg)
+    state = jax.tree.map(lambda a: a.astype(dtype) if a.dtype == np.float32 else a, state)
+    jsched = jax_schedules(jcfg, cur_nimg, ada_p=ada_p)
+    sched = compute_schedules(cfg, cur_nimg, ada_p=ada_p)
+    jb, pb = make_inputs(jcfg, jsched, 0, dtype)
+    return Setup(jcfg, cfg, state, G, D, jsched, sched, jb, pb, jax.random.PRNGKey(7), dtype)
+
+
+def port_step(s: Setup):
+    """The port's step of `s` -> (its stats, the trainer, the draws)."""
+    trainer = port_trainer(s.cfg, s.state, s.dtype)
+    draws = replay(s.jcfg, s.rng, s.jsched)
+    port_stats = trainer.step(s.pb, s.sched, True, draws, return_grads=True)
+    return port_stats, trainer, draws
+
+
+def run_setup(s: Setup):
+    """Both packages' step of `s` -> (JAX stats, JAX new state, port stats,
+    port trainer, the draws)."""
+    step = jax.jit(lambda st, b, r, sc: jts.make_train_step(s.jcfg, s.G, s.D, controlled=True)(
+        st, b, r, sc, do_r1=True))
+    new_state, stats = jax.device_get(step(s.state, s.jb, s.rng, s.jsched))
+    return (stats, new_state) + port_step(s)
+
+
+def run_step(cur_nimg, dtype=np.float32, overrides=(), ada_p=0.0):
+    """One step of both packages from the same weights, batch and draws
+    -> (JAX stats, JAX new state, port stats, port trainer, the draws);
+    the arguments are `setup_step`'s."""
+    return run_setup(setup_step(cur_nimg, dtype, overrides, ada_p))
 
 
 @pytest.fixture(scope='module')
@@ -339,6 +394,85 @@ def test_microbatched_step_runs_and_checks_batch_gpu():
                                  Draws(torch.Generator().manual_seed(0)))
 
 
+# ------------------------------------------------------------------ fresh Dmain fakes
+
+FRESH = ('training.dmain_reuse_fakes=false',)
+
+
+@pytest.fixture(scope='module')
+def fresh_setup():
+    return setup_step(CUR_NIMG, overrides=FRESH)
+
+
+@pytest.fixture(scope='module')
+def fresh_steps(fresh_setup):
+    return run_setup(fresh_setup)
+
+
+@pytest.mark.parametrize('part', PARTS)
+def test_fresh_fakes_step(fresh_steps, part):
+    """`training.dmain_reuse_fakes=false`: Dmain scores fakes that the
+    updated G renders without gradients from Dmain's own z, labels and
+    cameras, with the draws 'dmain/<i>/...' replayed from the JAX step's
+    key (`step_draws`). Every draw, the losses, each phase's gradients and
+    the modules after the step, at the limits above."""
+    check_part(fresh_steps, part)
+
+
+def test_fresh_fakes_scored_with_gmain_labels_miss_the_limit(fresh_setup, fresh_steps,
+                                                            monkeypatch):
+    """Mutation witness: the fresh fakes scored with Gmain's labels `cg` in
+    place of Dmain's `cd` miss the Dmain gradient's limit."""
+    from tdgp_torch.training import losses
+    g_forward, d_forward = losses.g_forward, losses.d_forward
+    fresh = set()
+
+    def render(*args, **kwargs):
+        out, pp = g_forward(*args, **kwargs)
+        if not torch.is_grad_enabled():
+            fresh.add(id(out.img))
+        return out, pp
+
+    def score(D, img, c, *args, **kwargs):
+        if id(img) in fresh:
+            c = fresh_setup.pb['gen_c_g']
+        return d_forward(D, img, c, *args, **kwargs)
+
+    monkeypatch.setattr(losses, 'g_forward', render)
+    monkeypatch.setattr(losses, 'd_forward', score)
+    mutated = fresh_steps[:2] + port_step(fresh_setup)
+    assert fresh, 'no fresh fakes were rendered'
+    check_gradients(fresh_steps, 'd')
+    with pytest.raises(AssertionError):
+        check_gradients(mutated, 'd')
+
+
+def test_training_render_reads_no_w_avg():
+    """The port moves `w_avg` before Dmain renders its fresh fakes, JAX
+    after (its render takes the step's old 'ema' collection): the same,
+    since the training render takes no truncation. A `w_avg` of NaN
+    changes nothing in `losses.g_forward`."""
+    from tdgp_torch.training import losses
+    from tdgp_torch.utils.draws import Draws
+    cfg = apply_overrides(fp32_d(tiny_test_config()), FRESH)
+    trainer = Trainer(cfg, 'cpu')
+    sched = compute_schedules(cfg, CUR_NIMG)
+    z, c = torch.randn(2, cfg.generator.z_dim), torch.eye(4)[:2]
+    from tdgp_torch.rendering.camera import sample_camera_params
+    cam = sample_camera_params(Draws(torch.Generator().manual_seed(1)), cfg.camera, 2)
+
+    def render():
+        with torch.no_grad():
+            out, _ = losses.g_forward(trainer.G, z, c, cam, cam.angles, sched, cfg,
+                                      Draws(torch.Generator().manual_seed(2)))
+        return out.img
+
+    before = render()
+    trainer.G.mapping.w_avg.fill_(float('nan'))
+    after = render()
+    assert torch.isfinite(before).all() and torch.equal(before, after)
+
+
 # ------------------------------------------------------------------ the bf16 blocks
 
 BF16 = ('generator.fp32_only=false', 'discriminator.fp32_only=false')
@@ -349,6 +483,7 @@ LOSS_OF_FLOOR = 0.6       # each loss: |port - JAX| over the step's largest loss
 GRAD_OF_FLOOR = 1.0       # a phase's gradients, concatenated: relative L2 over the floor
 CONV_MEDIAN_OF_FLOOR = 0.8  # the bf16 blocks' conv weights: median of their ratios ...
 CONV_MAX_OF_FLOOR = 1.0     # ... and the largest
+FRESH_CONV_MAX_OF_FLOOR = 1.25  # the largest with fresh Dmain fakes (Dmain's: 1.08)
 
 
 @pytest.fixture(scope='module')
@@ -426,4 +561,51 @@ def test_bf16_step_gradients_at_float32_miss_the_limit(bf16_steps, steps, phase)
     least the floor away from JAX's bf16 step on the conv weights (median
     1.007 / 1.007 / 1.05)."""
     _, convs = floor_ratios(bf16_steps, steps, phase, steps[2]['_grads'][phase])
+    assert float(np.median(list(convs.values()))) > CONV_MEDIAN_OF_FLOOR, convs
+
+
+@pytest.fixture(scope='module')
+def bf16_fresh_steps():
+    return run_step(CUR_NIMG, overrides=BF16 + FRESH)
+
+
+def test_bf16_fresh_fakes_step_losses(bf16_fresh_steps, fresh_steps):
+    """Fresh fakes at the tiny config's own precision, against the JAX step
+    at that precision: every draw replayed, state in float32, each loss
+    within LOSS_OF_FLOOR x the step's loss floor (JAX's fresh-fakes step in
+    bf16 against JAX's in float32; witness 0.39)."""
+    _, _, port, trainer, draws = bf16_fresh_steps
+    assert draws.used == set(draws.values)
+    assert trainer.D.b64.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.G.parameters())
+    ref32, ref = fresh_steps[0], bf16_fresh_steps[0]
+    names = [k for k in ref if not k.startswith('_')]
+    floor = max(abs(float(ref[k]) - float(ref32[k])) for k in names)
+    worst = max(abs(float(port[k]) - float(ref[k])) for k in names)
+    assert worst <= LOSS_OF_FLOOR * floor, (worst, floor)
+
+
+@pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
+def test_bf16_fresh_fakes_step_gradients(bf16_fresh_steps, fresh_steps, phase):
+    """Each phase's gradients with fresh fakes at bf16, held as the reused
+    fakes' above: the phase within GRAD_OF_FLOOR x its floor, the bf16
+    blocks' conv weights' median within CONV_MEDIAN_OF_FLOOR and their
+    largest within FRESH_CONV_MAX_OF_FLOOR: Dmain's fakes now pass G's
+    bf16 blocks before D's, so D's gradient carries the flips of both
+    (witness: whole 0.95 / 0.81 / 0.39, median 0.40 / 0.69 / 0.62, largest
+    0.57 / 1.08 / 0.69)."""
+    whole, convs = floor_ratios(bf16_fresh_steps, fresh_steps, phase,
+                                bf16_fresh_steps[2]['_grads'][phase])
+    assert whole <= GRAD_OF_FLOOR, whole
+    assert float(np.median(list(convs.values()))) <= CONV_MEDIAN_OF_FLOOR, convs
+    assert max(convs.values()) <= FRESH_CONV_MAX_OF_FLOOR, convs
+
+
+@pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
+def test_bf16_fresh_fakes_gradients_at_float32_miss_the_limit(bf16_fresh_steps, fresh_steps,
+                                                              phase):
+    """Mutation witness: the port's fresh-fakes step at float32 misses the
+    conv weights' median limit against JAX's bf16 step (1.007 / 1.005 /
+    0.998)."""
+    _, convs = floor_ratios(bf16_fresh_steps, fresh_steps, phase, fresh_steps[2]['_grads'][phase])
     assert float(np.median(list(convs.values()))) > CONV_MEDIAN_OF_FLOOR, convs
