@@ -165,6 +165,29 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   from the snapshot for one more tick: cur_nimg, batch_idx
                   and ada_p restored, losses finite. sec/kimg per tick,
                   images/s, the metric's seconds, peak memory.
+ 10. stylegan2:   the 2D StyleGAN2 baseline (`--preset stylegan2`, 256^2, full width: cbase
+                  32768, cmax 512, G's blocks 32-256 and D's 64-16 in bf16 at its own
+                  precision, D on 64^2 RGB patches; path-length regularization and style
+                  mixing on), batch SG2_BATCH = 16 (the preset's 64, cut), random weights
+                  from a seed, a synthetic batch made on the card. First its R1 + PL step
+                  after a warm-up step, at the float32 cut and at its own precision,
+                  through K5 and through its plain version on the same weights, Adam state
+                  and draws: Gmain's, PL's, Dmain's and R1's gradient per parameter within
+                  GRAD_LIMIT at float32, within max(GRAD_LIMIT, BF16_FLOOR_FACTOR x its
+                  one-ulp floor) with bf16 blocks (the floor: an ulp on every float32
+                  `bias_act` output that autograd does not record). Then the step timed at
+                  both precisions (a warm-up, TRAIN_PLAIN_STEPS plain steps, one R1 + PL
+                  step): losses finite, every parameter moved, `pl_mean` moved; K5
+                  launched once per `bias_act` call of a no-grad 2D forward of the Dmain
+                  batch, the `w_avg` pass and Gmain's frozen D's patch mappings, by
+                  dtype, and never inside PL's or R1's recorded graph; no other kernel; ms per plain and per R1 + PL step,
+                  images/s at 15:1, peak memory, each beside the card's name and power
+                  limit. Then `scripts.train --preset stylegan2` on a LOOP_IMAGES-image
+                  256^2 folder, no metric: three ticks of four steps (R1 + PL in the first),
+                  a snapshot every tick, the image grid at tick 3; the snapshot carries
+                  `pl_mean` and G_ema, `load_run` 'latest' gives the trainer's G_ema and
+                  `export_ema`'s `.npz` loads back equal; a resume for one more tick
+                  restores `pl_mean`; K5 launches as above.
 Serving (2) also counts K4 (8 per request) and K5 launches per request, by dtype.
 K5's launches are counted by dtype everywhere: 'bias_act' (float32) and
 'bias_act_bf16' (bfloat16), each held to the `bias_act` calls of that dtype.
@@ -175,6 +198,7 @@ Exits non-zero, with no result, when a phase fails or there is no card.
 """
 import collections
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -1633,6 +1657,279 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
     return launches, readings
 
 
+SG2_BATCH = 16  # the stylegan2 preset's batch 64, cut to 16 as the satellite step's
+
+
+def sg2_trainer_state(trainer):
+    """A copy of everything `Trainer.step` changes: the modules, both Adams
+    and `pl_mean`."""
+    import copy
+    return copy.deepcopy({'G': trainer.G.state_dict(), 'D': trainer.D.state_dict(),
+                          'G_ema': trainer.G_ema.state_dict(), 'pl_mean': trainer.pl_mean,
+                          'g_opt': trainer.g_opt.state_dict(),
+                          'd_opt': trainer.d_opt.state_dict()})
+
+
+def sg2_restore(trainer, state):
+    """`state` back into `trainer`; the optimizers get copies (their
+    `load_state_dict` keeps the tensors it is given, and Adam updates them in
+    place)."""
+    import copy
+    for name in ('G', 'D', 'G_ema'):
+        getattr(trainer, name).load_state_dict(state[name])
+    trainer.g_opt.load_state_dict(copy.deepcopy(state['g_opt']))
+    trainer.d_opt.load_state_dict(copy.deepcopy(state['d_opt']))
+    trainer.pl_mean = state['pl_mean'].clone()
+
+
+def stylegan2_check_phase(Trainer, Draws, sched, sg2_config, make_batch, overrides, card,
+                          device='cuda'):
+    """The 2D baseline's R1 + PL step at full width and batch SG2_BATCH with
+    the config `overrides`, through K5 and through its plain version
+    (`plain_versions(k5=True)`) on the same weights, Adam state and draws:
+    each phase's gradient (Gmain 'g', PL 'pl', Dmain 'd', R1 'r1') per
+    parameter at float32 within GRAD_LIMIT, with bf16 blocks within
+    max(GRAD_LIMIT, BF16_FLOOR_FACTOR x its one-ulp floor) (`ulp_after_bias_act`:
+    an ulp on every float32 `bias_act` output that autograd does not record).
+    K5 runs only where autograd does not record: Dmain's fresh fakes and the
+    `w_avg` pass; Gmain and PL come before both (their differences are the
+    float32 atomics of the patch crop's backward). One warm-up step first,
+    so that neither Adam takes its first step (+-lr whatever the gradient's
+    size) in the step compared."""
+    from tdgp_torch.ops import bias_act
+    cfg = sg2_config(overrides)
+    bf16 = not cfg.generator.fp32_only
+    label = 'bf16 blocks' if bf16 else 'float32'
+    trainer = Trainer(cfg, device, seed=0)
+    batch = make_batch(cfg, SG2_BATCH, 2, device)
+    trainer.step(batch, sched, True, Draws(torch.Generator(device=device).manual_seed(1)))
+    start = sg2_trainer_state(trainer)
+
+    def grads(plain, perturb=False):
+        sg2_restore(trainer, start)
+        reset_counts([bias_act.bias_act])
+        with (plain_versions(k1=False, k3=False, k5=True) if plain
+              else contextlib.nullcontext()), \
+                (ulp_after_bias_act(device) if perturb else contextlib.nullcontext()):
+            stats = trainer.step(batch, sched, True,
+                                 Draws(torch.Generator(device=device).manual_seed(3)),
+                                 return_grads=True)
+        launched = bias_act.bias_act.launches
+        check(launched == 0 if plain else launched > 0,
+              f'the {"plain" if plain else "kernel"} 2D step launched K5 {launched} times')
+        check(all(np.isfinite(float(v)) for k, v in stats.items() if not k.startswith('_')),
+              'non-finite losses in the 2D check')
+        return stats['_grads']
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = grads(True)
+        got = grads(False)
+        floor = grads(True, perturb=True) if bf16 else None
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del trainer, start
+    readings = {}
+    for ph in ('g', 'pl', 'd', 'r1'):
+        rel = {n: float((got[ph][n] - r).norm() / r.norm().clamp_min(1e-30))
+               for n, r in ref[ph].items()}
+        fl = ({n: float((floor[ph][n] - r).norm() / r.norm().clamp_min(1e-30))
+               for n, r in ref[ph].items()} if bf16 else {n: 0.0 for n in rel})
+        limit = {n: max(GRAD_LIMIT, BF16_FLOOR_FACTOR * fl[n]) for n in rel}
+        name = max(rel, key=lambda n: rel[n] / limit[n])
+        print(f'2D {ph} gradient ({label}), K5 vs its plain version: {len(rel)} parameters, '
+              f'median relative L2 difference {float(np.median(list(rel.values()))):.3g}, worst '
+              f'against its limit {rel[name]:.3g} ({name}; limit {limit[name]:.3g})'
+              + (f'; one-ulp floor median {float(np.median(list(fl.values()))):.3g}, max '
+                 f'{max(fl.values()):.3g}' if bf16 else '') + f' [{card}]')
+        check(all(rel[n] <= limit[n] for n in rel),
+              f'the 2D {ph} gradient ({label}) through K5 disagrees with the plain path')
+        readings[ph] = {'median': float(np.median(list(rel.values()))), 'worst': rel[name],
+                        'worst_limit': limit[name]}
+    return readings
+
+
+def stylegan2_train_phase(Trainer, Draws, sched, cfg, make_batch, counters, label, card,
+                          device='cuda'):
+    """The 2D baseline's step at full width and batch SG2_BATCH, random weights
+    from a seed, a synthetic batch made on the card: one warm-up R1 + PL
+    step and one plain, then TRAIN_PLAIN_STEPS timed plain steps and one R1
+    + PL step. Losses finite, every parameter of G and D moved; K5 launched
+    once per `bias_act` call that autograd does not record, by dtype, which
+    is once per call of a no-grad 2D forward of the Dmain batch, of the
+    `w_avg` mapping pass and of Gmain's frozen D on the patch parameters (its
+    conditioning mappings); none inside PL's and R1's recorded graphs. ms
+    per plain and per R1 + PL step, images/s at 15:1, peak memory."""
+    from tdgp_torch.ops import bias_act
+    from tdgp_torch.training import losses, train_step
+    trainer = Trainer(cfg, device, seed=0)
+    batch = make_batch(cfg, SG2_BATCH, 0, device)
+    draws = Draws(torch.Generator(device=device).manual_seed(1))
+    trainer.step(batch, sched, True, draws)
+    trainer.step(batch, sched, False, draws)
+    torch.cuda.synchronize()
+    modules = {'G': trainer.G, 'D': trainer.D}
+    before = {k: {n: p.detach().clone() for n, p in m.named_parameters()}
+              for k, m in modules.items()}
+    inside = collections.Counter()
+    for what in ('_pl', '_r1'):  # K5's launches inside the recorded phases
+        def wrapped(*args, _fn=getattr(trainer, what), _what=what):
+            n0 = bias_act.bias_act.launches
+            out = _fn(*args)
+            inside[_what] += bias_act.bias_act.launches - n0
+            return out
+        setattr(trainer, what, wrapped)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    plain_ms, history = [], []
+    with BiasActCalls() as calls:
+        for _ in range(TRAIN_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            history.append(trainer.step(batch, sched, False, draws))
+            torch.cuda.synchronize()
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        history.append(trainer.step(batch, sched, True, draws))
+        torch.cuda.synchronize()
+        r1_ms = 1e3 * (time.perf_counter() - t0)
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    # what one step implies: a no-grad 2D forward of the Dmain batch and the w_avg pass,
+    # and Gmain's D (frozen) on the patch parameters' own mappings, whose input needs no
+    # gradient
+    with torch.no_grad(), BiasActCalls() as one:
+        z = torch.randn(SG2_BATCH, cfg.generator.z_dim, device=device)
+        c = torch.zeros(SG2_BATCH, 0, device=device)
+        out, pp = losses.g_forward_2d(trainer.G, z, c, sched, cfg, Draws(torch.Generator(
+            device=device).manual_seed(5)))
+        trainer.G.mapping(z, c)
+    with BiasActCalls() as frozen_d:
+        train_step._set_requires_grad(trainer.D, False)
+        losses.d_forward(trainer.D, out.img.requires_grad_(True), c, sched, cfg,
+                         patch_params=pp)
+        train_step._set_requires_grad(trainer.D, True)
+    steps = TRAIN_PLAIN_STEPS + 1
+    losses_r1 = {k: float(v) for k, v in history[-1].items()}
+    print('losses of the R1 + PL step: ' + ', '.join(f'{k} {v:.4g}'
+                                                    for k, v in sorted(losses_r1.items())))
+    check('Loss/pl_penalty' in losses_r1 and 'Loss/D/r1_penalty' in losses_r1,
+          'the R1 step ran no PL or no R1')
+    check(all(np.isfinite(float(v)) for st in history for v in st.values()), 'non-finite losses')
+    check(float(trainer.pl_mean) > 0, 'pl_mean did not move')
+    for k, m in modules.items():
+        still = [n for n, p in m.named_parameters() if torch.equal(p, before[k][n])]
+        check(not still, f'parameters of the 2D {k} did not move: {still[:5]}')
+    per_step = {n: one.count[n] + frozen_d.unrecorded[n] for n in K5_NAMES.values()}
+    expected = {**{c.__name__: 0 for c in counters if c.__name__ != 'bias_act'},
+                **{n: per_step[n] * steps for n in K5_NAMES.values()}}
+    print(f'2D launches over {steps} steps: {launches} (expected {expected}: per step K5 '
+          f'{per_step}, the bias_act calls of a no-grad forward of the Dmain batch and the '
+          f'w_avg pass {dict(one.count)} and of Gmain\'s frozen D on the patch parameters '
+          f'{dict(frozen_d.unrecorded)}; autograd did not record {dict(calls.unrecorded)} of '
+          f'{dict(calls.count)}); inside PL / R1: {dict(inside)} [{card}]')
+    check(launches == expected and all(calls.unrecorded[n] == expected[n]
+                                       for n in K5_NAMES.values()),
+          'kernel launch counts of the 2D training path')
+    check(sum(inside.values()) == 0, 'K5 launched inside the recorded PL or R1 graph')
+    t_plain = float(np.median(plain_ms))
+    imgs_per_s = 16 * SG2_BATCH / (15 * t_plain / 1e3 + r1_ms / 1e3)
+    print(f'2D StyleGAN2 step, 256^2, {label}, batch {SG2_BATCH}: plain ms '
+          f'{["%.1f" % t for t in plain_ms]}, median {t_plain:.1f} ms; R1 + PL step {r1_ms:.1f} '
+          f'ms; {imgs_per_s:.2f} images/s at 15:1; peak memory {peak / 2**30:.2f} GiB; K5 per '
+          f'step {per_step} [{card}]')
+    readings = dict(plain_ms=t_plain, r1_pl_ms=r1_ms, images_per_s=imgs_per_s,
+                    peak_gib=peak / 2 ** 30, k5_per_step=per_step)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def stylegan2_loop_phase(tmp_dir, counters, card, device='cuda', overrides=()):
+    """`python3 -m tdgp_torch.scripts.train --preset stylegan2` in process on
+    a LOOP_IMAGES-image 256^2 folder, batch SG2_BATCH, no metric: three ticks
+    of four steps (R1 and PL at step 0), a snapshot every tick, the image
+    grid at tick 3; then a resume for one more tick. The snapshot carries
+    `pl_mean` and G_ema; `load_run` 'latest' gives the trainer's G_ema, and
+    `scripts.export_ema`'s `.npz` loads back equal. K5 once per `bias_act`
+    call that autograd does not record; no other kernel."""
+    from tdgp_torch import checkpoint as ckpt
+    from tdgp_torch.scripts import export_ema
+    from tdgp_torch.scripts import inference as inference_script
+    from tdgp_torch.scripts import train as train_script
+    data_dir = os.path.join(tmp_dir, 'data')
+    subprocess.run([sys.executable, os.path.join(ROOT, 'data_scripts', 'make_synthetic_dataset.py'),
+                    '--out', data_dir, '--res', '256', '--n', str(LOOP_IMAGES)], check=True,
+                   timeout=300)
+    steps_per_tick, ticks = 4, 3
+    extra = overrides
+    overrides = [f'dataset.path={data_dir}', f'training.batch_size={SG2_BATCH}',
+                 f'training.tick_kimg={SG2_BATCH * steps_per_tick / 1e3}', 'training.snap=1',
+                 f'training.image_snap={ticks}', 'training.metrics=[]',
+                 'training.tensorboard=false']
+    steps = steps_per_tick * ticks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with BiasActCalls() as calls:
+        result = train_script.main(['--preset', 'stylegan2', '--run-root', tmp_dir, '--device',
+                                    device, '--max-kimg', str(SG2_BATCH * steps / 1e3)]
+                                   + overrides + list(extra))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = result.run_dir
+    lines = read_jsonl(os.path.join(run_dir, 'stats.jsonl'))
+    check(result.cur_nimg == SG2_BATCH * steps and result.batch_idx == steps,
+          f'the 2D loop stopped at {result.cur_nimg} images, step {result.batch_idx}')
+    check(len(lines) == ticks and 'Loss/pl_penalty' in lines[0]
+          and 'Loss/D/r1_penalty' in lines[0], 'no R1 + PL in the first tick')
+    check(all(np.isfinite(v['mean']) for line in lines for k, v in line.items()
+              if k.startswith('Loss/')), 'non-finite losses in the 2D loop')
+    check(os.path.exists(os.path.join(run_dir, f'fakes{0:06d}.png')), 'no 2D image grid')
+    expected = {**{c.__name__: 0 for c in counters if c.__name__ != 'bias_act'},
+                **{n: calls.unrecorded[n] for n in K5_NAMES.values()}}
+    print(f'2D loop launches over {steps} steps and the image grid: {launches} (expected '
+          f'{expected})')
+    check(launches == expected, 'kernel launch counts of the 2D loop')
+    snap = ckpt.snapshot_path(run_dir, 0)
+    state = torch.load(os.path.join(snap, ckpt.STATE_FILE), map_location='cpu',
+                       weights_only=True)
+    pl_mean = float(state['pl_mean'])
+    check(pl_mean > 0 and pl_mean == float(result.trainer.pl_mean) and 'G_ema' in state,
+          f'the snapshot does not carry pl_mean and G_ema ({pl_mean})')
+    cfg, G = inference_script.load_run(run_dir, 'latest', device=device)
+    ema = result.trainer.G_ema.state_dict()
+    check(type(G).__name__ == 'StyleGAN2Generator'
+          and all(torch.equal(v, ema[k]) for k, v in G.state_dict().items()),
+          "load_run 'latest' is not the trainer's G_ema")
+    out = export_ema.main(['--run-dir', run_dir, '--snapshot', 'latest',
+                           '--out', os.path.join(tmp_dir, 'g_ema.npz')])
+    _, from_npz = inference_script.load_run(run_dir, out, device=device)
+    check(all(torch.equal(v, ema[k]) for k, v in from_npz.state_dict().items()),
+          'the exported G_ema does not load back equal')
+    sec_per_kimg = [line['Timing/sec_per_kimg']['mean'] for line in lines]
+    steady = float(np.mean(sec_per_kimg[1:]))
+    print(f'2D loop, stylegan2, batch {SG2_BATCH}: sec/kimg per tick '
+          f'{[round(v, 2) for v in sec_per_kimg]} (tick 1 has R1 + PL and the warm-up), '
+          f'{1e3 / steady:.2f} images/s over ticks 2-3; pl_mean {pl_mean:.4g}; peak memory '
+          f'{peak / 2**30:.2f} GiB; {loop_s:.1f} s [{card}]')
+
+    reset_counts(counters)
+    resumed = train_script.main(['--run-dir', run_dir, '--device', device, '--max-kimg',
+                                 str(SG2_BATCH * (steps + steps_per_tick) / 1e3)])
+    torch.cuda.synchronize()
+    print(f'2D resumed from {resumed.resumed_from} with {resumed.resume_meta}; stopped at '
+          f'{resumed.cur_nimg} images, step {resumed.batch_idx}')
+    check(resumed.resumed_from == snap and resumed.batch_idx == steps + steps_per_tick,
+          'the resumed 2D loop lost its place')
+    check(float(resumed.trainer.pl_mean) == pl_mean, 'the resume did not restore pl_mean')
+    return launches, dict(loop_sec_per_kimg=sec_per_kimg, loop_images_per_s=1e3 / steady,
+                          loop_peak_gib=peak / 2 ** 30, loop_s=loop_s, pl_mean=pl_mean)
+
+
 def serve_run(G, served, requests, label):
     """Serves `requests` with `G` after one warm-up: images [4, 256, 256, 3]
     in [0, 1]; ms per request, images/s, peak memory; each kernel's launches
@@ -1831,10 +2128,29 @@ def main():
             tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
                       ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                       triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
+    sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
+                    ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
+                    triplane_mlp.triplane_mlp, bias_act.bias_act]
+    card = smi.stdout.strip()
+    with phase('stylegan2', seconds), tempfile.TemporaryDirectory() as tmp_dir:
+        sg2_config = functools.partial(profile_training.train_config, preset='stylegan2')
+        sg2_sched = compute_schedules(sg2_config(), profile_training.CUR_NIMG)
+        sg2_check = {label: stylegan2_check_phase(Trainer, Draws, sg2_sched, sg2_config,
+                                                  profile_training.make_batch, overrides, card)
+                     for label, overrides in (('float32', profile_training.FP32),
+                                              ('bf16', ()))}
+        sg2_launches, sg2_own = stylegan2_train_phase(
+            Trainer, Draws, sg2_sched, sg2_config(), profile_training.make_batch, sg2_counters,
+            'own precision (G 32-256 and D 64-16 in bf16)', card)
+        sg2_fp32_launches, sg2_fp32 = stylegan2_train_phase(
+            Trainer, Draws, sg2_sched, sg2_config(profile_training.FP32),
+            profile_training.make_batch, sg2_counters, 'float32 cut', card)
+        sg2_loop_launches, sg2_loop = stylegan2_loop_phase(tmp_dir, sg2_counters, card)
     by_path = {'serve': serve_own['launches'], 'serve_float32': serve_fp32['launches'],
                'inference': infer_launches, 'train': train_launches,
                'train_float32': train_fp32_launches, 'train_fresh_fakes': train_fresh_launches,
-               'loop': loop_launches}
+               'loop': loop_launches, 'stylegan2': sg2_launches,
+               'stylegan2_float32': sg2_fp32_launches, 'stylegan2_loop': sg2_loop_launches}
     k5['bound_ms_per_request'] = serve_fp32['k5_bound_ms']
     k5_bf16['bound_ms_per_request'] = serve_own['k5_bound_ms']
     k5['launches_per_request'] = {'own precision': serve_own['k5_per_request']['bias_act'],
@@ -1851,6 +2167,9 @@ def main():
     train_readings = {'reused_fakes': train_own, 'fresh_fakes': train_fresh,
                       'reused_fakes_float32': train_fp32, 'fresh_fake_image_diff': fresh_image_diff}
     print(f'train: {json.dumps(train_readings)}')
+    sg2_readings = {'card': card, 'own': sg2_own, 'float32': sg2_fp32, 'loop': sg2_loop,
+                    'check': sg2_check}
+    print(f'stylegan2: {json.dumps(sg2_readings)}')
     print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -40,7 +40,8 @@ def save_snapshot(run_dir: str, trainer, generator: torch.Generator, *, cur_nimg
     os.makedirs(path)
     state = {'G': trainer.G.state_dict(), 'D': trainer.D.state_dict(),
              'G_ema': trainer.G_ema.state_dict(), 'g_opt': trainer.g_opt.state_dict(),
-             'd_opt': trainer.d_opt.state_dict(), 'rng': generator.get_state()}
+             'd_opt': trainer.d_opt.state_dict(), 'pl_mean': trainer.pl_mean,
+             'rng': generator.get_state()}
     torch.save(state, os.path.join(path, STATE_FILE))
     with open(path + '.meta.json', 'w') as f:
         json.dump({'cur_nimg': int(cur_nimg), **(meta or {})}, f)
@@ -56,6 +57,8 @@ def load_snapshot(path: str, trainer, generator: torch.Generator) -> Dict[str, A
         getattr(trainer, name).load_state_dict(state[name])
     trainer.g_opt.load_state_dict(state['g_opt'])
     trainer.d_opt.load_state_dict(state['d_opt'])
+    if 'pl_mean' in state:  # snapshots written before the path-length phase have none
+        trainer.pl_mean = state['pl_mean'].to(trainer.device)
     generator.set_state(state['rng'].cpu())
     meta = {}
     if os.path.exists(path + '.meta.json'):

@@ -359,6 +359,24 @@ class Config:
     run_dir: str = 'experiments/run'
 
 
+def is_2d(cfg: Config) -> bool:
+    """The 2D StyleGAN2 baseline, not a tri-plane generator."""
+    return cfg.model_name == 'stylegan2'
+
+
+def imagenet_config() -> Config:
+    """`tdgp.config.imagenet_config` (the 'imagenet' preset): the headline
+    ImageNet-256 configuration, cbase 65536, cmax 1024, 1000 classes, R1
+    gamma 0.05."""
+    cam = CameraConfig()
+    gen = GeneratorConfig(cbase=65536, cmax=1024, c_dim=1000, camera=cam,
+                          camera_adaptor=CameraAdaptorCfg(c_dim=1000))
+    disc = DiscriminatorConfig(cbase=65536, cmax=1024, c_dim=1000)
+    return Config(camera=cam, generator=gen, discriminator=disc,
+                  dataset=DatasetConfig(c_dim=1000, resolution=256),
+                  loss=LossConfig(r1_gamma=0.05))
+
+
 def satellite_config(c_dim: int = 0, resolution: int = 256) -> Config:
     """The satellite-dataset configuration of `tdgp.config.satellite_config`
     (default widths, 64^2 patches), the one `bench.py` times."""
@@ -368,6 +386,23 @@ def satellite_config(c_dim: int = 0, resolution: int = 256) -> Config:
     disc = DiscriminatorConfig(c_dim=c_dim, num_additional_start_blocks=n_extra)
     return Config(generator=gen, discriminator=disc,
                   dataset=DatasetConfig(c_dim=c_dim, resolution=resolution))
+
+
+def stylegan2_config(c_dim: int = 0, resolution: int = 256) -> Config:
+    """`tdgp.config.stylegan2_config` (the 'stylegan2' preset): the 2D
+    StyleGAN2 baseline at the default widths (cbase 32768, cmax 512, its
+    `num_fp16_res` blocks in bf16), D on RGB patches; no depth, no camera
+    learning, no KD; path-length regularization (weight 2) and style mixing
+    (p 0.9) on."""
+    gen = GeneratorConfig(c_dim=c_dim, img_resolution=resolution,
+                          depth_adaptor=DepthAdaptorCfg(enabled=False),
+                          camera_adaptor=CameraAdaptorCfg(enabled=False, c_dim=c_dim))
+    disc = DiscriminatorConfig(c_dim=c_dim, img_channels=3)
+    return Config(
+        model_name='stylegan2', generator=gen, discriminator=disc,
+        loss=LossConfig(pl_weight=2.0, style_mixing_prob=0.9, kd=KDCfg(weight=0.0)),
+        training=TrainingConfig(use_depth=False, learn_camera_dist=False),
+        dataset=DatasetConfig(c_dim=c_dim, resolution=resolution, use_embeddings=False))
 
 
 def synth_demo_config() -> Config:
@@ -489,7 +524,9 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
 
 PRESETS = {
     'default': Config,
+    'imagenet': imagenet_config,
     'satellite': satellite_config,
+    'stylegan2': stylegan2_config,
     'tiny': tiny_test_config,
     'synth64': synth_demo_config,
     'synth256': synth256_config,

@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from tdgp_torch.config import Config
+from tdgp_torch.config import Config, is_2d
 from tdgp_torch.metrics import fid as fid_mod
 from tdgp_torch.metrics.detectors import jax_normal
 from tdgp_torch.metrics.features import (compute_feature_stats_for_dataset,
@@ -70,6 +70,11 @@ class EvalContext:
         render runs without autograd, rays `max_batch_res**2` at a time
         above that, so on the card it runs the served path's kernels."""
         cfg, G = self.cfg, self.G
+        if is_2d(cfg):
+            raise NotImplementedError(
+                'no image sampler for the 2D StyleGAN2 model: the JAX package has none either '
+                '(tdgp/metrics/registry.py:94-99 renders g.synthesis(ws, camera, ...), which '
+                'a 2D generator does not take)')
         gc = cfg.generator
         device = next(G.parameters()).device
         chunk = gc.max_batch_res ** 2 if gc.img_resolution > gc.max_batch_res else None

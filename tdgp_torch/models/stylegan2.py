@@ -1,6 +1,8 @@
-"""StyleGAN2 synthesis stack, NHWC (port of `tdgp/models/stylegan2.py`).
+"""StyleGAN2 synthesis stack, NHWC, and the 2D StyleGAN2 generator (port of
+`tdgp/models/stylegan2.py`).
 
-Only the skip architecture that the tri-plane decoder uses is ported. Unless
+Only the skip architecture that the tri-plane decoder and the 2D baseline
+use is ported. Unless
 `fp32_only`, the `num_fp16_res` highest-resolution blocks (those from
 `fp16_resolution` up, never below 8x8) compute in bfloat16, as in the JAX
 package: a block casts its input to bf16, its layers compute in bf16 with
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tdgp_torch.models.layers import FullyConnected, _normal_
+from tdgp_torch.models.layers import FullyConnected, MappingNetwork, _normal_
 from tdgp_torch.ops.bias_act import bias_act
 from tdgp_torch.ops.modulated_conv2d import modulated_conv2d
 from tdgp_torch.ops.upfirdn2d import setup_filter, upsample2d
@@ -207,3 +209,38 @@ class SynthesisBlocksSequence(nn.Module):
                            None if noise is None else noise[f'b{res}'])
             w_idx += block.num_conv
         return img
+
+
+class StyleGAN2Generator(nn.Module):
+    """The plain 2D StyleGAN2 baseline (`model_name='stylegan2'`): the mapping
+    network, then a `SynthesisBlocksSequence` from a learned 4x4 const to
+    `img_resolution`. The two are separate submodules, so that the training
+    step can mix styles, take the path-length gradient with respect to ws and
+    crop patches from the full image. Its parameters carry the JAX names
+    ('mapping/...', 'synthesis/b<res>/...')."""
+
+    def __init__(self, z_dim: int = 512, c_dim: int = 0, w_dim: int = 512,
+                 img_resolution: int = 256, img_channels: int = 3, map_depth: int = 2,
+                 cbase: int = 32768, cmax: int = 512, fmaps: float = 1.0,
+                 num_fp16_res: int = 4, fp32_only: bool = False):
+        super().__init__()
+        self.z_dim, self.c_dim, self.img_resolution = z_dim, c_dim, img_resolution
+        self.mapping = MappingNetwork(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim,
+                                      num_ws=sg2_num_ws(0, img_resolution),
+                                      num_layers=map_depth)
+        self.synthesis = SynthesisBlocksSequence(
+            w_dim=w_dim, out_resolution=img_resolution, out_channels=img_channels,
+            cbase=cbase, cmax=cmax, fmaps=fmaps, num_fp16_res=num_fp16_res,
+            fp32_only=fp32_only)
+
+    @property
+    def num_ws(self) -> int:
+        return self.synthesis.num_ws
+
+    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor], truncation_psi: float = 1.0,
+                update_emas: bool = False,
+                noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
+        """z [N, z_dim] -> img [N, R, R, img_channels], with the const noise
+        unless `noise` (from `synthesis.draw_noise`) is given."""
+        ws = self.mapping(z, c, truncation_psi=truncation_psi, update_emas=update_emas)
+        return self.synthesis(ws, noise)

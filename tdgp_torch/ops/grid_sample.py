@@ -1,11 +1,13 @@
 """Bilinear grid sampling with zero padding, NHWC.
 
 Port of `tdgp/ops/grid_sample.py`. `grid_sample_2d` (align_corners=True, the
-patch extraction) goes through `F.grid_sample`; `grid_sample_nhwc` (the
-augment pipe's geometric transform, align_corners=False) gathers the four
-corners as the JAX function does, so that it is differentiable to any order
-in `x` by construction: R1 takes a gradient of a gradient through it. The
-JAX package computes both in XLA, outside any Pallas kernel.
+tri-plane gather's plain version) goes through `F.grid_sample`;
+`grid_sample_nhwc` (the patch extraction and the augment pipe's geometric
+transform) gathers the four corners as the JAX function does and sums them
+as XLA does on the CPU, bit for bit, and is differentiable to any order in
+`x` by construction: R1 and the path-length penalty take a gradient of a
+gradient through it. The JAX package computes both in XLA, outside any
+Pallas kernel.
 coords[..., 0] = x indexes width and coords[..., 1] = y indexes height, as
 in both frameworks.
 """
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from tdgp_torch.utils.xla_float import fma
 
 
 def grid_sample_2d(x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -23,9 +27,11 @@ def grid_sample_2d(x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 
 def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
+    """As XLA computes the JAX function's on the CPU: the constants folded,
+    (coord + 1) x size - 1 rounded once."""
     if align_corners:
-        return (coord + 1.0) * 0.5 * (size - 1)
-    return ((coord + 1.0) * size - 1.0) * 0.5
+        return (coord + 1.0) * (0.5 * (size - 1))
+    return fma(coord + 1.0, float(size), -1.0) * 0.5
 
 
 def grid_sample_nhwc(x: torch.Tensor, grid: torch.Tensor,
@@ -51,6 +57,7 @@ def grid_sample_nhwc(x: torch.Tensor, grid: torch.Tensor,
     v01, m01 = corner(y0, x0 + 1)
     v10, m10 = corner(y0 + 1, x0)
     v11, m11 = corner(y0 + 1, x0 + 1)
-    out = (v00 * ((1 - tx) * (1 - ty) * m00) + v01 * (tx * (1 - ty) * m01)
-           + v10 * ((1 - tx) * ty * m10) + v11 * (tx * ty * m11))
+    out = fma(v00, (1 - tx) * (1 - ty) * m00, v01 * (tx * (1 - ty) * m01))
+    out = fma(v10, (1 - tx) * ty * m10, out)
+    out = fma(v11, tx * ty * m11, out)
     return out.reshape(n, ho, wo, c)

@@ -3,8 +3,13 @@
 Port of `tdgp/ops/upfirdn2d.py`. The JAX package folds the whole pipeline
 into one dilated depthwise convolution. Here the zero-upsampling is a
 reshape and pad, the (possibly negative) padding is `F.pad`, and the filter
-and the downsampling are one strided depthwise `F.conv2d`, which PyTorch
-differentiates to any order. Tensors are
+and the downsampling are one strided depthwise `F.conv2d`, whose backward
+is the transposed convolution with
+the same filter (`_FixedDepthwise`), itself an op that autograd records, so
+a gradient of a gradient (R1, path-length regularization) costs a
+convolution a pass: PyTorch's own double backward of a grouped convolution
+also takes the filter's gradient, one convolution per channel, though the
+filter needs none. Tensors are
 NHWC; `permute(0, 3, 1, 2)` gives the channels-last NCHW view the
 convolution takes, without a copy. Filters are 2-D.
 
@@ -60,6 +65,36 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, **kwargs) -> torch.Tensor:
     return F.conv2d(x, w, **kwargs)
 
 
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, **kwargs) -> torch.Tensor:
+    """`F.conv_transpose2d` of NCHW `x` and `w`, taken on CPU tensors below
+    float32 as `conv2d` takes a convolution there."""
+    if x.device.type == 'cpu' and x.element_size() < 4:
+        return F.conv_transpose2d(x.float(), w.float(), **kwargs).to(x.dtype)
+    return F.conv_transpose2d(x, w, **kwargs)
+
+
+class _FixedDepthwise(torch.autograd.Function):
+    """`conv2d(x, weight, stride=stride, groups=C)` for a filter that takes no
+    gradient; the backward is the transposed convolution with the same
+    filter, differentiable to any order."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride):
+        ctx.save_for_backward(weight)
+        ctx.stride, ctx.size = stride, tuple(x.shape[2:])
+        return conv2d(x, weight, stride=stride, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, gy):
+        (weight,) = ctx.saved_tensors
+        s = ctx.stride
+        kh, kw = weight.shape[2:]
+        pad = (ctx.size[0] - ((gy.shape[2] - 1) * s + kh),
+               ctx.size[1] - ((gy.shape[3] - 1) * s + kw))
+        return conv_transpose2d(gy, weight, stride=s, output_padding=pad,
+                                groups=gy.shape[1]), None, None
+
+
 def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: int = 1, down: int = 1,
               padding: Union[int, Sequence[int]] = 0, flip_filter: bool = False,
               gain: float = 1.0) -> torch.Tensor:
@@ -81,8 +116,7 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: int = 1, down: int
         x = x.reshape(n, h * up, w * up, c)
     x = F.pad(x, (0, 0, px0, px1, py0, py1))
     weight = f[None, None].expand(c, 1, *f.shape).contiguous()
-    y = conv2d(x.permute(0, 3, 1, 2), weight, stride=down, groups=c)
-    return y.permute(0, 2, 3, 1)
+    return _FixedDepthwise.apply(x.permute(0, 3, 1, 2), weight, down).permute(0, 2, 3, 1)
 
 
 def filter2d(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,22 @@
 """Where the time of a training step goes, on the card.
 
-    python3 -m tdgp_torch.profile_training [--steps 2]
+    python3 -m tdgp_torch.profile_training [--steps 2] [--preset stylegan2]
 
 Builds the trainer that `chip_smoke.py` drives, as `bench.py` builds the JAX
 one: `satellite_config(c_dim=0, resolution=256)` (tri-planes 3x512^2x32,
 64^2 patches, 32 + 32 ray steps, both adaptors, KD with 2048-d embeddings,
-R1 every 16 steps), at its own precision (G's and D's bf16 blocks;
+R1 every 16 steps), or with `--preset stylegan2` the 2D StyleGAN2 baseline
+(`stylegan2_config(c_dim=0, resolution=256)`, finalized as the training
+entry point loads it, batch 16: R1 and path-length regularization every 16
+steps, style mixing), at its own precision (G's and D's bf16 blocks;
 `--override generator.fp32_only=true --override discriminator.fp32_only=true`
 is the float32 cut), random weights from a seed, batch 16
 of a synthetic real batch made on the card, schedules at 500 kimg. After a
 warm-up step it traces `--steps` plain steps and one R1 step with
 torch.profiler and prints the device time by phase (Gmain, camera
-regularizers, Dmain, R1, EMA, per run of each), by operation and by kernel
-(per step, averaged over the traced steps), the port's own kernels (K1,
-K3, K3's backward) by name, the device's busy share of the wall time and the
+regularizers, PL, Dmain, R1, EMA, per run of each), by operation and by
+kernel (per step, averaged over the traced steps), the port's own kernels
+(K1, K3, K3's backward, K5) by name, the device's busy share of the wall time and the
 peak memory. The last line is a JSON object
 of these numbers, with the card's name and power limit. Needs a CUDA device.
 """
@@ -29,7 +32,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from tdgp_torch.config import Config, apply_overrides, satellite_config
+from tdgp_torch.config import Config, apply_overrides, load_config, satellite_config
 from tdgp_torch.training.schedules import compute_schedules
 from tdgp_torch.training.train_step import PHASES, Trainer
 from tdgp_torch.utils.draws import Draws
@@ -42,14 +45,20 @@ FP32 = ['generator.fp32_only=true', 'discriminator.fp32_only=true']  # the float
 OWN_KERNELS = {'K1 triplane_splat': ('bin_count_kernel', 'bin_scatter_kernel',
                                      'splat_strip_kernel', 'coords_grad_kernel'),
                'K3 ray_march_reduced': ('ray_march_reduced_kernel',),
-               'K3 ray_march_reduced_bwd': ('ray_march_reduced_bwd_kernel',)}
+               'K3 ray_march_reduced_bwd': ('ray_march_reduced_bwd_kernel',),
+               'K5 bias_act': ('bias_act_',)}
 BATCH = 16
 CUR_NIMG = 500_000  # mid-training schedule values, as bench.py takes them
 
 
-def train_config(overrides=()) -> Config:
-    """The satellite 256^2 configuration (no finalize, as bench.py), with
-    dotted `overrides` (`FP32`: every block in float32)."""
+def train_config(overrides=(), preset: str = 'satellite') -> Config:
+    """The satellite 256^2 configuration (no finalize, as bench.py), or the
+    'stylegan2' preset at 256^2 and batch BATCH (finalized, as
+    `scripts.train` loads it), with dotted `overrides` (`FP32`: every
+    block in float32)."""
+    if preset == 'stylegan2':
+        return load_config(preset='stylegan2',
+                           overrides=[f'training.batch_size={BATCH}'] + list(overrides))
     return apply_overrides(satellite_config(c_dim=0, resolution=256), list(overrides))
 
 
@@ -115,6 +124,7 @@ def main() -> int:
     ap.add_argument('--steps', type=int, default=2)
     ap.add_argument('--override', action='append', default=[],
                     help='dotted config override, repeatable (FP32 gives the float32 cut)')
+    ap.add_argument('--preset', default='satellite', choices=['satellite', 'stylegan2'])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_training: no CUDA device')
@@ -122,7 +132,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f'card: {card}')
 
-    cfg = train_config(args.override)
+    cfg = train_config(args.override, args.preset)
     trainer = Trainer(cfg, 'cuda', seed=0)
     batch = make_batch(cfg, BATCH, 0, 'cuda')
     sched = compute_schedules(cfg, CUR_NIMG)
@@ -182,7 +192,8 @@ def main() -> int:
         calls = sum(e.count for e in found) / n_steps
         own[name] = {'ms_per_step': ms, 'calls_per_step': calls, 'share': ms / device_ms}
         print(f'{ms:9.3f} ms {100 * ms / device_ms:5.1f} %  x{calls:<6g} {name}')
-    print(json.dumps({'card': card, 'overrides': args.override, 'batch': BATCH,
+    print(json.dumps({'card': card, 'preset': args.preset, 'overrides': args.override,
+                      'batch': BATCH,
                       'steps': n_steps, 'r1_steps': 1,
                       'wall_ms_profiled': wall_ms, 'device_busy_ms': device_ms,
                       'device_busy_share': device_ms / wall_ms, 'phases_device_ms': phases,

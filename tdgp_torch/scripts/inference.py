@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,7 +30,9 @@ import torch
 from tdgp_torch import checkpoint as ckpt
 from tdgp_torch.config import Config, load_config
 from tdgp_torch.models.epigraf import Generator
+from tdgp_torch.models.stylegan2 import StyleGAN2Generator
 from tdgp_torch.serving import WEIGHTS_FILE
+from tdgp_torch.training.train_step import build_models
 from tdgp_torch.utils.misc import resolve_device
 from tdgp_torch.weights import load_flat
 
@@ -67,14 +69,16 @@ def resolve_snapshot(run_dir: str, snapshot: str, metric: str = 'fid2k_full') ->
 
 def load_run(run_dir: str, snapshot: str = WEIGHTS_FILE, device: str = 'cuda',
              overrides: Sequence[str] = (), metric: str = 'fid2k_full'
-             ) -> Tuple[Config, Generator]:
+             ) -> Tuple[Config, Union[Generator, StyleGAN2Generator]]:
     """The run's config and its EMA generator from `snapshot` (see
-    `resolve_snapshot`), on `device`, in eval mode."""
+    `resolve_snapshot`), on `device`, in eval mode: a tri-plane `Generator`,
+    or a `StyleGAN2Generator` for a 2D run (`build_models`, as the JAX
+    package builds it). Only the 3D generator renders grids and videos."""
     device = resolve_device(device)
     path = resolve_snapshot(run_dir, snapshot, metric)
     cfg = load_config(os.path.join(run_dir, 'experiment_config.yaml'), overrides,
                       finalize=False)
-    G = Generator(cfg.generator)
+    G = build_models(cfg)[0]
     if path.endswith('.npz'):
         with np.load(path) as flat:
             load_flat(G, flat)

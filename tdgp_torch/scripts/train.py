@@ -1,6 +1,7 @@
 """Training entry point of the port (counterpart of `scripts/train.py`).
 
     python3 -m tdgp_torch.scripts.train --preset synth256 dataset.path=DIR [--max-kimg 20]
+    python3 -m tdgp_torch.scripts.train --preset stylegan2 dataset.path=DIR training.metrics=[]
 
 `--preset` picks the base config, `--config` a YAML overlay (a JAX run's
 `experiment_config.yaml` loads unchanged), then dotted key=value overrides
@@ -12,7 +13,12 @@ one from its frozen config and its newest snapshot. The in-loop metrics
 projection detector (`tdgp_torch.metrics.detectors`), the FID proxy of the
 JAX runs: the repo has no InceptionV3 weights. Every `training.image_snap`
 ticks a 4x4 grid of the EMA generator's images is written to the run
-directory. Runs on the card unless given `--device cpu`. A preset trains at
+directory (for the 2D StyleGAN2 baseline, `--preset stylegan2`, its images
+with the const noise: the JAX script's grid renders through a camera, which
+a 2D generator does not take). The 2D baseline has no in-loop metric: the
+JAX package has no 2D image sampler, so `fid2k_full` raises on it and the
+loop contains that failure as it contains any metric's. Runs on the card
+unless given `--device cpu`. A preset trains at
 its own precision (the bf16 blocks of G and D, unless `fp32_only`);
 `generator.fp32_only=true discriminator.fp32_only=true` is the float32 cut.
 """
@@ -25,7 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from tdgp_torch.config import load_config
+from tdgp_torch.config import PRESETS, is_2d, load_config
 from tdgp_torch.infra.experiment import config_to_dict, create_experiment_dir
 from tdgp_torch.rendering.camera import get_max_sampling_value, validate_frustum
 from tdgp_torch.utils.misc import exact_fp32, resolve_device
@@ -70,10 +76,16 @@ def make_vis_fn(cfg, run_dir: str):
         if cfg.dataset.c_dim > 0:
             c = torch.nn.functional.one_hot(torch.arange(16, device=device) % cfg.dataset.c_dim,
                                             cfg.dataset.c_dim).float()
-        cams = inference.canonical_cameras(cfg, 16, G=G, z=z, c=c)
-        with torch.no_grad(), exact_fp32():
-            ws = G.map_ws(z, c, camera_angles=cams.angles)
-        imgs = inference.generate(G, ws, cams, batch_size=4)
+        if is_2d(cfg):
+            with torch.no_grad(), exact_fp32():
+                imgs = torch.cat([G(z[i:i + 4], None if c is None else c[i:i + 4])
+                                  for i in range(0, 16, 4)])
+            imgs = (imgs.clamp(-1.0, 1.0) * 0.5 + 0.5).cpu().numpy()
+        else:
+            cams = inference.canonical_cameras(cfg, 16, G=G, z=z, c=c)
+            with torch.no_grad(), exact_fp32():
+                ws = G.map_ws(z, c, camera_angles=cams.angles)
+            imgs = inference.generate(G, ws, cams, batch_size=4)
         inference.save_image(inference.make_grid(imgs),
                              os.path.join(run_dir, f'fakes{cur_nimg // 1000:06d}.png'))
 
@@ -84,7 +96,7 @@ def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--config', default=None, help='YAML config overlay')
     ap.add_argument('--preset', default='default',
-                    choices=['default', 'satellite', 'tiny', 'synth64', 'synth256'])
+                    choices=sorted(PRESETS))
     ap.add_argument('--run-root', default='experiments')
     ap.add_argument('--run-dir', default=None,
                     help='existing run directory to resume (its frozen experiment_config.yaml '

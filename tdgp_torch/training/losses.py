@@ -7,6 +7,10 @@ The Lipschitz regularizer takes each scalar's derivative of the posterior
 with respect to the same scalar of the prior by `torch.autograd.grad` with
 `create_graph=True` (the samples are independent, so the batch sum's
 gradient holds every sample's diagonal entry).
+
+Style mixing (`loss.style_mixing_prob`) is one helper, `mix_styles`, that
+both G forwards call: the 3DGP render (`g_forward`) and the 2D StyleGAN2
+baseline's (`g_forward_2d`).
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ from tdgp_torch.config import Config
 from tdgp_torch.models.camera_adaptor import roll_camera_params, unroll_camera_params
 from tdgp_torch.models.discriminator import Discriminator
 from tdgp_torch.models.epigraf import Generator
+from tdgp_torch.models.stylegan2 import StyleGAN2Generator
 from tdgp_torch.rendering.camera import get_mean_angles_values, sample_camera_params
 from tdgp_torch.training.blur import blur_depth_channel, maybe_blur
-from tdgp_torch.training.patch import sample_patch_params, sample_random_c
+from tdgp_torch.training.patch import extract_patches, sample_patch_params, sample_random_c
 from tdgp_torch.training.schedules import Schedules
 from tdgp_torch.utils.draws import Draws
 from tdgp_torch.utils.tensor_group import TensorGroup
@@ -29,18 +34,37 @@ from tdgp_torch.utils.tensor_group import TensorGroup
 
 # --------------------------------------------------------------- G forward
 
+def mix_styles(ws: torch.Tensor, z: torch.Tensor, prob: float,
+               mapping: Callable[[torch.Tensor], torch.Tensor], draws: Draws) -> torch.Tensor:
+    """Style mixing (`tdgp/training/losses.py:54-64`): with probability
+    `prob`, ws[:, cutoff:] become the styles that `mapping` gives a second
+    z. One cutoff for the whole batch, drawn from [1, num_ws). The second
+    latent is mapped whatever the draw, as in the JAX package; `mapping`
+    must not move `w_avg`. Draws: 'cutoff', 'p', 'z2'."""
+    num_ws = ws.shape[1]
+    cutoff = draws.randint('cutoff', 1, num_ws, ())
+    cutoff = torch.where(draws.uniform('p', ()) < prob, cutoff, torch.full_like(cutoff, num_ws))
+    ws2 = mapping(draws.normal('z2', tuple(z.shape)).to(z.dtype))
+    idx = torch.arange(num_ws, device=ws.device)[None, :, None]
+    return torch.where(idx >= cutoff, ws2, ws)
+
+
 def g_forward(G: Generator, z: torch.Tensor, c: torch.Tensor, camera_params: TensorGroup,
               camera_angles_cond: torch.Tensor, sched: Schedules, cfg: Config, draws: Draws):
     """-> (TensorGroup(img, depth), patch params or None).
 
-    Draws: 'patch' (composite), and the generator's 'noise/...',
-    'render/...', 'depth/...'."""
+    Draws: 'patch' (composite), 'mix/...' (style mixing), and the
+    generator's 'noise/...', 'render/...', 'depth/...'."""
     patch_params = None
     if cfg.generator.patch.enabled:
         patch_params = draws.draw('patch', lambda d: sample_patch_params(
             d, z.shape[0], cfg.generator.patch, min_scale=sched.patch_min_scale,
             beta=sched.patch_beta))
     ws = G.mapping(z, c, camera_angles=camera_angles_cond, draws=draws.scope('mapping'))
+    if cfg.loss.style_mixing_prob > 0:
+        ws = mix_styles(ws, z, cfg.loss.style_mixing_prob, lambda z2: G.mapping(
+            z2, c, camera_angles=camera_angles_cond, draws=draws.scope('mix/mapping')),
+            draws.scope('mix'))
     cam = camera_params
     if cfg.training.learn_camera_dist:
         cam = G.synthesis.apply_camera_adaptor(camera_params, z, c)
@@ -48,6 +72,28 @@ def g_forward(G: Generator, z: torch.Tensor, c: torch.Tensor, camera_params: Ten
                       concat_depth=cfg.training.use_depth, return_depth=True,
                       nerf_noise_std=sched.nerf_noise_std, depth_progress=sched.depth_progress)
     return out, patch_params
+
+
+def g_forward_2d(G: StyleGAN2Generator, z: torch.Tensor, c: torch.Tensor, sched: Schedules,
+                 cfg: Config, draws: Draws):
+    """The 2D StyleGAN2 baseline's forward (`tdgp/training/losses.py:89`):
+    the full-resolution image with random noise, then, with patches on, the
+    patch parameters drawn and the patches cropped from it
+    -> (TensorGroup(img, ws), patch params or None).
+
+    Draws: 'mix/...' (style mixing), 'noise/b<res>/conv0|conv1', 'patch'."""
+    ws = G.mapping(z, c)
+    if cfg.loss.style_mixing_prob > 0:
+        ws = mix_styles(ws, z, cfg.loss.style_mixing_prob, lambda z2: G.mapping(z2, c),
+                        draws.scope('mix'))
+    img = G.synthesis(ws, G.synthesis.draw_noise(draws.scope('noise'), z.shape[0]))
+    patch_params = None
+    patch = cfg.generator.patch
+    if patch.enabled:
+        patch_params = draws.draw('patch', lambda d: sample_patch_params(
+            d, z.shape[0], patch, min_scale=sched.patch_min_scale, beta=sched.patch_beta))
+        img = extract_patches(img, patch_params, patch.resolution)
+    return TensorGroup(img=img, ws=ws), patch_params
 
 
 # --------------------------------------------------------------- D forward
@@ -167,11 +213,13 @@ def kd_loss(real_feats: torch.Tensor, real_embs: torch.Tensor, loss_type: str) -
     raise NotImplementedError(loss_type)
 
 
-def prepare_real_img(real_img: torch.Tensor, real_depth: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """The real depth, blurred when configured, as the 4th channel."""
+def prepare_real_img(real_img: torch.Tensor, real_depth: Optional[torch.Tensor],
+                     cfg: Config) -> torch.Tensor:
+    """The real depth, blurred when configured, as the 4th channel; the
+    image alone without `training.use_depth` (the 2D model)."""
+    if not cfg.training.use_depth:
+        return real_img
     sigma = cfg.training.blur_real_depth_sigma
     if sigma > 0:
         real_depth = maybe_blur(real_depth, sigma, sigma)
-    if cfg.training.use_depth:
-        return torch.cat([real_img, real_depth], dim=-1)
-    return real_img
+    return torch.cat([real_img, real_depth], dim=-1)

@@ -11,8 +11,9 @@ from typing import Dict
 import torch
 
 from tdgp_torch.config import PatchCfg
-from tdgp_torch.ops.grid_sample import grid_sample_2d
+from tdgp_torch.ops.grid_sample import grid_sample_nhwc
 from tdgp_torch.utils.draws import Draws
+from tdgp_torch.utils.xla_float import linspace_row, to_patch
 
 
 def sample_patch_params(draws: Draws, n: int, cfg: PatchCfg, min_scale: float,
@@ -38,24 +39,30 @@ def sample_patch_params(draws: Draws, n: int, cfg: PatchCfg, min_scale: float,
 
 
 def compute_patch_coords(patch_params: Dict[str, torch.Tensor], resolution: int) -> torch.Tensor:
-    """Patch params -> grid_sample coords [N, res, res, 2] (align_corners=True)."""
+    """Patch params -> grid_sample coords [N, res, res, 2] (align_corners=True).
+
+    The positions are those of the JAX package's jitted step bit for bit
+    (`utils.xla_float`)."""
     scales, offsets = patch_params['scales'], patch_params['offsets']
-    row = torch.linspace(-1.0, 1.0, resolution, device=scales.device)
+    row = linspace_row(resolution, scales.device)
     x = row[None, :].expand(resolution, resolution)
     coords = torch.stack([x, -x.t()], dim=2)[None]
-    coords = (coords + 1.0) * scales[:, None, None, :] - 1.0 + offsets[:, None, None, :] * 2.0
+    coords = to_patch(coords, scales[:, None, None, :], offsets[:, None, None, :])
     return torch.stack([coords[..., 0], -coords[..., 1]], dim=-1)  # grid_sample flips y
 
 
 def extract_patches(x: torch.Tensor, patch_params: Dict[str, torch.Tensor],
                     resolution: int) -> torch.Tensor:
-    """Crop and resize patches by bilinear sampling: [N,H,W,C] -> [N,res,res,C]."""
+    """Crop and resize patches by bilinear sampling: [N,H,W,C] -> [N,res,res,C].
+
+    The four-corner gather of `grid_sample_nhwc`, the JAX package's own
+    sampler here, which is differentiable to any order: the 2D model's
+    path-length penalty differentiates the crop's backward again, which
+    neither cuDNN's nor PyTorch's CUDA grid sampler can."""
     if x.shape[1] != x.shape[2]:
         raise ValueError(f'square images only, got {tuple(x.shape)}')
-    n, c = x.shape[0], x.shape[3]
-    coords = compute_patch_coords(patch_params, resolution)
-    out = grid_sample_2d(x, coords.reshape(n, resolution * resolution, 2))
-    return out.reshape(n, resolution, resolution, c)
+    return grid_sample_nhwc(x, compute_patch_coords(patch_params, resolution),
+                            align_corners=True)
 
 
 def sample_random_c(draws: Draws, n: int, c_dim: int) -> torch.Tensor:

@@ -75,8 +75,9 @@ def camera_posterior(G: Generator, cfg: Config, draws: Draws, num_samples: int =
                      origin_angles: Optional[np.ndarray] = None):
     """(prior, posterior) camera parameters of `num_samples` draws ('z',
     'c/...', 'camera/...') through G's camera adaptor; None without an
-    adaptor, or for the 'custom' angle distribution without `origin_angles`
-    (dataset angles, tiled up to `num_samples`)."""
+    adaptor (the 2D StyleGAN2 model has no camera), or for the 'custom' angle
+    distribution without `origin_angles` (dataset angles, tiled up to
+    `num_samples`)."""
     gc = cfg.generator
     if not gc.camera_adaptor.enabled:
         return None

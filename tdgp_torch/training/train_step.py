@@ -18,6 +18,18 @@
     gradient through D (`torch.autograd.grad(create_graph=True)`);
   - the G EMA.
 
+The 2D StyleGAN2 baseline (`model_name='stylegan2'`, `build_models`) takes
+the same phases on its own forward (`losses.g_forward_2d`: the full image,
+then patches cropped from it): no camera regularizers, the `w_avg` pass
+without camera angles, real images without depth, and Dmain always on fresh
+fakes, whatever `dmain_reuse_fakes` says, as in the JAX package. On R1
+steps with `loss.pl_weight > 0` it adds the path-length phase (PL, between
+Gmain and Dmain, `_pl`): the gradient of the image times a normal draw with
+respect to ws, taken with `create_graph=True`, its lengths pulled toward
+their running mean `pl_mean`, and a second Adam update of G. Style mixing
+(`loss.style_mixing_prob`) runs in both models' G forwards
+(`losses.mix_styles`).
+
 Gradients are averaged over `batch_gpu` microbatches (`r1_batch_gpu` for
 R1), scrubbed of NaN and Inf, and applied by Adam; D's Adam has the
 lazy-regularization ratio r1_interval / (r1_interval + 1) folded into its
@@ -34,14 +46,16 @@ NaN/Inf scrub are float32.
 
 Not ported, and refused with a `NotImplementedError` naming the setting:
 an augment mode other than 'noaug', 'ada' and 'fixed', path-length
-regularization, style mixing, the bf16 render views (`dmain_fake_bf16`
+regularization of the 3DGP model, the bf16 render views (`dmain_fake_bf16`
 with fresh fakes, `gmain_render_bf16`; with reused fakes `dmain_fake_bf16`
-has no effect and a warning says so, as in the JAX package), the 2D StyleGAN2 model, R1
+has no effect and a warning says so, as in the JAX package), R1
 rematerialization, G's gradient clipping and training over several devices.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
+import math
 import warnings
 from typing import Dict, Iterable, Optional, Union
 
@@ -49,10 +63,11 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from tdgp_torch.config import Config
+from tdgp_torch.config import Config, is_2d
 from tdgp_torch.models.discriminator import Discriminator
 from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.models.layers import init_weights
+from tdgp_torch.models.stylegan2 import StyleGAN2Generator
 from tdgp_torch.rendering.camera import sample_camera_params
 from tdgp_torch.training import losses
 from tdgp_torch.training.augment import AugmentPipe
@@ -64,7 +79,7 @@ from tdgp_torch.utils.tensor_group import TensorGroup
 
 
 # record_function ranges of a step, for torch.profiler (tdgp_torch/profile_training.py)
-PHASES = ('gmain', 'camera_regs', 'dmain', 'r1', 'ema')
+PHASES = ('gmain', 'camera_regs', 'pl', 'dmain', 'r1', 'ema')
 
 
 def check_supported(cfg: Config) -> None:
@@ -72,16 +87,16 @@ def check_supported(cfg: Config) -> None:
     warn that `dmain_fake_bf16` has no effect while Dmain reuses Gmain's
     fakes, as the JAX step does."""
     t, l = cfg.training, cfg.loss
-    if t.dmain_fake_bf16 and t.dmain_reuse_fakes:
+    if t.dmain_fake_bf16 and t.dmain_reuse_fakes and not is_2d(cfg):
         warnings.warn('training.dmain_fake_bf16 has no effect while '
                       'training.dmain_reuse_fakes is enabled (the default): '
                       'Dmain renders no fresh fakes. Set '
                       'training.dmain_reuse_fakes=false to use it.', stacklevel=3)
     refused = {
-        'model_name': cfg.model_name == 'stylegan2',
         'training.augment.mode': t.augment.mode not in ('noaug', 'ada', 'fixed'),
-        'loss.pl_weight': l.pl_weight > 0,
-        'loss.style_mixing_prob': l.style_mixing_prob > 0,
+        'loss.pl_weight (path-length regularization of the 3DGP model: its second-order '
+        'gradient through the splat and ray-march kernels has no kernel)':
+            l.pl_weight > 0 and not is_2d(cfg),
         'loss.r1_remat': l.r1_remat,
         'training.dmain_fake_bf16 (the bf16 render views, ROADMAP.md section 1 item 3)':
             t.dmain_fake_bf16 and not t.dmain_reuse_fakes,
@@ -92,6 +107,26 @@ def check_supported(cfg: Config) -> None:
     names = [name for name, bad in refused.items() if bad]
     if names:
         raise NotImplementedError(f'not ported to the PyTorch train step: {", ".join(names)}')
+
+
+def build_models(cfg: Config):
+    """(G, D) with their parameters unset (`tdgp/training/train_step.py:63`):
+    the 2D `StyleGAN2Generator` for `model_name='stylegan2'`, the tri-plane
+    `Generator` otherwise. D has the KD head only with KD on, as JAX's
+    `create_train_state` initialises it (`predict_feat=kd.weight > 0`)."""
+    gc = cfg.generator
+    if is_2d(cfg):
+        G = StyleGAN2Generator(
+            z_dim=gc.z_dim, c_dim=gc.c_dim, w_dim=gc.w_dim, img_resolution=gc.img_resolution,
+            img_channels=gc.img_channels, map_depth=gc.map_depth, cbase=gc.cbase,
+            cmax=gc.cmax, fmaps=gc.fmaps, num_fp16_res=gc.num_fp16_res,
+            fp32_only=gc.fp32_only)
+    else:
+        G = Generator(gc)
+    disc = cfg.discriminator
+    if cfg.loss.kd.weight <= 0:
+        disc = dataclasses.replace(disc, embedding_dim=0)
+    return G, Discriminator(disc)
 
 
 def make_optimizers(cfg: Config, G: nn.Module, D: nn.Module):
@@ -149,17 +184,19 @@ class Trainer:
     Parameters are drawn from `seed` (G from `seed`, D from `seed + 1`, both
     on the CPU), or loaded afterwards from a JAX `TrainState` by
     `tdgp_torch.weights.load_train_state`. The device defaults to the card,
-    and a Trainer raises without one unless given 'cpu'.
+    and a Trainer raises without one unless given 'cpu'. `pl_mean` is the
+    running mean of the path lengths (a 0-d float32 tensor on the device).
     """
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = 'cuda', seed: int = 0):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        G = init_weights(Generator(cfg.generator), torch.Generator().manual_seed(seed))
-        D = init_weights(Discriminator(cfg.discriminator),
-                         torch.Generator().manual_seed(seed + 1))
+        G, D = build_models(cfg)
+        init_weights(G, torch.Generator().manual_seed(seed))
+        init_weights(D, torch.Generator().manual_seed(seed + 1))
         self.G, self.D = G.to(self.device), D.to(self.device)
+        self.pl_mean = torch.zeros((), device=self.device)
         self.G_ema = copy.deepcopy(self.G).eval()
         _set_requires_grad(self.G_ema, False)
         self.g_opt, self.d_opt = make_optimizers(cfg, self.G, self.D)
@@ -196,8 +233,8 @@ class Trainer:
         generator inputs 'gen_z_g', 'gen_c_g', 'gen_cam_g', 'gen_*_d' and the
         real patch parameters 'real_pp_scales' / 'real_pp_offsets' (the JAX
         package's controlled-inputs mode). Returns the losses as 0-d tensors
-        and, with `return_grads`, the scrubbed gradients of each phase under
-        '_grads'."""
+        and, with `return_grads`, the scrubbed gradients of each phase ('g',
+        'pl', 'd', 'r1') under '_grads'. The 2D model needs no 'depth'."""
         with exact_fp32():
             return self._step(batch, sched, do_r1, draws, return_grads)
 
@@ -212,10 +249,15 @@ class Trainer:
             stats[name] = stats.get(name, 0.0) + value.detach() / n_micro
 
         with record_function('gmain'):
-            cg, fakes = self._gmain(batch, sched, draws, n_micro, accumulate)
+            gen_g, fakes = self._gmain(batch, sched, draws, n_micro, accumulate)
         with record_function('camera_regs'):
             self._camera_regs(sched, draws, stats)
         grads['g'] = self._apply(self.g_opt, G, keep)
+        if do_r1 and cfg.loss.pl_weight > 0:
+            with record_function('pl'):
+                self._pl(gen_g, sched, draws, stats)
+            grads['pl'] = self._apply(self.g_opt, G, keep)
+        cg = gen_g[1]
         with record_function('dmain'):
             real, rpp = self._dmain(batch, sched, draws, n_micro, accumulate, cg, fakes)
         grads['d'] = self._apply(self.d_opt, D, keep)
@@ -230,9 +272,10 @@ class Trainer:
         return stats
 
     def _gmain(self, batch, sched, draws, n_micro, accumulate):
-        """Gmain's gradients into G; returns the labels and, per microbatch,
-        the detached fakes with their patch parameters for Dmain (None
-        when Dmain renders fresh ones)."""
+        """Gmain's gradients into G; returns its generator inputs (z, labels,
+        cameras, conditioning angles) and, per microbatch, the detached
+        fakes with their patch parameters for Dmain (None when Dmain renders
+        fresh ones, always for the 2D model)."""
         cfg, G, D = self.cfg, self.G, self.D
         n = batch['img'].shape[0]
         m = n // n_micro
@@ -240,11 +283,11 @@ class Trainer:
             draws.scope('gen_g'), n, cfg, sched, batch.get('gen_c_g'),
             batch.get('gen_camera_angles_g'), batch.get('gen_z_g'), batch.get('gen_cam_g'))
         _set_requires_grad(D, False)
-        fakes = [] if cfg.training.dmain_reuse_fakes else None
+        fakes = [] if cfg.training.dmain_reuse_fakes and not is_2d(cfg) else None
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
-            out, pp = losses.g_forward(G, zg[sl], cg[sl], camg.select(sl), condg[sl], sched, cfg,
-                                       draws.scope(f'gmain/{i}'))
+            out, pp = self._g_forward(zg[sl], cg[sl], camg.select(sl), condg[sl], sched,
+                                      draws.scope(f'gmain/{i}'))
             logits, _ = losses.d_forward(D, out.img, cg[sl], sched, cfg, patch_params=pp,
                                          augment_fn=self._augment(draws, sched, f'gmain/{i}'))
             loss = losses.adv_loss_g(logits, cfg.loss.adv_loss_type).mean()
@@ -255,14 +298,21 @@ class Trainer:
             if fakes is not None:
                 fakes.append((out.img.detach(), pp))
         _set_requires_grad(D, True)
-        return cg, fakes
+        return (zg, cg, camg, condg), fakes
+
+    def _g_forward(self, z, c, cam, cond, sched, draws):
+        """The model's G forward: `losses.g_forward_2d` for the 2D model
+        (which takes no camera), `losses.g_forward` otherwise."""
+        if is_2d(self.cfg):
+            return losses.g_forward_2d(self.G, z, c, sched, self.cfg, draws)
+        return losses.g_forward(self.G, z, c, cam, cond, sched, self.cfg, draws)
 
     def _camera_regs(self, sched, draws, stats):
         """The camera adaptor's regularizers, once per step; their gradients
         add to Gmain's."""
         cfg, G = self.cfg, self.G
         acfg = cfg.generator.camera_adaptor
-        if not cfg.training.learn_camera_dist:
+        if not cfg.training.learn_camera_dist or is_2d(cfg):
             return
         reg_draws = draws.scope('reg')
         regs = []
@@ -276,6 +326,40 @@ class Trainer:
             sum(r[0] for r in regs).backward()
             for _, reg_stats in regs:
                 stats.update({k: v.detach() for k, v in reg_stats.items()})
+
+    def _pl(self, gen_g, sched, draws, stats):
+        """The path-length penalty (`tdgp/training/train_step.py:398-460`) on
+        the first n // pl_batch_shrink of Gmain's z and labels, in one batch,
+        at G after Gmain's update: the gradient of sum(img x noise / sqrt(h
+        w)) with respect to ws (`create_graph=True`), its per-sample length,
+        `pl_mean` moved toward their mean by `pl_decay`, and (length -
+        pl_mean)^2 x pl_weight x r1_interval, whose gradient goes into G.
+        Draws, all under 'pl/': 'patch', 'noise/...' and 'pl_noise'. The 3DGP
+        model's PL is refused (`check_supported`)."""
+        cfg, G = self.cfg, self.G
+        l, patch = cfg.loss, cfg.generator.patch
+        zg, cg = gen_g[0], gen_g[1]
+        n_pl = max(zg.shape[0] // max(l.pl_batch_shrink, 1), 1)
+        pl_draws = draws.scope('pl')
+        ws = G.mapping(zg[:n_pl], cg[:n_pl])
+        pp = None
+        if patch.enabled:
+            pp = pl_draws.draw('patch', lambda d: sample_patch_params(
+                d, n_pl, patch, min_scale=sched.patch_min_scale, beta=sched.patch_beta))
+        img = G.synthesis(ws, G.synthesis.draw_noise(pl_draws.scope('noise'), n_pl))
+        if pp is not None:
+            img = extract_patches(img, pp, patch.resolution)
+        noise = pl_draws.normal('pl_noise', tuple(img.shape)) / math.sqrt(img.shape[1]
+                                                                         * img.shape[2])
+        (pl_grads,) = torch.autograd.grad((img * noise).sum(), ws, create_graph=True)
+        pl_lengths = pl_grads.square().sum(2).mean(1).sqrt()
+        pl_mean = self.pl_mean + l.pl_decay * (pl_lengths.mean().detach() - self.pl_mean)
+        penalty = (pl_lengths - pl_mean).square()
+        loss = penalty.mean() * l.pl_weight * float(l.r1_interval)
+        loss.backward()
+        self.pl_mean = pl_mean
+        stats['Loss/pl_penalty'] = penalty.mean().detach()
+        stats['Loss/G/reg'] = loss.detach()
 
     def _dmain(self, batch, sched, draws, n_micro, accumulate, cg, fakes):
         """The w_avg update, then Dmain's gradients into D on the fakes and
@@ -292,9 +376,12 @@ class Trainer:
             draws.scope('gen_d'), n, cfg, sched, batch.get('gen_c_d'),
             batch.get('gen_camera_angles_d'), batch.get('gen_z_d'), batch.get('gen_cam_d'))
         with torch.no_grad():  # the w_avg EMA, from the updated G
-            G.mapping(zd, cd, camera_angles=condd, update_emas=True,
-                      draws=draws.scope('ema_mapping'))
-        real4 = losses.prepare_real_img(batch['img'], batch['depth'], cfg)
+            if is_2d(cfg):
+                G.mapping(zd, cd, update_emas=True)
+            else:
+                G.mapping(zd, cd, camera_angles=condd, update_emas=True,
+                          draws=draws.scope('ema_mapping'))
+        real4 = losses.prepare_real_img(batch['img'], batch.get('depth'), cfg)
         real_pp = None
         if patch.enabled:
             if 'real_pp_scales' in batch:
@@ -313,9 +400,8 @@ class Trainer:
             sl = slice(i * m, (i + 1) * m)
             if fakes is None:
                 with torch.no_grad():
-                    out, fake_pp = losses.g_forward(G, zd[sl], cd[sl], camd.select(sl),
-                                                    condd[sl], sched, cfg,
-                                                    draws.scope(f'dmain/{i}'))
+                    out, fake_pp = self._g_forward(zd[sl], cd[sl], camd.select(sl), condd[sl],
+                                                   sched, draws.scope(f'dmain/{i}'))
                 fake_img, fake_c = out.img.float(), cd[sl]
             else:
                 (fake_img, fake_pp), fake_c = fakes[i], cg[sl]

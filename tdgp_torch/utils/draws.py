@@ -43,6 +43,11 @@ class Draws:
         """Gamma(alpha, 1), one draw per element of `alpha`."""
         return torch._standard_gamma(alpha.to(self.device), generator=self.generator)
 
+    def randint(self, name: str, low: int, high: int, shape: Sequence[int]) -> torch.Tensor:
+        """Integers uniform in [low, high), int64."""
+        return torch.randint(low, high, tuple(shape), generator=self.generator,
+                             device=self.device)
+
     def draw(self, name: str, fn: Callable[['Draws'], Any]) -> Any:
         return fn(self.scope(name))
 
@@ -87,6 +92,13 @@ class Replay(Draws):
 
     def gamma(self, name, alpha):
         return self._get(name, alpha.shape)
+
+    def randint(self, name, low, high, shape):
+        value = torch.as_tensor(self._get(name), dtype=torch.int64, device=self._device)
+        if tuple(value.shape) != tuple(shape):
+            raise ValueError(f'draw {self.prefix + name!r}: given {tuple(value.shape)}, '
+                             f'needs {tuple(shape)}')
+        return value
 
     def draw(self, name, fn):
         if self.prefix + name in self.values:

@@ -15,10 +15,15 @@ and the embedding tables included, is taken as it is.
 flat arrays, with the JAX names and layouts, so that both packages read
 the file it is saved to.
 
+The names need no table per model: the tri-plane `Generator` and the 2D
+`StyleGAN2Generator` ('mapping/...', 'synthesis/b<res>/...') cross the same
+way.
+
 `load_train_state` carries a whole JAX `TrainState` (G with its adaptors,
-its consts and 'ema' collection, D, and the EMA copy of G), given as nested
-dicts of numpy arrays, into a `tdgp_torch.training.train_step.Trainer`. The
-optimizers' state is not carried: both packages start it at zero.
+its consts and 'ema' collection, D, the EMA copy of G, and the path-length
+mean `pl_mean` when given), given as nested dicts of numpy arrays, into a
+`tdgp_torch.training.train_step.Trainer`. The optimizers' state is not
+carried: both packages start it at zero.
 """
 from __future__ import annotations
 
@@ -99,9 +104,14 @@ def flatten_tree(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
 
 
 def load_train_state(trainer, g_params: Mapping, g_consts: Mapping, g_ema: Mapping,
-                     d_params: Mapping, ema_params: Mapping, ema_ema: Mapping) -> None:
+                     d_params: Mapping, ema_params: Mapping, ema_ema: Mapping,
+                     pl_mean=None) -> None:
     """Load the fields of a JAX `TrainState` (g_params, g_consts, g_ema_coll,
-    d_params, ema_params, ema_ema_coll), as nested dicts of numpy arrays."""
+    d_params, ema_params, ema_ema_coll, pl_mean), as nested dicts of numpy
+    arrays."""
+    if pl_mean is not None:
+        trainer.pl_mean = torch.tensor(np.asarray(pl_mean, np.float32),
+                                       device=trainer.pl_mean.device)
     load_flat(trainer.G, flatten_tree({'params': g_params, 'consts': g_consts, 'ema': g_ema}))
     load_flat(trainer.D, flatten_tree({'params': d_params}))
     load_flat(trainer.G_ema, flatten_tree({'params': ema_params, 'consts': g_consts,

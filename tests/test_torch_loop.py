@@ -181,7 +181,8 @@ def test_resume_restores_the_loop_state(run, folder, tmp_path):
         result.ada_p + ada_adjust(line['Loss/signs/real']['mean'], cfg, BATCH))
 
 
-@pytest.mark.parametrize('preset', ['default', 'tiny', 'satellite', 'synth64', 'synth256'])
+@pytest.mark.parametrize('preset', ['default', 'tiny', 'satellite', 'synth64', 'synth256',
+                                    'stylegan2', 'imagenet'])
 @pytest.mark.parametrize('finalize', [False, True])
 def test_presets_as_jax(preset, finalize):
     assert dataclasses.asdict(load_config(preset=preset, finalize=finalize)) == jax_asdict(

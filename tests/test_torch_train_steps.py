@@ -9,17 +9,20 @@ regularization ratio 2/3 folded in; with reused and with fresh Dmain fakes
 Both start from the same weights (`load_train_state`); each step gets a
 new batch and new controlled generator inputs from numpy seed k + 1, the
 schedules at 300 kimg + k x N images, a new key 1000 + k, and the port
-every draw of the JAX step from that key (`step_draws`) and the real
-patches that JAX's `extract_patches` cuts (`jax_patches`): the two
-packages place the patches' sample positions up to three float32 ulps
-apart (torch.linspace against jnp.linspace), which moves a pixel by
-~1.5e-5 and, once `scalar_enc` has trained, D's gradient by ~7.5e-4
-(`test_own_patches_miss_the_step_limit`; ROADMAP.md section 3).
+every draw of the JAX step from that key (`step_draws`). Both cut the real
+patches with their own `extract_patches`: the port places the sample
+positions as XLA does in JAX's jitted step (`utils.xla_float`: its
+`linspace_row` and one rounding of (row + 1) x scale - 1) and sums the
+bilinear corners as XLA contracts them, so its patches are JAX's bit for
+bit. With `torch.linspace`'s positions, up
+to three float32 ulps from JAX's, a pixel moves by ~1.5e-5 and, once
+`scalar_enc` has trained, D's gradient by ~7.5e-4
+(`test_own_patches_miss_the_step_limit`).
 
 Two holds:
 - each step alone, the port started from JAX's state before it (weights
   and Adam's moments), at the one-step limits (1e-4; a mutation witness:
-  the port's own patches miss it at step 1);
+  `torch.linspace`'s patch positions miss it at step 1);
 - the K steps run freely in both packages: after every step the losses, G,
   D and G_ema are compared. A module's distance is the L2 norm of port -
   JAX over all its parameters and buffers, over the L2 norm of how far JAX
@@ -45,10 +48,9 @@ import jax
 from tdgp.config import tiny_test_config as jax_tiny
 from tdgp.infra.experiment import apply_overrides as jax_apply_overrides
 from tdgp.training import train_step as jts
-from tdgp.training.patch import extract_patches as jax_extract_patches
 from tdgp.training.schedules import compute_schedules as jax_schedules
 from tdgp_torch.config import apply_overrides, tiny_test_config
-from tdgp_torch.training import train_step
+from tdgp_torch.training import patch as port_patch
 from tdgp_torch.training.schedules import compute_schedules
 from tdgp_torch.training.train_step import make_optimizers
 from tdgp_torch.weights import _to_port_layout, flat_from_module, flat_key, flatten_tree
@@ -101,15 +103,10 @@ def one_ulp(state):
                          ema_params=up(state.ema_params))
 
 
-_jax_extract = jax.jit(jax_extract_patches, static_argnums=2)
-
-
-def jax_patches(x, patch_params, resolution):
-    """JAX's `extract_patches` (jitted, as the step runs it) on the port's
-    tensors."""
-    out = _jax_extract(np.asarray(x), {k: np.asarray(v) for k, v in patch_params.items()},
-                       resolution)
-    return torch.from_numpy(np.array(out))
+def torch_linspace_row(resolution, device=None):
+    """Mutation: the patch row of `torch.linspace`, the port's before it
+    placed JAX's positions."""
+    return torch.linspace(-1.0, 1.0, resolution, device=device)
 
 
 def load_adam(opt, module, adam_state):
@@ -168,24 +165,24 @@ class Run:
         out, unused = [], set()
         for jsched, sched, _, pb, rng, do_r1 in self.inputs:
             draws = replay(self.jcfg, rng, jsched)
-            with mock.patch.object(train_step, 'extract_patches', jax_patches):
-                stats = trainer.step(pb, sched, do_r1, draws)
+            stats = trainer.step(pb, sched, do_r1, draws)
             unused |= set(draws.values) - draws.used
             out.append(({k: float(v) for k, v in stats.items()}, port_trees(trainer)))
         return out, unused
 
-    def port_from_jax(self, k, ref, own_patches=False):
+    def port_from_jax(self, k, ref, torch_linspace=False):
         """Step k of the port from JAX's state before it, Adam's moments
-        included, on JAX's patches unless `own_patches` -> `run_step`'s
-        tuple (JAX stats, JAX new state, port stats, port trainer, draws)."""
+        included, with `torch.linspace`'s patch positions if `torch_linspace`
+        -> `run_step`'s tuple (JAX stats, JAX new state, port stats, port
+        trainer, draws)."""
         jsched, sched, _, pb, rng, do_r1 = self.inputs[k]
         _, _, before, stats, new = ref[k]
         trainer = port_trainer(self.cfg, before)
         load_adam(trainer.g_opt, trainer.G, before.g_opt)
         load_adam(trainer.d_opt, trainer.D, before.d_opt)
         draws = replay(self.jcfg, rng, jsched)
-        with mock.patch.object(train_step, 'extract_patches',
-                               train_step.extract_patches if own_patches else jax_patches):
+        with mock.patch.object(port_patch, 'linspace_row',
+                               torch_linspace_row if torch_linspace else port_patch.linspace_row):
             port_stats = trainer.step(pb, sched, do_r1, draws, return_grads=True)
         return stats, new, port_stats, trainer, draws
 
@@ -274,12 +271,13 @@ def test_each_step_from_the_jax_state(fresh, part):
 
 
 def test_own_patches_miss_the_step_limit():
-    """Mutation witness, and the sensitivity the holds step around: with the
-    port's own patch extraction, whose sample positions round up to three
-    ulps from JAX's, step 1's Dmain gradient misses the one-step limit."""
+    """Mutation witness of the patch positions: with `torch.linspace`'s
+    row, up to three ulps from JAX's, step 1's Dmain gradient misses the
+    one-step limit that the port's own positions hold."""
     run, ref = hold(False)[:2]
+    check_part(run.port_from_jax(1, ref), 'd')
     with pytest.raises(AssertionError):
-        check_part(run.port_from_jax(1, ref, own_patches=True), 'd')
+        check_part(run.port_from_jax(1, ref, torch_linspace=True), 'd')
 
 
 @pytest.mark.slow
