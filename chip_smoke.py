@@ -165,7 +165,30 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   from the snapshot for one more tick: cur_nimg, batch_idx
                   and ada_p restored, losses finite. sec/kimg per tick,
                   images/s, the metric's seconds, peak memory.
- 10. stylegan2:   the 2D StyleGAN2 baseline (`--preset stylegan2`, 256^2, full width: cbase
+ 10. metrics:     the rest of the metric suite (`metrics_phase`). K3's cut entry
+                  (`ray_march_merged_cut`: the merged march with NFS's quantile cut,
+                  the threshold a sort on the card) against its plain version at
+                  the served chunk [4, 16384, 32 + 32, 3] with ties and at small
+                  shapes, q = 0.25 and 0.5, the four settings (<= 1e-5), timed
+                  warm and cold beside its bound, the threshold alone and the
+                  merged entry without the cut. nfs256 of the committed flagship
+                  at its precision, the loop's folder giving the labels: a batch
+                  of 4 depth maps through the cut entry against its plain version
+                  (<= NFS_KERNEL_LIMIT x max |depth|, cuDNN deterministic: another
+                  algorithm moves densities by ulps, and a ray whose last sample
+                  then crosses the threshold moves by up to the far end; K4 and K5
+                  swapped too is printed), a batch card vs CPU at the float32 cut
+                  and a 64^2 output (without the cut <= NFS_CPU_LIMIT everywhere;
+                  with it at most NFS_CPU_SHARE of the pixels beyond that, and the
+                  batch's NFS within NFS_CPU_REL), then the 256 maps through the
+                  registry: the value, its seconds, K3's cut entry once and K4
+                  twice per ray chunk, no other K3, K5 once per bias_act call.
+                  InceptionV3 (299^2) and VGG16 (224^2) at seeded random weights
+                  under exact_fp32: ms per batch of 16. KID, precision/recall and
+                  IS of METRIC_IMAGES flagship images against as many of the
+                  loop's folder (the random projection), PPL at PPL_PAIRS pairs
+                  with VGG16: counts reduced from 50,000 and 2048.
+ 11. stylegan2:   the 2D StyleGAN2 baseline (`--preset stylegan2`, 256^2, full width: cbase
                   32768, cmax 512, G's blocks 32-256 and D's 64-16 in bf16 at its own
                   precision, D on 64^2 RGB patches; path-length regularization and style
                   mixing on), batch SG2_BATCH = 16 (the preset's 64, cut), random weights
@@ -232,12 +255,14 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
     from tdgp_torch.ops import bias_act, ray_march, splat, triplane_mlp
     from tdgp_torch.rendering import renderer
     saved = (epigraf.triplane_sample, renderer.ray_march_reduced, renderer.ray_march_merged,
-             epigraf.triplane_mlp, layers.bias_act, stylegan2.bias_act)
+             renderer.ray_march_merged_cut, epigraf.triplane_mlp, layers.bias_act,
+             stylegan2.bias_act)
     if k1:
         epigraf.triplane_sample = splat.triplane_sample_reference
     if k3:
         renderer.ray_march_reduced = ray_march.ray_march_reduced_reference
         renderer.ray_march_merged = ray_march.ray_march_merged_plain
+        renderer.ray_march_merged_cut = ray_march.ray_march_merged_cut_plain
     if k4:
         epigraf.triplane_mlp = triplane_mlp.triplane_mlp_plain
     if k5:
@@ -246,7 +271,8 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
         yield
     finally:
         (epigraf.triplane_sample, renderer.ray_march_reduced, renderer.ray_march_merged,
-         epigraf.triplane_mlp, layers.bias_act, stylegan2.bias_act) = saved
+         renderer.ray_march_merged_cut, epigraf.triplane_mlp, layers.bias_act,
+         stylegan2.bias_act) = saved
 
 
 class BiasActCalls:
@@ -1930,6 +1956,237 @@ def stylegan2_loop_phase(tmp_dir, counters, card, device='cuda', overrides=()):
                           loop_peak_gib=peak / 2 ** 30, loop_s=loop_s, pl_mean=pl_mean)
 
 
+CUT_Q = 0.5                 # NFS's quantile cut
+NFS_KERNEL_LIMIT = 1e-5     # depth maps, K3's cut entry vs its plain version: of max |depth|
+NFS_CPU_LIMIT = 1e-3        # depth maps, card vs CPU at the float32 cut: abs, every pixel uncut,
+NFS_CPU_SHARE = 1e-3        # ... the share of pixels beyond it with the cut (rays where a
+                            # density ulps apart crosses the threshold), and
+NFS_CPU_REL = 1e-4          # ... the batch's NFS: relative
+METRIC_IMAGES = 256         # KID, PR, IS: generated and real images (the registry's 50,000 cut)
+PPL_PAIRS = 64              # PPL: pairs (the registry's 2048 cut)
+
+
+def cut_kernel_phase(ray_march, g):
+    """K3's cut entry (`ray_march_merged_cut`) against its plain version at
+    the served chunk [4, 16384, 32 + 32, 3] with ties and at small shapes,
+    q = 0.25 and 0.5, in the four marcher settings (<= 1e-5 on every
+    output); timed at the served chunk with q = 0.5 beside the merged entry
+    without the cut and the threshold alone. Returns its `kernels` entry."""
+    b, r, c = 4, 16384, 3
+    worst = 0.0
+    shapes = [(b, r, 32, 32, c)] + [(2, 300, s1, s2, cc) for cc in (1, 4)
+                                    for s1, s2 in ((5, 11), (40, 24))]
+    for shape in shapes:
+        sets = merged_sets(g, *shape)
+        for q in (0.25, CUT_Q):
+            for clamp_mode, inf_depth, last_back in K3_CASES:
+                opts = (clamp_mode, 1.0, inf_depth, last_back)
+                out = ray_march.ray_march_merged_cut(*sets, q, *opts)
+                ref = ray_march.ray_march_merged_cut_plain(*sets, q, *opts)
+                torch.cuda.synchronize()
+                errs = [float((a - b_).abs().max()) for a, b_ in zip(out, ref)]
+                check(all(e <= 1e-5 for e in errs),
+                      f'K3 cut at [B,R,S1,S2,C] = {list(shape)} q={q} {clamp_mode} '
+                      f'inf_depth={inf_depth} last_back={last_back} disagrees with its plain '
+                      f'version: {errs}')
+                worst = max(worst, *errs)
+    sets = merged_sets(g, b, r, 32, 32, c)
+    clamped = torch.cat([ray_march.clamp_densities(x).reshape(-1) for x in (sets[2], sets[5])])
+    threshold = ray_march.cut_threshold(sets[2], sets[5], CUT_Q)
+    zeroed = int((clamped < threshold).sum())
+    print(f'K3 cut at [B,R,S1,S2,C] = [{b},{r},32,32,{c}] with ties and [2,300,S1,S2,C] for '
+          f'(S1, S2) = (5, 11), (40, 24), C = 1, 4, at q = 0.25 and {CUT_Q} in the '
+          f'{len(K3_CASES)} settings: max abs diff {worst:.3g} (<= 1e-5); at q = {CUT_Q} the '
+          f'served chunk zeroes {zeroed} of {clamped.numel()} samples (threshold '
+          f'{float(threshold):.6g})')
+    times = timed(f'K3 cut at [{b},{r},32+32,{c}], q = {CUT_Q}',
+                  lambda: ray_march.ray_march_merged_cut(*sets, CUT_Q), 200)
+    threshold_ms = cuda_ms(lambda: ray_march.cut_threshold(sets[2], sets[5], CUT_Q), 50)
+    uncut_ms = cold_ms(lambda: ray_march.ray_march_merged(*sets))
+    plain_ms = cuda_ms(lambda: ray_march.ray_march_merged_cut_plain(*sets, CUT_Q), 20)
+    bytes_moved, flops = k3_work(b, r, 64, c)
+    flops += b * r * 64 * (7 * 2 + 1)  # the merge's binary search, and the compare
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    print(f'K3 cut at [{b},{r},32+32,{c}]: {times["cold"]:.4f} ms cold, {times["warm"]:.4f} ms '
+          f'warm ({threshold_ms:.4f} ms of it the threshold, a sort of '
+          f'{clamped.numel()} densities); the merged entry without the cut {uncut_ms:.4f} ms '
+          f'cold; plain {plain_ms:.4f} ms; bound {1e3 * bound_ms:.1f} us '
+          f'({bytes_moved / 1e6:.1f} MB by {bound_by})')
+    return dict(name='ray_march_merged_cut', route='cuda', source='tdgp_torch/csrc/ray_march.cu',
+                replaces='tdgp/ops/pallas_kernels.py:86',
+                also_replaces='tdgp/rendering/renderer.py:54 (the quantile cut of the jnp '
+                              'final march, renderer.py:151-165)',
+                max_abs_err=worst, ms=times['cold'], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, ms_warm=times['warm'],
+                ms_warm_prefilled=times['warm_prefilled'], ms_cold_clean=times['cold_clean'],
+                host_us=times['host_us'], threshold_ms=threshold_ms, uncut_ms=uncut_ms,
+                zeroed=zeroed, samples=clamped.numel())
+
+
+def depth_maps(ctx, seed=0):
+    return ctx.make_depth_sampler(CUT_Q)(ctx.batch_size, seed)
+
+
+def metrics_phase(ray_march, counters, data_dir, device='cuda'):
+    """The rest of the metric suite on the card. K3's cut entry alone
+    (`cut_kernel_phase`); nfs256 on the committed flagship at its precision
+    (256 depth maps from the mean camera, the loop's folder giving the
+    labels): one batch of 4 depth maps through K3's cut entry against its
+    plain version (<= NFS_KERNEL_LIMIT of max |depth|; K4 and K5 alike on
+    both sides, then also swapped, printed; cuDNN deterministic), one batch
+    card vs CPU at the float32 cut at a 64^2 output (without the cut <=
+    NFS_CPU_LIMIT everywhere; with it, the share of pixels beyond that <=
+    NFS_CPU_SHARE and the batch's NFS within NFS_CPU_REL), then the metric through
+    the registry with its launches counted (K3's cut entry once per ray
+    chunk, K4 twice, no other K3); InceptionV3 at 299^2 and VGG16 at 224^2
+    at seeded random weights, ms per batch of 16; KID, precision/recall and
+    IS of METRIC_IMAGES flagship images against METRIC_IMAGES of the folder
+    and PPL at PPL_PAIRS pairs (VGG16 as its detector), the counts cut from
+    the registry's. Returns (the nfs256 launches, the readings, K3's cut
+    entry)."""
+    from tdgp_torch.config import load_config
+    from tdgp_torch.data.dataset import ImageFolderDataset
+    from tdgp_torch.metrics import inception, registry, vgg
+    from tdgp_torch.metrics import inception_score as is_mod
+    from tdgp_torch.metrics import kid as kid_mod
+    from tdgp_torch.metrics import nfs as nfs_mod
+    from tdgp_torch.metrics import ppl as ppl_mod
+    from tdgp_torch.metrics import precision_recall as pr_mod
+    from tdgp_torch.metrics.detectors import RandomProjectionDetector
+    from tdgp_torch.profile_serving import FP32, OVERRIDES, RUN_DIR
+    from tdgp_torch.serving import load_generator
+    g = torch.Generator(device=device).manual_seed(3)
+    k3_cut = cut_kernel_phase(ray_march, g)
+    readings = {}
+    dataset = ImageFolderDataset(data_dir, resolution=256, use_labels=True)
+
+    def context(overrides, dev, batch_size):
+        cfg = load_config(os.path.join(RUN_DIR, 'experiment_config.yaml'), overrides)
+        return registry.EvalContext(cfg=cfg, G=load_generator(RUN_DIR, dev, overrides),
+                                    dataset=dataset, batch_size=batch_size)
+
+    ctx4 = context(OVERRIDES, device, 4)
+    # cuDNN's deterministic algorithms: another algorithm moves a density by ulps, and a
+    # sample at the threshold then changes side (a ray's last sample, marched with
+    # delta 1e10, moves its depth by up to the far end)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels = depth_maps(ctx4)
+        again = depth_maps(ctx4)
+        with plain_versions(k1=False, k3=True):
+            plain = depth_maps(ctx4)
+        with plain_versions(k1=False, k3=True, k4=True, k5=True):
+            all_plain = depth_maps(ctx4)
+        uncut = ctx4.make_depth_sampler(0.0)(4, 0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    scale = float(plain.abs().max())
+
+    def beyond(a, b):
+        diff = (a - b).abs()
+        return float(diff.max()) / scale, float((diff > NFS_KERNEL_LIMIT * scale).float().mean())
+
+    rel, share = beyond(kernels, plain)
+    rel_all, share_all = beyond(kernels, all_plain)
+    print(f'flagship depth maps [4, 256, 256, 1], cut at q = {CUT_Q}, cuDNN deterministic: K3 '
+          f'cut entry vs its plain version {rel:.3g} of max |depth| (<= {NFS_KERNEL_LIMIT:g}; '
+          f'{share:.3g} of the pixels above); twice through the kernels '
+          f'{beyond(kernels, again)[0]:.3g}; with K4 and K5 plain too {rel_all:.3g} '
+          f'({share_all:.3g} of the pixels above the limit: densities ulps apart cross the '
+          f'threshold); without the cut {beyond(uncut, kernels)[0]:.3g}')
+    check(rel <= NFS_KERNEL_LIMIT, 'depth maps: K3 cut entry disagrees with its plain version')
+    del ctx4
+    small = OVERRIDES + FP32 + ['dataset.resolution=64']  # a 64^2 output (finalize_config)
+    card_ctx, cpu_ctx = context(small, device, 4), context(small, 'cpu', 4)
+    ray = card_ctx.cfg.camera.ray
+    maps = {}
+    for q in (CUT_Q, 0.0):
+        maps[q] = (card_ctx.make_depth_sampler(q)(4, 0).cpu(), cpu_ctx.make_depth_sampler(q)(4, 0))
+    uncut_diff = float((maps[0.0][0] - maps[0.0][1]).abs().max())
+    card, cpu = maps[CUT_Q]
+    cpu_diff = float((card - cpu).abs().max())
+    cpu_share = float(((card - cpu).abs() > NFS_CPU_LIMIT).float().mean())
+    nfs_card, nfs_cpu = (nfs_mod.compute_nfs_from_depth_maps(m[..., 0].numpy(), ray.start, ray.end)
+                         for m in (card, cpu))
+    nfs_rel = abs(nfs_card - nfs_cpu) / abs(nfs_cpu)
+    print(f'flagship depth maps [4, 64, 64, 1], float32 cut, card vs CPU: without the cut max abs '
+          f'{uncut_diff:.3g} (<= {NFS_CPU_LIMIT:g}); with the cut max abs {cpu_diff:.3g}, '
+          f'{cpu_share:.3g} of the pixels beyond {NFS_CPU_LIMIT:g} (<= {NFS_CPU_SHARE:g}), the '
+          f"batch's NFS {nfs_card!r} on the card, {nfs_cpu!r} on the CPU (relative "
+          f'{nfs_rel:.3g}, <= {NFS_CPU_REL:g})')
+    check(uncut_diff <= NFS_CPU_LIMIT and cpu_share <= NFS_CPU_SHARE and nfs_rel <= NFS_CPU_REL,
+          'depth maps: the card disagrees with the CPU')
+    del card_ctx, cpu_ctx
+
+    ctx = context(OVERRIDES, device, 16)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with BiasActCalls() as calls:
+        nfs = registry.nfs256(ctx)['nfs256']
+    torch.cuda.synchronize()
+    nfs_s = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    gc = ctx.cfg.generator
+    # one launch per ray chunk of each render call (of _resolve_batch_gpu images)
+    chunks = (256 // ctx._resolve_batch_gpu()) * (gc.img_resolution ** 2) // (gc.max_batch_res ** 2)
+    expected = {'ray_march_merged_cut': chunks, 'ray_march_merged': 0, 'ray_march_reduced': 0,
+                'triplane_mlp': 2 * chunks, **{n: calls.count[n] for n in K5_NAMES.values()}}
+    got = {k: launches.get(k) for k in expected}
+    print(f'nfs256 of the flagship: {nfs!r} in {nfs_s:.1f} s; launches {launches} (expected '
+          f'{expected})')
+    check(np.isfinite(nfs) and nfs >= 1.0, 'nfs256 is not a score')
+    check(got == expected, 'kernel launch counts of nfs256')
+    readings.update(nfs256=nfs, nfs256_s=nfs_s, depth_kernel_vs_plain=rel,
+                    depth_all_plain=rel_all, depth_all_plain_share=share_all,
+                    depth_card_vs_cpu=cpu_diff, depth_card_vs_cpu_share=cpu_share,
+                    depth_card_vs_cpu_uncut=uncut_diff, batch_nfs_card_vs_cpu=nfs_rel,
+                    cut_zeroed=k3_cut['zeroed'])
+
+    images = torch.randint(0, 256, (16, 256, 256, 3), dtype=torch.uint8, device=device,
+                           generator=g)
+    torch.manual_seed(0)
+    incep = inception.Detector(inception.InceptionV3FID().to(device), inception.preprocess)
+    vgg16 = vgg.Detector(vgg.VGG16().to(device), vgg.preprocess)
+    for name, det in (('inception_v3_299', incep), ('vgg16_224', vgg16)):
+        ms = cuda_ms(lambda: det(images), 10, repeats=3)
+        out = det(images)
+        check(bool(torch.isfinite(out).all()), f'{name}: non-finite features')
+        readings[f'{name}_ms_per_16'] = ms
+        print(f'{name} at seeded random weights (exact_fp32): {ms:.2f} ms per batch of 16, '
+              f'features {tuple(out.shape)}')
+
+    ctx.detector = RandomProjectionDetector(2048, device=device)
+    ctx.ppl_detector = vgg16
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    real, gen = registry._all_features(ctx, METRIC_IMAGES, METRIC_IMAGES)
+    kid = kid_mod.compute_kid(real, gen)
+    precision, recall = pr_mod.compute_pr(real, gen, device=device)
+    is_mean, is_std = is_mod.compute_is(gen)
+    suite_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppl = ppl_mod.compute_ppl(ctx.make_pair_sampler(), ctx.ppl_detector, num_samples=PPL_PAIRS,
+                              batch_size=ctx.batch_size)
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    sampler_launches = launch_counts(counters)
+    print(f'{METRIC_IMAGES} flagship images vs {METRIC_IMAGES} of the folder (random projection, '
+          f'2048): kid {kid!r}, precision {precision!r}, recall {recall!r}, IS ({is_mean!r}, '
+          f'{is_std!r}; NaN: the projection is no probability, as in the JAX package) in '
+          f'{suite_s:.1f} s; ppl2_wend at {PPL_PAIRS} pairs (VGG16, random weights) {ppl!r} in '
+          f'{ppl_s:.1f} s; launches {sampler_launches}. Counts reduced from 50,000 and 2048.')
+    check(np.isfinite(kid) and 0 <= precision <= 1 and 0 <= recall <= 1 and np.isfinite(ppl),
+          'KID, precision/recall or PPL failed')
+    check(sampler_launches['ray_march_merged'] > 0 and sampler_launches['triplane_mlp'] > 0,
+          'the samplers did not run the kernels')
+    readings.update(kid=kid, precision=precision, recall=recall, is_mean=is_mean, is_std=is_std,
+                    ppl=ppl, kid_pr_is_s=suite_s, ppl_s=ppl_s, metric_images=METRIC_IMAGES,
+                    ppl_pairs=PPL_PAIRS)
+    return launches, readings, k3_cut
+
+
 def serve_run(G, served, requests, label):
     """Serves `requests` with `G` after one warm-up: images [4, 256, 256, 3]
     in [0, 1]; ms per request, images/s, peak memory; each kernel's launches
@@ -2123,11 +2380,18 @@ def main():
     train_images_per_s = train_own['images_per_s']
     k1.update(k1_step)
 
-    with phase('loop', seconds), tempfile.TemporaryDirectory() as tmp_dir:
-        loop_launches, loop_readings = loop_phase(
-            tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
-                      ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
-                      triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        with phase('loop', seconds):
+            loop_launches, loop_readings = loop_phase(
+                tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
+                          ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
+                          triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
+        with phase('metrics', seconds):
+            metrics_launches, metrics_readings, k3_cut = metrics_phase(
+                ray_march, [splat.triplane_splat, ray_march.ray_march_reduced,
+                            ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
+                            ray_march.ray_march_merged_cut, triplane_mlp.triplane_mlp,
+                            bias_act.bias_act], os.path.join(tmp_dir, 'data'))
     sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
                     ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                     triplane_mlp.triplane_mlp, bias_act.bias_act]
@@ -2150,14 +2414,15 @@ def main():
                'inference': infer_launches, 'train': train_launches,
                'train_float32': train_fp32_launches, 'train_fresh_fakes': train_fresh_launches,
                'loop': loop_launches, 'stylegan2': sg2_launches,
-               'stylegan2_float32': sg2_fp32_launches, 'stylegan2_loop': sg2_loop_launches}
+               'stylegan2_float32': sg2_fp32_launches, 'stylegan2_loop': sg2_loop_launches,
+               'metrics': metrics_launches}
     k5['bound_ms_per_request'] = serve_fp32['k5_bound_ms']
     k5_bf16['bound_ms_per_request'] = serve_own['k5_bound_ms']
     k5['launches_per_request'] = {'own precision': serve_own['k5_per_request']['bias_act'],
                                   'float32 cut': serve_fp32['k5_per_request']['bias_act']}
     k5_bf16['launches_per_request'] = {'own precision':
                                        serve_own['k5_per_request']['bias_act_bf16']}
-    for k in (k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16):
+    for k in (k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())
 
@@ -2170,7 +2435,8 @@ def main():
     sg2_readings = {'card': card, 'own': sg2_own, 'float32': sg2_fp32, 'loop': sg2_loop,
                     'check': sg2_check}
     print(f'stylegan2: {json.dumps(sg2_readings)}')
-    print(json.dumps({'kernels': [k3, k3_merged, k3_bwd, k1, k4, k5, k5_bf16]}))
+    print(f'metrics: {json.dumps(metrics_readings)}')
+    print(json.dumps({'kernels': [k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -23,7 +23,9 @@ against each other (<= 1e-5 x max |earlier|; K3 <= 1e-5 absolute):
     [16, 4096, 64, 3]; and the earlier two-step final march of a served
     chunk, the earlier checkout's own `unify_samples_sorted`
     (`tdgp_torch/rendering/renderer.py` there) then its K3, against this
-    tree's merged entry on the same two sets of 32 samples.
+    tree's merged entry on the same two sets of 32 samples; and the earlier
+    merged entry (`tdgp_ray_march_merged`, where the checkout has it)
+    against this tree's.
 Prints the card's name and power limit, one line per input, and a JSON
 object of the times as its last line. Needs a CUDA device.
 """
@@ -109,6 +111,29 @@ def earlier_march(lib):
                  0, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f'the earlier K3 failed to launch: {err}')
+        return rgb, depth, wsum, ftrans
+    return run
+
+
+def earlier_merged(lib):
+    """The earlier merged entry (`tdgp_ray_march_merged`), or None where the
+    checkout predates it."""
+    fn = getattr(lib, 'tdgp_ray_march_merged', None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(*sets):  # softplus, inf depth, no last_back
+        b, r, s1 = sets[0].shape
+        s2, c = sets[3].shape[2], sets[1].shape[3]
+        rgb = torch.empty((b, r, c), device=sets[0].device)
+        depth, wsum, ftrans = (torch.empty((b, r), device=sets[0].device) for _ in range(3))
+        err = fn(*[t.data_ptr() for t in (*sets, rgb, depth, wsum, ftrans)], b * r, s1, s2, c, 0,
+                 1.0, 1e10, 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'the earlier merged K3 failed to launch: {err}')
         return rgb, depth, wsum, ftrans
     return run
 
@@ -234,7 +259,9 @@ def k4_phase(parent, chip_smoke, result, gen):
 
 
 def k3_phase(parent, chip_smoke, result, gen):
-    old_march = earlier_march(build_earlier(parent, 'ray_march'))
+    old_lib = build_earlier(parent, 'ray_march')
+    old_march = earlier_march(old_lib)
+    old_merged = earlier_merged(old_lib)
     old_renderer = earlier_module(parent, 'tdgp_torch/rendering/renderer.py', 'earlier_renderer')
 
     def same(a_out, b_out, what):
@@ -274,6 +301,10 @@ def k3_phase(parent, chip_smoke, result, gen):
 
     err = same(ray_march.ray_march_merged(*sets), two_step(), 'K3 merged')
     turns('k3_merged_vs_two_step', two_step, lambda: ray_march.ray_march_merged(*sets), err)
+    if old_merged is not None:  # the merged entry itself, before and after
+        err = same(ray_march.ray_march_merged(*sets), old_merged(*sets), 'K3 merged')
+        turns('k3_merged', lambda: old_merged(*sets), lambda: ray_march.ray_march_merged(*sets),
+              err)
 
 
 if __name__ == '__main__':

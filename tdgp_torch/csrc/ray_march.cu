@@ -200,17 +200,19 @@ struct Merged {
 // densities xs, colours cs [., C], at the same offsets) on the L lanes of
 // the ray (li: the lane's place among them), adding into `acc`; n <= L K.
 // `Source` gives the samples' offsets in marching order (InOrder, Merged).
+// With `Cut`, a clamped density below `thresh` is set to 0 before it is
+// marched (the eval-time quantile cut; the threshold comes from outside).
 // Lane li takes samples li K .. li K + K - 1: it sums w / T_front over them
 // (its weights relative to the transmittance in front of its first
 // sample), one product scan over the ray's lanes gives that transmittance,
 // and one multiply per sum scales them. The last sample's delta is
 // t_after - t where the ray goes on past these n samples (`more`), else
 // last_delta.
-template <int C, int L, int K, typename Source>
+template <int C, int L, int K, bool Cut = false, typename Source>
 __device__ __forceinline__ void march(const float* ts, const float* xs, const float* cs,
                                       Source src, int n, bool more, float t_after,
                                       int clamp_mode, float beta, float last_delta, int li,
-                                      Sums<C>& acc) {
+                                      Sums<C>& acc, float thresh = 0.f) {
   const int i0 = li * K;
   float t = 0.f;
   int at = i0 < n ? src.next(ts, t) : 0;
@@ -223,7 +225,9 @@ __device__ __forceinline__ void march(const float* ts, const float* xs, const fl
       float t_next = t_right;
       const int at_next = k + 1 < K && i + 1 < n ? src.next(ts, t_next) : at;
       const float delta = i + 1 < n ? t_next - t : (more ? t_after - t : last_delta);
-      const float alpha = 1.f - expf(-delta * clamp_density(xs[at], clamp_mode, beta));
+      float sigma = clamp_density(xs[at], clamp_mode, beta);
+      if constexpr (Cut) sigma = sigma < thresh ? 0.f : sigma;
+      const float alpha = 1.f - expf(-delta * sigma);
       const float wk = alpha * prod;
       w += wk;
       depth += wk * t;
@@ -334,8 +338,9 @@ ray_march_reduced_kernel(const float* __restrict__ colors,     // [N, S, C]
 
 // A warp marches 32 / L consecutive rays, L lanes each. Shared memory, per
 // warp, for its Q rays: the depths (set 1 of every ray, then set 2), and the
-// raw densities and colours at the same offsets.
-template <int C, int L, int K>
+// raw densities and colours at the same offsets. With `Cut`, the clamped
+// densities below *thresh are marched as 0.
+template <int C, int L, int K, bool Cut>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 ray_march_merged_kernel(const float* __restrict__ t1,  // [N, S1] depths, sorted per ray
                         const float* __restrict__ c1,  // [N, S1, C] colours
@@ -343,6 +348,7 @@ ray_march_merged_kernel(const float* __restrict__ t1,  // [N, S1] depths, sorted
                         const float* __restrict__ t2,  // [N, S2], sorted per ray
                         const float* __restrict__ c2,  // [N, S2, C]
                         const float* __restrict__ x2,  // [N, S2]
+                        const float* __restrict__ thresh,  // [1] with Cut, else unused
                         float* __restrict__ rgb_out,   // [N, C]
                         float* __restrict__ depth_out, float* __restrict__ wsum_out,
                         float* __restrict__ ftrans_out,  // [N] each
@@ -368,7 +374,12 @@ ray_march_merged_kernel(const float* __restrict__ t1,  // [N, S1] depths, sorted
   const int n = q < nq ? s : 0;
   const Merged merged(ts, q * s1, s1, Q * s1 + q * s2, s2, li * K < n ? li * K : 0);
   Sums<C> acc;
-  march<C, L, K>(ts, xs, cs, merged, n, false, 0.f, clamp_mode, sp_beta, last_delta, li, acc);
+  if constexpr (Cut) {
+    march<C, L, K, true>(ts, xs, cs, merged, n, false, 0.f, clamp_mode, sp_beta, last_delta, li,
+                         acc, *thresh);
+  } else {
+    march<C, L, K>(ts, xs, cs, merged, n, false, 0.f, clamp_mode, sp_beta, last_delta, li, acc);
+  }
   finish<C, L>(acc, ts, cs, n ? merged.last(ts) : 0, last_back, li, n > 0, ray0 + q, rgb_out,
                depth_out, wsum_out, ftrans_out);
 }
@@ -541,6 +552,28 @@ ray_march_reduced_bwd_kernel(const float* __restrict__ colors,     // [N, S, C]
   }
 }
 
+template <bool Cut>
+int launch_merged(const float* t1, const float* c1, const float* x1, const float* t2,
+                  const float* c2, const float* x2, const float* thresh, float* rgb,
+                  float* depth, float* wsum, float* ftrans, long long n_rays, int s1, int s2,
+                  int n_channels, int clamp_mode, float sp_beta, float last_delta,
+                  int last_back, void* stream) {
+  if (n_channels < 1 || n_channels > kMaxChannels || s1 < 1 || s2 < 1 ||
+      s1 + s2 > kMaxMerged || n_rays < 1 || (Cut && thresh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return with_widths(n_channels, s1 + s2, [&](auto cc, auto ll, auto kk) {
+    constexpr int C = decltype(cc)::value, L = decltype(ll)::value, K = decltype(kk)::value;
+    constexpr int kRaysPerBlockHere = kWarpsPerBlock * 32 / L;
+    const long long blocks = (n_rays + kRaysPerBlockHere - 1) / kRaysPerBlockHere;
+    const size_t smem = sizeof(float) * kRaysPerBlockHere * (s1 + s2) * (C + 2);
+    ray_march_merged_kernel<C, L, K, Cut><<<(unsigned)blocks, 32 * kWarpsPerBlock, smem,
+                                            (cudaStream_t)stream>>>(
+        t1, c1, x1, t2, c2, x2, thresh, rgb, depth, wsum, ftrans, n_rays, s1, s2, clamp_mode,
+        sp_beta, last_delta, last_back);
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -576,20 +609,26 @@ int tdgp_ray_march_merged(const float* t1, const float* c1, const float* x1,
                           float* rgb, float* depth, float* wsum, float* ftrans,
                           long long n_rays, int s1, int s2, int n_channels, int clamp_mode,
                           float sp_beta, float last_delta, int last_back, void* stream) {
-  if (n_channels < 1 || n_channels > kMaxChannels || s1 < 1 || s2 < 1 ||
-      s1 + s2 > kMaxMerged || n_rays < 1)
-    return (int)cudaErrorInvalidValue;
-  return with_widths(n_channels, s1 + s2, [&](auto cc, auto ll, auto kk) {
-    constexpr int C = decltype(cc)::value, L = decltype(ll)::value, K = decltype(kk)::value;
-    constexpr int kRaysPerBlockHere = kWarpsPerBlock * 32 / L;
-    const long long blocks = (n_rays + kRaysPerBlockHere - 1) / kRaysPerBlockHere;
-    const size_t smem = sizeof(float) * kRaysPerBlockHere * (s1 + s2) * (C + 2);
-    ray_march_merged_kernel<C, L, K><<<(unsigned)blocks, 32 * kWarpsPerBlock, smem,
-                                       (cudaStream_t)stream>>>(
-        t1, c1, x1, t2, c2, x2, rgb, depth, wsum, ftrans, n_rays, s1, s2, clamp_mode, sp_beta,
-        last_delta, last_back);
-    return (int)cudaGetLastError();
-  });
+  return launch_merged<false>(t1, c1, x1, t2, c2, x2, nullptr, rgb, depth, wsum, ftrans, n_rays,
+                              s1, s2, n_channels, clamp_mode, sp_beta, last_delta, last_back,
+                              stream);
+}
+
+// The same with the quantile cut of the JAX package's eval renders
+// (tdgp/rendering/renderer.py:54 _apply_cut_quantile, on its jnp marcher
+// there): every clamped density below *thresh (device memory, one float:
+// the quantile that the caller took over the clamped densities of both sets)
+// is marched as 0. The cut adds one compare and one select per sample and
+// a 4-byte read per warp to the forward's traffic.
+int tdgp_ray_march_merged_cut(const float* t1, const float* c1, const float* x1,
+                              const float* t2, const float* c2, const float* x2,
+                              const float* thresh, float* rgb, float* depth, float* wsum,
+                              float* ftrans, long long n_rays, int s1, int s2, int n_channels,
+                              int clamp_mode, float sp_beta, float last_delta, int last_back,
+                              void* stream) {
+  return launch_merged<true>(t1, c1, x1, t2, c2, x2, thresh, rgb, depth, wsum, ftrans, n_rays,
+                             s1, s2, n_channels, clamp_mode, sp_beta, last_delta, last_back,
+                             stream);
 }
 
 // The backward. Same requirements and return value as the forward.

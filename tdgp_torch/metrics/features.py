@@ -22,13 +22,18 @@ from tdgp_torch.utils.draws import Draws
 
 
 class FeatureStats:
-    """Accumulates the (mean, cov) moments of up to `max_items` features (the
-    JAX package's `capture_all` serves KID and PR, which are not ported)."""
+    """Accumulates up to `max_items` features: their (mean, cov) moments
+    (`capture_mean_cov`, FID) and/or the features themselves (`capture_all`,
+    KID, precision/recall and IS)."""
 
-    def __init__(self, max_items: Optional[int] = None):
+    def __init__(self, max_items: Optional[int] = None, capture_all: bool = False,
+                 capture_mean_cov: bool = True):
+        self.capture_all = capture_all
+        self.capture_mean_cov = capture_mean_cov
         self.max_items = max_items
         self.num_items = 0
         self.num_features: Optional[int] = None
+        self.all_features: Optional[list] = None
         self.raw_mean = None
         self.raw_cov = None
 
@@ -38,8 +43,10 @@ class FeatureStats:
                 raise ValueError(f'{num_features} features after {self.num_features}')
             return
         self.num_features = num_features
-        self.raw_mean = np.zeros(num_features, dtype=np.float64)
-        self.raw_cov = np.zeros((num_features, num_features), dtype=np.float64)
+        self.all_features = []
+        if self.capture_mean_cov:
+            self.raw_mean = np.zeros(num_features, dtype=np.float64)
+            self.raw_cov = np.zeros((num_features, num_features), dtype=np.float64)
 
     def is_full(self) -> bool:
         return self.max_items is not None and self.num_items >= self.max_items
@@ -54,11 +61,22 @@ class FeatureStats:
             x = x[:self.max_items - self.num_items]
         self.set_num_features(x.shape[1])
         self.num_items += x.shape[0]
-        x64 = x.astype(np.float64)
-        self.raw_mean += x64.sum(axis=0)
-        self.raw_cov += x64.T @ x64
+        if self.capture_all:
+            self.all_features.append(x)
+        if self.capture_mean_cov:
+            x64 = x.astype(np.float64)
+            self.raw_mean += x64.sum(axis=0)
+            self.raw_cov += x64.T @ x64
+
+    def get_all(self) -> np.ndarray:
+        """The features, float32 [num_items, D]."""
+        if not self.capture_all:
+            raise ValueError('the features were not captured (capture_all=False)')
+        return np.concatenate(self.all_features, axis=0)
 
     def get_mean_cov(self):
+        if not self.capture_mean_cov:
+            raise ValueError('the moments were not captured (capture_mean_cov=False)')
         mean = self.raw_mean / self.num_items
         cov = self.raw_cov / self.num_items - np.outer(mean, mean)
         return mean, cov
@@ -95,21 +113,23 @@ def _features(detector: Callable, images) -> np.ndarray:
 def compute_feature_stats_for_dataset(
     dataset, detector: Callable, *, detector_name: str = 'detector',
     batch_size: int = 64, max_items: Optional[int] = None,
-    cache_dir: Optional[str] = None,
+    cache_dir: Optional[str] = None, capture_all: bool = False, capture_mean_cov: bool = True,
 ) -> FeatureStats:
     """The features of the dataset's first `max_items` items (all of them by
-    default), in batches of `batch_size`; from the cache when it has them."""
+    default), in batches of `batch_size`, as `FeatureStats` with what it
+    captures; from the cache when it has them."""
+    stats_kwargs = dict(capture_all=capture_all, capture_mean_cov=capture_mean_cov)
     cache_file = None
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         key = cache_key('features', dict(dataset=getattr(dataset, 'name', ''),
                                          n=len(dataset), detector=detector_name,
-                                         max_items=max_items))
+                                         max_items=max_items, **stats_kwargs))
         cache_file = os.path.join(cache_dir, key + '.pkl')
         if os.path.exists(cache_file):
             return FeatureStats.load(cache_file)
     num_items = len(dataset) if max_items is None else min(len(dataset), max_items)
-    stats = FeatureStats(max_items=num_items)
+    stats = FeatureStats(max_items=num_items, **stats_kwargs)
     idx = 0
     while not stats.is_full():
         images = [dataset[(idx + i) % len(dataset)]['image'] for i in range(batch_size)]
@@ -150,9 +170,11 @@ def iterate_random_conditioning(cfg: Config, dataset, batch_size: int, seed: int
 def compute_feature_stats_for_generator(
     sample_fn: Callable,  # (batch_size, seed) -> uint8 images [N, H, W, 3]
     detector: Callable, *, batch_size: int = 16, max_items: int = 2048,
+    capture_all: bool = False, capture_mean_cov: bool = True,
 ) -> FeatureStats:
     """The features of `max_items` images of G, sampled with seeds 0, 1, ..."""
-    stats = FeatureStats(max_items=max_items)
+    stats = FeatureStats(max_items=max_items, capture_all=capture_all,
+                         capture_mean_cov=capture_mean_cov)
     seed = 0
     while not stats.is_full():
         stats.append(_features(detector, sample_fn(batch_size, seed)))

@@ -131,13 +131,14 @@ class SynthesisNetwork(nn.Module):
         self.camera_adaptor = (CameraAdaptor(cfg.camera_adaptor, cfg.camera)
                                if cfg.camera_adaptor.enabled else None)
 
-    def render_opts(self) -> RenderOptions:
+    def render_opts(self, cut_quantile: float = 0.0) -> RenderOptions:
         c = self.cfg
         return RenderOptions(
             num_proposal_steps=c.num_ray_steps, num_fine_steps=c.num_ray_steps,
             ray_start=c.camera.ray.start, ray_end=c.camera.ray.end,
             clamp_mode=c.clamp_mode, use_inf_depth=c.use_inf_depth,
-            last_back=c.last_back, march_impl=resolve_march_impl(c.ray_march_impl))
+            last_back=c.last_back, cut_quantile=cut_quantile,
+            march_impl=resolve_march_impl(c.ray_march_impl))
 
     def decode_planes(self, ws: torch.Tensor,
                       noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
@@ -184,15 +185,18 @@ class SynthesisNetwork(nn.Module):
                 patch_params: Optional[Dict[str, torch.Tensor]] = None, *,
                 draws: Optional[Draws] = None, concat_depth: bool = False,
                 return_depth: bool = False, nerf_noise_std: float = 0.0,
-                depth_progress: float = 1.0, resolution: Optional[int] = None,
-                ray_chunk: Optional[int] = None):
+                depth_progress: float = 1.0, cut_quantile: float = 0.0,
+                resolution: Optional[int] = None, ray_chunk: Optional[int] = None):
         """-> images [N, H, W, img_channels (+1 with concat_depth)], or
         TensorGroup(img, depth) with `return_depth`.
 
         `draws` given is training: the output is the patch resolution when
         patches are on, and every random choice comes from `draws`
         ('noise/...', 'render/...', 'depth/...'). Rays are rendered
-        `ray_chunk` at a time (per image) when given.
+        `ray_chunk` at a time (per image) when given. `cut_quantile` > 0
+        zeroes the densities below that quantile of each render call (all
+        images, the chunk's rays) in both marches, as the JAX package's
+        eval renders for NFS do.
         """
         c = self.cfg
         n = ws.shape[0]
@@ -205,7 +209,7 @@ class SynthesisNetwork(nn.Module):
         c2w = compute_cam2world_matrix(camera_params)
         ray_o, ray_d = sample_rays(c2w, camera_params.fov, resolution=(w, h),
                                    patch_params=patch_params)
-        opts = self.render_opts()
+        opts = self.render_opts(cut_quantile)
         sample = self._sample_fn(planes.device)
 
         def run_model(coords):

@@ -23,13 +23,23 @@ kernel launch (counted in `ray_march_merged.launches`) for CUDA tensors and
 as `ray_march_merged_plain` for CPU tensors. It has no backward, and refuses
 CUDA inputs that autograd records: training merges with
 `unify_samples_sorted` and marches with `ray_march_reduced`.
+
+`ray_march_merged_cut` is the same march with the JAX package's eval-time
+quantile cut (NFS's depth maps; the JAX package marches it in jnp): the
+clamped densities below their quantile over both sets are marched as 0. The
+threshold is taken on the device (`quantile`, a sort, as `jnp.quantile`
+interpolates), and the merged kernel's cut instantiation reads it there
+(`ray_march_merged_cut.launches`); `ray_march_merged_cut_plain` for CPU
+tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,23 +54,55 @@ def _last_delta(use_inf_depth: bool) -> float:
     return 1e10 if use_inf_depth else 1e-3
 
 
+def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """`jnp.quantile(x, q)` over all of x (its default linear interpolation),
+    as a one-element float32 tensor on x's device: x sorted, the positions
+    floor and ceil of q (n - 1) and their weights in float32 as JAX takes
+    them, NaN if x holds one. A sort, not `torch.quantile`, which refuses
+    inputs of 2^24 elements and more."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pos = np.float32(q) * (np.float32(n) - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    high_weight = np.float32(pos - low)
+    low_weight = np.float32(1) - high_weight
+    low, high = (int(min(max(i, 0), n - 1)) for i in (low, high))
+    ordered = torch.sort(flat).values
+    out = ordered[low:low + 1] * low_weight + ordered[high:high + 1] * high_weight
+    return torch.where(torch.isnan(flat).any(), torch.full_like(out, float('nan')), out)
+
+
+def clamp_densities(densities: torch.Tensor, clamp_mode: str = 'softplus',
+                    sp_beta: float = 1.0) -> torch.Tensor:
+    if clamp_mode == 'softplus':
+        return F.softplus(sp_beta * densities) / sp_beta
+    if clamp_mode == 'relu':
+        return F.relu(densities)
+    raise NotImplementedError(f'Unknown clamp mode: {clamp_mode}')
+
+
+def cut_below_quantile(clamped: torch.Tensor, q: float) -> torch.Tensor:
+    """Clamped densities below their q-quantile set to 0
+    (`tdgp/rendering/renderer.py:54 _apply_cut_quantile`); q <= 0 cuts nothing."""
+    if q <= 0.0:
+        return clamped
+    return torch.where(clamped < quantile(clamped, q), torch.zeros_like(clamped), clamped)
+
+
 def classical_ray_march_plain(colors: torch.Tensor, densities: torch.Tensor,
                               depths: torch.Tensor, clamp_mode: str = 'softplus',
                               sp_beta: float = 1.0, use_inf_depth: bool = True,
-                              last_back: bool = False):
-    """The classical marcher of `tdgp/rendering/renderer.py:62-105`.
+                              last_back: bool = False, cut_quantile: float = 0.0):
+    """The classical marcher of `tdgp/rendering/renderer.py:62-105`, the
+    densities below their `cut_quantile`-quantile over the whole tensor
+    zeroed after the clamp.
 
     colors [B,R,S,C], densities [B,R,S], depths [B,R,S]
     -> (rgb [B,R,C], depth [B,R], weights [B,R,S], final_transmittance [B,R]).
     """
     deltas = depths[..., 1:] - depths[..., :-1]
     deltas = torch.cat([deltas, torch.full_like(depths[..., :1], _last_delta(use_inf_depth))], -1)
-    if clamp_mode == 'softplus':
-        densities = F.softplus(sp_beta * densities) / sp_beta
-    elif clamp_mode == 'relu':
-        densities = F.relu(densities)
-    else:
-        raise NotImplementedError(f'Unknown clamp mode: {clamp_mode}')
+    densities = cut_below_quantile(clamp_densities(densities, clamp_mode, sp_beta), cut_quantile)
     alphas = 1.0 - torch.exp(-deltas * densities)
     trans = torch.cumprod(1.0 - alphas + 1e-10, dim=-1)
     final_transmittance = trans[..., -1]
@@ -111,13 +153,17 @@ def unify_samples_sorted(depths1, colors1, densities1, depths2, colors2, densiti
 
 def ray_march_merged_plain(depths1, colors1, densities1, depths2, colors2, densities2,
                            clamp_mode: str = 'softplus', sp_beta: float = 1.0,
-                           use_inf_depth: bool = True, last_back: bool = False):
-    """`unify_samples_sorted` followed by `ray_march_reduced_plain`
+                           use_inf_depth: bool = True, last_back: bool = False,
+                           cut_quantile: float = 0.0):
+    """`unify_samples_sorted` followed by the classical march, its densities
+    cut below their `cut_quantile`-quantile as JAX's marcher cuts them
+    (softplus, quantile, compare, march)
     -> (rgb [B,R,C], depth [B,R], weights_sum [B,R], final_transmittance [B,R])."""
     depths, colors, densities = unify_samples_sorted(depths1, colors1, densities1, depths2,
                                                      colors2, densities2)
-    return ray_march_reduced_plain(colors, densities, depths, clamp_mode, sp_beta,
-                                   use_inf_depth, last_back)
+    rgb, depth, weights, ftrans = classical_ray_march_plain(
+        colors, densities, depths, clamp_mode, sp_beta, use_inf_depth, last_back, cut_quantile)
+    return rgb, depth, weights.sum(-1), ftrans
 
 
 def ray_march_reduced_bwd_plain(colors, densities, depths, g_rgb, g_depth, g_wsum,
@@ -175,9 +221,13 @@ def _kernels():
     merged.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     merged.restype = ctypes.c_int
+    cut = lib.tdgp_ray_march_merged_cut
+    cut.argtypes = [ctypes.c_void_p] * 11 + merged.argtypes[10:]
+    cut.restype = ctypes.c_int
     lib.tdgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_cuda_error_string.restype = ctypes.c_char_p
-    return fwd, bwd, merged, lib.tdgp_cuda_error_string
+    return types.SimpleNamespace(fwd=fwd, bwd=bwd, merged=merged, cut=cut,
+                                 error_string=lib.tdgp_cuda_error_string)
 
 
 def _launch(fn, error_string, what, device, tensors, n_rays, s, c, clamp_mode, sp_beta,
@@ -220,8 +270,8 @@ def _forward(colors, densities, depths, clamp_mode, sp_beta, use_inf_depth, last
     rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
     depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
                            for _ in range(3))
-    fwd, _, _, error_string = _kernels()
-    _launch(fwd, error_string, 'ray_march_reduced', device,
+    k = _kernels()
+    _launch(k.fwd, k.error_string, 'ray_march_reduced', device,
             (colors, densities, depths, rgb, depth, wsum, ftrans), b * r, s, c,
             clamp_mode, sp_beta, use_inf_depth, last_back)
     ray_march_reduced.launches += 1
@@ -245,8 +295,8 @@ def ray_march_reduced_bwd(colors, densities, depths, g_rgb, g_depth, g_wsum, g_f
     grads = [g.to(torch.float32).contiguous() for g in (g_rgb, g_depth, g_wsum, g_ftrans)]
     g_colors = torch.empty_like(colors)
     g_densities, g_depths = torch.empty_like(densities), torch.empty_like(depths)
-    _, bwd, _, error_string = _kernels()
-    _launch(bwd, error_string, 'ray_march_reduced_bwd', device,
+    k = _kernels()
+    _launch(k.bwd, k.error_string, 'ray_march_reduced_bwd', device,
             (colors, densities, depths, *grads, g_colors, g_densities, g_depths), b * r, s, c,
             clamp_mode, sp_beta, use_inf_depth, last_back)
     ray_march_reduced_bwd.launches += 1
@@ -347,17 +397,78 @@ def ray_march_merged(depths1: torch.Tensor, colors1: torch.Tensor, densities1: t
     rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
     depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
                            for _ in range(3))
-    _, _, merged, error_string = _kernels()
+    k = _kernels()
     with torch.cuda.device(device):
-        err = merged(*[t.data_ptr() for t in (*sets, rgb, depth, wsum, ftrans)], b * r, s1, s2,
+        err = k.merged(*[t.data_ptr() for t in (*sets, rgb, depth, wsum, ftrans)], b * r, s1, s2,
                      c, _CLAMP_MODES[clamp_mode], float(sp_beta), _last_delta(use_inf_depth),
                      int(last_back), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f'ray_march_merged launch failed: {error_string(err).decode()}')
+        raise RuntimeError(f'ray_march_merged launch failed: {k.error_string(err).decode()}')
     ray_march_merged.launches += 1
+    return rgb, depth, wsum, ftrans
+
+
+def cut_threshold(densities1: torch.Tensor, densities2: torch.Tensor, cut_quantile: float,
+                  clamp_mode: str = 'softplus', sp_beta: float = 1.0) -> torch.Tensor:
+    """The `cut_quantile`-quantile of the clamped densities of both sample
+    sets together (one-element tensor on their device): the threshold of
+    the merged march, which a quantile takes in any order."""
+    return quantile(torch.cat([clamp_densities(x, clamp_mode, sp_beta).reshape(-1)
+                               for x in (densities1, densities2)]), cut_quantile)
+
+
+def ray_march_merged_cut_plain(depths1, colors1, densities1, depths2, colors2, densities2,
+                               cut_quantile: float, clamp_mode: str = 'softplus',
+                               sp_beta: float = 1.0, use_inf_depth: bool = True,
+                               last_back: bool = False):
+    """`ray_march_merged_plain` with the cut, in `ray_march_merged_cut`'s signature."""
+    return ray_march_merged_plain(depths1, colors1, densities1, depths2, colors2, densities2,
+                                  clamp_mode, sp_beta, use_inf_depth, last_back, cut_quantile)
+
+
+def ray_march_merged_cut(depths1: torch.Tensor, colors1: torch.Tensor, densities1: torch.Tensor,
+                         depths2: torch.Tensor, colors2: torch.Tensor, densities2: torch.Tensor,
+                         cut_quantile: float, clamp_mode: str = 'softplus', sp_beta: float = 1.0,
+                         use_inf_depth: bool = True, last_back: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ray_march_merged` with the clamped densities below their
+    `cut_quantile`-quantile over both sets (0 < cut_quantile <= 1) set to 0
+    before the march, as the JAX package's eval-time cut has them: the
+    threshold by `cut_threshold` on the inputs' device, then one launch of
+    the merged kernel's cut entry, which reads it there (counted in
+    `ray_march_merged_cut.launches`); `ray_march_merged_cut_plain` for CPU
+    tensors."""
+    sets = (depths1, colors1, densities1, depths2, colors2, densities2)
+    _check_merged(sets, clamp_mode)
+    if not 0.0 < cut_quantile <= 1.0:
+        raise ValueError(f'cut_quantile must be in (0, 1], got {cut_quantile}')
+    device = depths1.device
+    if device.type == 'cpu':
+        return ray_march_merged_cut_plain(*sets, cut_quantile, clamp_mode, sp_beta,
+                                          use_inf_depth, last_back)
+    if device.type != 'cuda':
+        raise ValueError(f'ray_march_merged_cut runs on CUDA or CPU tensors, not {device}')
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sets):
+        raise RuntimeError('ray_march_merged_cut has no backward')
+    threshold = cut_threshold(densities1, densities2, cut_quantile, clamp_mode, sp_beta)
+    b, r, s1 = depths1.shape
+    s2, c = depths2.shape[2], colors1.shape[3]
+    rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
+    depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
+                           for _ in range(3))
+    k = _kernels()
+    with torch.cuda.device(device):
+        err = k.cut(*[t.data_ptr() for t in (*sets, threshold, rgb, depth, wsum, ftrans)], b * r,
+                  s1, s2, c, _CLAMP_MODES[clamp_mode], float(sp_beta),
+                  _last_delta(use_inf_depth), int(last_back),
+                  torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'ray_march_merged_cut launch failed: {k.error_string(err).decode()}')
+    ray_march_merged_cut.launches += 1
     return rgb, depth, wsum, ftrans
 
 
 ray_march_reduced.launches = 0
 ray_march_reduced_bwd.launches = 0
 ray_march_merged.launches = 0
+ray_march_merged_cut.launches = 0

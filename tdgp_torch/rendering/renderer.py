@@ -26,7 +26,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tdgp_torch.ops.ray_march import (classical_ray_march_plain, ray_march_merged,
-                                      ray_march_reduced, unify_samples_sorted)
+                                      ray_march_merged_cut, ray_march_reduced,
+                                      unify_samples_sorted)
 from tdgp_torch.utils.draws import Draws
 
 MARCH_IMPLS = ('fused', 'jnp')
@@ -42,6 +43,10 @@ class RenderOptions:
     sp_beta: float = 1.0
     use_inf_depth: bool = True
     last_back: bool = False
+    # eval-time cleanup (NFS's depth maps): the clamped densities below their
+    # cut_quantile-quantile over the whole pass (every ray of the call, every
+    # sample) set to 0 in both marches; 0 cuts nothing
+    cut_quantile: float = 0.0
     # 'fused': final march in kernel K3, its merged entry where autograd does
     # not record, forward and backward where it does (their plain versions
     # on CPU tensors); 'jnp', the JAX package's name for its plain path, is
@@ -53,7 +58,8 @@ def classical_ray_march(colors: torch.Tensor, densities: torch.Tensor, depths: t
                         opts: RenderOptions):
     """-> (rgb [B,R,C], depth [B,R], weights [B,R,S], final_transmittance [B,R])."""
     return classical_ray_march_plain(colors, densities, depths, opts.clamp_mode,
-                                     opts.sp_beta, opts.use_inf_depth, opts.last_back)
+                                     opts.sp_beta, opts.use_inf_depth, opts.last_back,
+                                     opts.cut_quantile)
 
 
 def _check_march_impl(opts: RenderOptions, device: torch.device) -> None:
@@ -79,14 +85,21 @@ def march_merged(depths1, colors1, densities1, depths2, colors2, densities2,
 
     Where autograd records (training), `unify_samples_sorted` then
     `march_reduced`, whose backward needs the merged tensors; elsewhere one
-    call of K3's merged entry, `ray_march_merged`."""
+    call of K3's merged entry, `ray_march_merged`, or with a quantile cut
+    of its cut entry, `ray_march_merged_cut`."""
     sets = (depths1, colors1, densities1, depths2, colors2, densities2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in sets):
+        if opts.cut_quantile > 0.0:
+            raise NotImplementedError('the quantile cut renders without gradients only')
         depths, colors, densities = unify_samples_sorted(*sets)
         return march_reduced(colors, densities, depths, opts)
     _check_march_impl(opts, depths1.device)
-    return ray_march_merged(*(t.contiguous() for t in sets), opts.clamp_mode, opts.sp_beta,
-                            opts.use_inf_depth, opts.last_back)
+    sets = tuple(t.contiguous() for t in sets)
+    if opts.cut_quantile > 0.0:
+        return ray_march_merged_cut(*sets, opts.cut_quantile, opts.clamp_mode, opts.sp_beta,
+                                    opts.use_inf_depth, opts.last_back)
+    return ray_march_merged(*sets, opts.clamp_mode, opts.sp_beta, opts.use_inf_depth,
+                            opts.last_back)
 
 
 def sample_stratified(batch: int, num_rays: int, num_steps: int, device: torch.device,

@@ -8,12 +8,14 @@ the CPU). `--snapshot` is read as by `tdgp_torch.scripts.inference`: the
 port's own snapshots, a snapshot directory or an `.npz` export. Each result
 is printed and appended to the run's metric-<name>.jsonl under the
 snapshot's kimg (the label the training loop writes), or under the `.npz`
-as given. The repo has no InceptionV3 weights, so the features come from
-the random projection detector, the FID proxy of the JAX runs and of the
-training loop; with the loop's batch size (16) and dataset, a snapshot's
-fid2k_full is the value the loop recorded for it. The FID family is
-ported; the other metrics (KID, precision/recall, IS, PPL, NFS) raise
-NotImplementedError.
+as given. Every metric of the registry runs (`tdgp_torch.metrics.registry`:
+fid2k_full, fid5k_5k, fid50k_full, kid50k, kid50k_full, pr50k3,
+pr50k3_full, is50k, ppl2_wend, nfs256). The detector is chosen as the JAX
+script chooses it: InceptionV3 from the converted weights that
+$TDGP_INCEPTION_WEIGHTS names, else (the repo holds none) the random
+projection detector, the FID proxy of the JAX runs and of the training
+loop; with the loop's batch size (16) and dataset, a snapshot's fid2k_full
+is then the value the loop recorded for it.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     args = ap.parse_args(argv)
 
     from tdgp_torch.data.dataset import ImageFolderDataset
-    from tdgp_torch.metrics.detectors import RandomProjectionDetector
+    from tdgp_torch.metrics.detectors import make_fid_detector
     from tdgp_torch.metrics.registry import EvalContext, calc_metric, report_metric
 
     path = resolve_snapshot(args.run_dir, args.snapshot)
@@ -48,8 +50,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     data_path = args.data or cfg.dataset.path
     dataset = ImageFolderDataset(data_path, resolution=cfg.dataset.resolution,
                                  use_labels=cfg.dataset.c_dim > 0) if data_path else None
-    print('WARNING: using RandomProjectionDetector (no InceptionV3 weights)')
-    detector = RandomProjectionDetector(2048, device=device)
+    detector = make_fid_detector(device)
     ctx = EvalContext(cfg=cfg, G=G, dataset=dataset, detector=detector,
                       batch_size=args.batch_size, batch_gpu=args.batch_gpu,
                       cache_dir=os.path.join(args.run_dir, 'metric-cache'))

@@ -9,9 +9,11 @@
 A new run directory is made under `--run-root`, named after the config and
 the git hash, with the frozen config in it; `--run-dir` resumes an existing
 one from its frozen config and its newest snapshot. The in-loop metrics
-(`training.metrics`, computed when `dataset.path` is set) use the random
-projection detector (`tdgp_torch.metrics.detectors`), the FID proxy of the
-JAX runs: the repo has no InceptionV3 weights. Every `training.image_snap`
+(`training.metrics`, computed when `dataset.path` is set; fid2k_full and
+nfs256 by default) use InceptionV3 where $TDGP_INCEPTION_WEIGHTS names
+converted weights, else the random projection detector
+(`tdgp_torch.metrics.detectors`), the FID proxy of the JAX runs: the repo
+holds no InceptionV3 weights. Every `training.image_snap`
 ticks a 4x4 grid of the EMA generator's images is written to the run
 directory (for the 2D StyleGAN2 baseline, `--preset stylegan2`, its images
 with the const noise: the JAX script's grid renders through a camera, which
@@ -41,12 +43,12 @@ def make_metric_fn(cfg, run_dir: str, device: torch.device):
     """(trainer, cur_nimg) -> {name: value} for each of `training.metrics`,
     on G_ema, each result appended to <run_dir>/metric-<name>.jsonl."""
     from tdgp_torch.data.dataset import ImageFolderDataset
-    from tdgp_torch.metrics.detectors import RandomProjectionDetector
+    from tdgp_torch.metrics.detectors import make_fid_detector
     from tdgp_torch.metrics.registry import EvalContext, calc_metric, report_metric
 
-    print('metrics use the RandomProjectionDetector (no InceptionV3 weights): values stand '
-          'beside the JAX runs\' proxy, not beside the reference\'s FID')
-    detector = RandomProjectionDetector(2048, device=device)
+    detector = make_fid_detector(
+        device, 'WARNING: no InceptionV3 weights; using RandomProjectionDetector (metric '
+        'values will not be comparable to the reference)')
     eval_dataset = ImageFolderDataset(cfg.dataset.path, resolution=cfg.dataset.resolution,
                                       use_labels=cfg.dataset.c_dim > 0)
 

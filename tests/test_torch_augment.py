@@ -14,6 +14,7 @@ VJP) and an R1-style gradient of a gradient (a parameter's gradient of
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,17 @@ SHAPE = (4, 32, 32, 4)  # the image filter reflects 21 pixels, fewer than the si
 GEOMETRIC = ('xflip', 'rotate90', 'xint', 'scale', 'rotate', 'aniso', 'xfrac')
 COLOR = ('brightness', 'contrast', 'lumaflip', 'hue', 'saturation')
 GROUPS = GEOMETRIC + COLOR + ('imgfilter', 'noise', 'cutout')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 def T(x):

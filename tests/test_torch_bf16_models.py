@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import torch.nn.functional as F
 
 import jax
@@ -66,11 +67,14 @@ D_OF_FLOOR = 0.8      # D's logits and KD features
 R1_OF_FLOOR = 1.5     # R1's gradient of each conv weight of D's bf16 blocks
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 

@@ -15,6 +15,7 @@ double backward.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,17 @@ from tdgp_torch.ops.bias_act import activation_funcs, bias_act, bias_act_plain, 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ACTS = list(activation_funcs)
 OPTS = [dict(), dict(alpha=0.3, gain=0.7, clamp=2.0)]
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 def run_interpreted(fn, *args, **kwargs):

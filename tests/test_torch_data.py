@@ -13,6 +13,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from tdgp.data import dataset as jax_data
 
@@ -20,6 +21,17 @@ from tdgp_torch.data import dataset as port_data
 from tdgp_torch.training.loop import to_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope='module')

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -31,11 +32,14 @@ from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.weights import load_flat
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 

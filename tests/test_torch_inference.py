@@ -20,6 +20,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import yaml
 
 import jax
@@ -51,11 +52,14 @@ TRAJ = dict(num_frames=3, fov_diff=1.0, yaw_diff=0.5, pitch_diff=0.3, yaw_left=-
             yaw_offsets=[-0.4, 0.0, 0.4])
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 

@@ -22,6 +22,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from tdgp.config import asdict as jax_asdict
 from tdgp.infra.experiment import load_config as jax_load_config
@@ -31,6 +32,7 @@ from tdgp.training.telemetry import progress_scalars as jax_progress_scalars
 from tdgp_torch import checkpoint as ckpt
 from tdgp_torch.config import load_config
 from tdgp_torch.infra.experiment import create_experiment_dir
+from tdgp_torch.metrics import registry
 from tdgp_torch.scripts import train as train_script
 from tdgp_torch.training.loop import ada_adjust, training_loop
 from tdgp_torch.training.train_step import Trainer
@@ -44,11 +46,14 @@ TIMING_KEYS = {'Timing/sec_per_tick', 'Timing/sec_per_kimg', 'Timing/data',
                'Timing/step_dispatch', 'Timing/ada_sync', 'Timing/stats_sync'}
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 
@@ -76,7 +81,6 @@ def read(run_dir):
 
 @pytest.fixture(scope='module')
 def run(folder, tmp_path_factory):
-    torch.set_num_threads(1)
     cfg = load_config(overrides=overrides(folder), preset='tiny')
     run_dir = str(tmp_path_factory.mktemp('run'))
     calls = []
@@ -225,6 +229,38 @@ def test_train_script_on_the_cpu(folder, tmp_path, capsys):
                                str(3 * STEPS_PER_TICK * BATCH / 1e3)])
     assert again.resumed_from.endswith('network-snapshot-000000')
     assert again.batch_idx == 3 * STEPS_PER_TICK
+
+
+def test_train_script_records_fid_nfs_and_a_best_snapshot(tmp_path, monkeypatch):
+    """`scripts.train` with `training.metrics=[fid2k_full,nfs256]` (the
+    default metrics of the satellite and imagenet presets), tiny at 32^2 for
+    one tick, fid2k_full on 64 generated images (its own 2048 take minutes on
+    the CPU): both metric files get a finite line, the tick's stats carry
+    both and no failed evaluation, and the snapshot is the run's best."""
+    real = registry.compute_feature_stats_for_generator
+    monkeypatch.setattr(registry, 'compute_feature_stats_for_generator',
+                        lambda *a, **kw: real(*a, **dict(kw, max_items=64)))
+    folder32 = str(tmp_path / 'synth32')
+    subprocess.run([sys.executable, os.path.join(ROOT, 'data_scripts', 'make_synthetic_dataset.py'),
+                    '--out', folder32, '--n', '16', '--res', '32'], check=True,
+                   capture_output=True, timeout=120)
+    ov = ['discriminator.fp32_only=true', 'loss.kd.weight=0', f'dataset.path={folder32}',
+          'generator.img_resolution=32', 'dataset.resolution=32',
+          f'training.tick_kimg={BATCH / 1e3}', 'training.tensorboard=false', 'training.snap=1',
+          'training.val_freq=1', 'training.image_snap=100',
+          'training.metrics=[fid2k_full,nfs256]']
+    result = train_script.main(['--preset', 'tiny', '--device', 'cpu', '--run-root',
+                                str(tmp_path / 'runs'), '--max-kimg', str(BATCH / 1e3)] + ov)
+    run_dir = result.run_dir
+    for name in ('fid2k_full', 'nfs256'):
+        with open(os.path.join(run_dir, f'metric-{name}.jsonl')) as f:
+            lines = [json.loads(line) for line in f]
+        assert len(lines) == 1 and np.isfinite(lines[0]['results'][name]), name
+    stats = read(run_dir)[-1]
+    assert {'Metrics/fid2k_full', 'Metrics/nfs256'} <= set(stats)
+    assert 'Metrics/eval_failed' not in stats
+    assert stats['Metrics/nfs256']['mean'] >= 1.0
+    assert ckpt.find_best_checkpoint(run_dir) == ckpt.snapshot_path(run_dir, 0)
 
 
 def test_train_script_takes_overrides_between_its_options(folder, capsys):

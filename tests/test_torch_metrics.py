@@ -8,9 +8,9 @@
   - the feature statistics and the Frechet distance on the same features
     (rel 1e-4); the dataset's statistics on a tiny folder through both
     packages' detectors, with the cache;
-  - the registry: the FID entries, the metrics not ported raising by name,
-    and the generator sampler on a tiny G (uint8 images of the sampler's
-    shape, its render batches).
+  - the registry: its names, the samplers' refusal of a 2D model, and the
+    generator sampler on a tiny G (uint8 images of the sampler's shape, its
+    render batches).
 """
 import os
 import subprocess
@@ -19,6 +19,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -27,13 +28,24 @@ from tdgp.metrics import detectors as jax_detectors
 from tdgp.metrics import features as jax_features
 from tdgp.metrics import fid as jax_fid
 
-from tdgp_torch.config import apply_overrides, tiny_test_config
+from tdgp_torch.config import apply_overrides, load_config, tiny_test_config
 from tdgp_torch.data.dataset import ImageFolderDataset
 from tdgp_torch.metrics import detectors, features, fid, registry
 from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.models.layers import init_weights
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope='module')
@@ -113,12 +125,15 @@ def test_dataset_stats_as_jax_and_cached(tmp_path, jax_detector, port_detector):
 
 
 def test_registry_names():
+    """The JAX registry's names; every metric is ported, and the generator's
+    samplers refuse a 2D model, as the JAX package has none for it."""
     assert {'fid2k_full', 'fid5k_5k', 'fid50k_full', 'kid50k', 'kid50k_full', 'pr50k3',
             'pr50k3_full', 'is50k', 'ppl2_wend', 'nfs256'} == set(registry.list_metrics())
-    ctx = registry.EvalContext(cfg=tiny_test_config(), G=None)
-    for name in ('nfs256', 'kid50k', 'ppl2_wend'):
-        with pytest.raises(NotImplementedError, match=name):
+    ctx = registry.EvalContext(cfg=load_config(preset='stylegan2'), G=None)
+    for name in ('nfs256', 'is50k', 'ppl2_wend'):
+        with pytest.raises(NotImplementedError, match='2D StyleGAN2'):
             registry.calc_metric(name, ctx)
+    ctx = registry.EvalContext(cfg=tiny_test_config(), G=None)
     with pytest.raises(ValueError, match='unknown metric'):
         registry.calc_metric('fid1k', ctx)
 
@@ -130,19 +145,19 @@ def test_render_batch(res, expected):
 
 
 def test_image_sampler_and_fid_on_a_tiny_generator(port_detector):
-    """fid through the registry's own path, with a small sample: the
-    sampler's images are uint8 [16, 64, 64, 3], z is JAX's draw for the
-    seed, and two calls with one seed give the same images."""
+    """fid through the registry's own path, with a small sample at a batch
+    of 4: the sampler's images are uint8 [4, 64, 64, 3], z is JAX's draw for
+    the seed, and two calls with one seed give the same images."""
     cfg = tiny_test_config()
     G = init_weights(Generator(cfg.generator), torch.Generator().manual_seed(0)).eval()
-    ctx = registry.EvalContext(cfg=cfg, G=G, detector=port_detector)
-    images = ctx.make_image_sampler()(16, 3)
-    assert images.dtype == torch.uint8 and tuple(images.shape) == (16, 64, 64, 3)
-    assert torch.equal(images, ctx.make_image_sampler()(16, 3))
-    assert not torch.equal(images, ctx.make_image_sampler()(16, 4))
+    ctx = registry.EvalContext(cfg=cfg, G=G, detector=port_detector, batch_size=4)
+    images = ctx.make_image_sampler()(4, 3)
+    assert images.dtype == torch.uint8 and tuple(images.shape) == (4, 64, 64, 3)
+    assert torch.equal(images, ctx.make_image_sampler()(4, 3))
+    assert not torch.equal(images, ctx.make_image_sampler()(4, 4))
     real = features.FeatureStats()
-    real.append(port_detector(np.random.RandomState(0).randint(0, 256, (40, 64, 64, 3),
+    real.append(port_detector(np.random.RandomState(0).randint(0, 256, (10, 64, 64, 3),
                                                                 dtype=np.uint8)).numpy())
     gen = features.compute_feature_stats_for_generator(
-        ctx.make_image_sampler(), port_detector, batch_size=16, max_items=40)
-    assert gen.num_items == 40 and np.isfinite(fid.compute_fid(real, gen))
+        ctx.make_image_sampler(), port_detector, batch_size=4, max_items=10)
+    assert gen.num_items == 10 and np.isfinite(fid.compute_fid(real, gen))

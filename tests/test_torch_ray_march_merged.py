@@ -18,6 +18,7 @@ np.random.RandomState.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -37,11 +38,14 @@ CASES = [  # (clamp_mode, use_inf_depth, last_back)
     ('relu', False, True)]
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 

@@ -15,6 +15,7 @@ gradients. Tolerance as tests/test_torch_splat.py: rtol 1e-4 and atol
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -25,6 +26,17 @@ from tdgp_torch.ops.splat import (STRIP_H, STRIP_W, _bins, _plane_coords, _strip
                                   triplane_splat_plain)
 
 SCALE = 0.5
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 def assert_close(port, ref, what=''):

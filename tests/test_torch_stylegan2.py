@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -64,11 +65,14 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 N, RES = 4, 32
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 
@@ -300,7 +304,6 @@ def folder(tmp_path_factory):
 def run_2d(folder, tmp_path_factory):
     """Two ticks of two steps (R1 and PL on steps 0 and 2), a snapshot at
     each, fid2k_full tried at the second; then one more tick resumed."""
-    torch.set_num_threads(1)
     args = ['--preset', 'stylegan2', '--device', 'cpu', f'dataset.path={folder}'] + TINY_2D
     first = train_script.main(args + ['--run-root', str(tmp_path_factory.mktemp('runs')),
                                       '--max-kimg', '0.016'])

@@ -28,11 +28,13 @@ atol = 1e-4 x the largest parameter (Adam moves a parameter whose gradient
 is near its eps by a step that rounding can change).
 """
 import dataclasses
+import functools
 import re
 
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -60,11 +62,14 @@ N = 4
 CUR_NIMG = 300_000
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 
@@ -85,8 +90,13 @@ def flax_key(key, *path):
     return LazyRng.create(key, *path, 1).as_jax_rng()
 
 
-def jax_state(cfg):
-    """A TrainState as `create_train_state` builds it, with the inits jitted."""
+@functools.lru_cache(maxsize=None)
+def _jax_variables(model_name, generator, discriminator, camera):
+    """(G, D, G's variables, D's variables), the inits jitted: computed once
+    for all the configs of a process that share these models (the training
+    settings do not enter)."""
+    cfg = dataclasses.replace(jax_tiny(), model_name=model_name, generator=generator,
+                              discriminator=discriminator, camera=camera)
     G, D = jts.build_models(cfg)
     gc = cfg.generator
     z, c = jnp.zeros((N, gc.z_dim)), jnp.zeros((N, gc.c_dim))
@@ -103,6 +113,13 @@ def jax_state(cfg):
                                       patch_params={'scales': jnp.ones((N, 2)),
                                                     'offsets': jnp.zeros((N, 2))},
                                       predict_feat=True, train=True))(jax.random.PRNGKey(1))
+    return G, D, g_vars, d_vars
+
+
+def jax_state(cfg):
+    """A TrainState as `create_train_state` builds it, with the inits jitted."""
+    G, D, g_vars, d_vars = _jax_variables(cfg.model_name, cfg.generator, cfg.discriminator,
+                                          cfg.camera)
     g_tx, d_tx = jts.make_optimizers(cfg)
     state = jts.TrainState(
         step=jnp.zeros((), jnp.int32), g_params=g_vars['params'], g_consts=g_vars['consts'],

@@ -49,6 +49,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -77,11 +78,14 @@ CUR_NIMG = 300_000
 KEYS = (6, 5)  # the keys of steps 0 (plain) and 1 (R1 + PL); key 5 mixes in Gmain
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 

@@ -9,15 +9,19 @@ rtol = 1e-4 and atol = 1e-4 x the largest of the phase or module.
 """
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from test_torch_train_step import CUR_NIMG, PARTS, check_part, run_step
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 

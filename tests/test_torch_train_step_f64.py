@@ -62,7 +62,8 @@ def gaps(tmp_path_factory):
     root = tmp_path_factory.mktemp('float64')
     for package in ('tdgp', 'tdgp_torch'):
         float64_copy(os.path.join(ROOT, package), str(root / package))
-    env = dict(os.environ, PYTHONPATH=str(root), JAX_PLATFORMS='cpu')
+    # one BLAS thread in the child, as in the port's other test modules
+    env = dict(os.environ, PYTHONPATH=str(root), JAX_PLATFORMS='cpu', OPENBLAS_NUM_THREADS='1')
     run = subprocess.run([sys.executable, os.path.abspath(__file__), str(KIMG)], env=env,
                          capture_output=True, text=True, timeout=900)
     assert run.returncode == 0, run.stderr[-4000:]

@@ -42,6 +42,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 
@@ -65,11 +66,14 @@ SPREAD_MULTIPLE = 3  # the port's distance to JAX over the one-ulp spread
 MODULES = ('G', 'D', 'G_ema')
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api='blas'):
+        yield
     torch.set_num_threads(saved)
 
 
@@ -230,6 +234,14 @@ def hold(fresh, steps=K):
             unused, jax_spread, port_spread)
 
 
+@functools.lru_cache(maxsize=None)
+def step_from_jax(fresh, k):
+    """Step k of the port from JAX's state before it (`Run.port_from_jax`),
+    run once for every part held on it."""
+    run, ref = hold(fresh)[:2]
+    return run.port_from_jax(k, ref)
+
+
 def over_limit(got, spread):
     """The largest share of its limit that a step's reading takes."""
     return max(g[k] / (SPREAD_MULTIPLE * w[k]) for g, w in zip(got, spread) for k in g)
@@ -264,10 +276,10 @@ def test_each_step_from_the_jax_state(fresh, part):
     (weights and Adam's moments), held at the one-step limits of
     tests/test_torch_train_step.py: every draw, the losses, each phase's
     gradients (R1's on its steps) and the modules after the step."""
-    run, ref = hold(fresh)[:2]
+    run = hold(fresh)[0]
     for k in range(K):
         if part != 'r1' or run.inputs[k][-1]:
-            check_part(run.port_from_jax(k, ref), part)
+            check_part(step_from_jax(fresh, k), part)
 
 
 def test_own_patches_miss_the_step_limit():
@@ -275,7 +287,7 @@ def test_own_patches_miss_the_step_limit():
     row, up to three ulps from JAX's, step 1's Dmain gradient misses the
     one-step limit that the port's own positions hold."""
     run, ref = hold(False)[:2]
-    check_part(run.port_from_jax(1, ref), 'd')
+    check_part(step_from_jax(False, 1), 'd')
     with pytest.raises(AssertionError):
         check_part(run.port_from_jax(1, ref, torch_linspace=True), 'd')
 

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,17 @@ from tdgp_torch.ops.triplane_mlp import (fold_fully_connected, triplane_mlp,
 from tdgp_torch.weights import load_flat
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 def _interpreted(fn, *args):

@@ -5,6 +5,7 @@ sampler's sum of the four corners."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,17 @@ from tdgp.training import patch as jax_patch
 from tdgp_torch.ops.grid_sample import grid_sample_nhwc
 from tdgp_torch.training import patch
 from tdgp_torch.utils.xla_float import linspace_row
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread_per_worker():
+    """One torch and one BLAS thread while this module runs: the test workers
+    share the cores, and OpenBLAS's threads spin while the others hold them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api='blas'):
+        yield
+    torch.set_num_threads(saved)
 
 
 def _patch_params(rs, n):
