@@ -211,6 +211,28 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   `pl_mean` and G_ema, `load_run` 'latest' gives the trainer's G_ema and
                   `export_ema`'s `.npz` loads back equal; a resume for one more tick
                   restores `pl_mean`; K5 launches as above.
+ 12. the bf16 render views (PR 14), inside the phases above: 'render bf16 kernels'
+                  (after 6: `render_bf16_kernel_phase`) holds K4's bf16 entry at the
+                  served shape (a share of outputs one bf16 ulp apart, all within one ulp
+                  at the outputs' scale: where the bias add cancels the product, a flip
+                  of the product is many ulps of the output), K3's merged and cut entries
+                  with bf16 loads at the served chunk and at the fresh fakes' training
+                  shape with float32 densities (<= 1e-5) and K1's bf16 entry at the
+                  step's points (its float32 sums <= 1e-5 x max, the stored bf16 gradient
+                  within one ulp of the texel plus that, alone and with the other pass's
+                  addend), each timed warm and cold beside its bound and its float32
+                  sibling; 'serve render_bf16' (after 3: `render_bf16_serve_phase`)
+                  serves the flagship with generator.render_bf16=true (K3 merged bf16 4,
+                  K4 bf16 8 per request, the float32 entries never), beside the default
+                  render, its density grid through the float32 K4, the image kernels vs
+                  plain (cuDNN deterministic) and card vs CPU as a share of the floor; the
+                  train check (5) also holds Gmain's gradient through the
+                  gmain_render_bf16 view and Dmain's with the dmain_fake_bf16 view's
+                  fresh fakes; the train phase (8) times the step with each view (K1 bf16
+                  2 per step; K3 merged bf16 1 and K4 bf16 2 per Dmain microbatch); the
+                  metrics phase (10) renders one nfs256 batch under render_bf16 (K3's cut
+                  entry with bf16 loads vs plain). The inference phase (7) holds the
+                  density grid at the flagship's own precision too (`density_grid_own_precision`).
 Serving (2) also counts K4 (8 per request) and K5 launches per request, by dtype.
 K5's launches are counted by dtype everywhere: 'bias_act' (float32) and
 'bias_act_bf16' (bfloat16), each held to the `bias_act` calls of that dtype.
@@ -254,25 +276,30 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
     from tdgp_torch.models import epigraf, layers, stylegan2
     from tdgp_torch.ops import bias_act, ray_march, splat, triplane_mlp
     from tdgp_torch.rendering import renderer
-    saved = (epigraf.triplane_sample, renderer.ray_march_reduced, renderer.ray_march_merged,
-             renderer.ray_march_merged_cut, epigraf.triplane_mlp, layers.bias_act,
-             stylegan2.bias_act)
+    saved = (epigraf.triplane_sample, epigraf.triplane_sample_pair, renderer.ray_march_reduced,
+             renderer.ray_march_merged, renderer.ray_march_merged_cut, epigraf.triplane_mlp,
+             layers.bias_act, stylegan2.bias_act)
     if k1:
         epigraf.triplane_sample = splat.triplane_sample_reference
+        epigraf.triplane_sample_pair = splat.triplane_sample_pair_reference
     if k3:
         renderer.ray_march_reduced = ray_march.ray_march_reduced_reference
         renderer.ray_march_merged = ray_march.ray_march_merged_plain
         renderer.ray_march_merged_cut = ray_march.ray_march_merged_cut_plain
     if k4:
-        epigraf.triplane_mlp = triplane_mlp.triplane_mlp_plain
+        def mlp_plain(feats, *weights):  # K4's plain version of the features' dtype
+            if feats.dtype == torch.bfloat16:
+                return triplane_mlp.triplane_mlp_plain_bf16(feats, *weights)
+            return triplane_mlp.triplane_mlp_plain(feats, *weights)
+        epigraf.triplane_mlp = mlp_plain
     if k5:
         layers.bias_act = stylegan2.bias_act = bias_act.bias_act_plain
     try:
         yield
     finally:
-        (epigraf.triplane_sample, renderer.ray_march_reduced, renderer.ray_march_merged,
-         renderer.ray_march_merged_cut, epigraf.triplane_mlp, layers.bias_act,
-         stylegan2.bias_act) = saved
+        (epigraf.triplane_sample, epigraf.triplane_sample_pair, renderer.ray_march_reduced,
+         renderer.ray_march_merged, renderer.ray_march_merged_cut, epigraf.triplane_mlp,
+         layers.bias_act, stylegan2.bias_act) = saved
 
 
 class BiasActCalls:
@@ -794,7 +821,12 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
     float32 held to GRAD_LIMIT (the depth adaptor: see the module's
     docstring); with bf16 blocks every parameter to max(GRAD_LIMIT,
     BF16_FLOOR_FACTOR x its one-ulp floor), since a float32 ulp of the
-    rendered patch can flip a bf16 rounding in the decoder's backward."""
+    rendered patch can flip a bf16 rounding in the decoder's backward.
+    Through the gmain_render_bf16 view the floor is the larger of that and
+    K3's own float32 spread (its plain version summed exactly, in float64:
+    K3's sums in another order reach the bf16 MLP's backward and flip its
+    roundings, which the coordinate gradient then spreads), and K1's bf16
+    entry alone is held to the one-ulp floor."""
     from tdgp_torch.training import losses
     g_forward = losses.g_forward
 
@@ -807,10 +839,23 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
     bf16 = not train_config(overrides).generator.fp32_only
     label = 'bf16 blocks' if bf16 else 'float32'
 
-    def gmain_grads(k1_plain, k3_plain, perturb=False):
+    view = train_config(overrides).training.gmain_render_bf16
+    from tdgp_torch.ops import ray_march
+    k3_plain_fns = ray_march.ray_march_reduced_plain, ray_march.ray_march_reduced_bwd_plain
+
+    def in_float64(fn):  # K3's plain version summed in float64, rounded once to float32
+        def run(*args, **kwargs):
+            args = [a.double() if torch.is_tensor(a) else a for a in args]
+            return tuple(t.float() for t in fn(*args, **kwargs))
+        return run
+
+    def gmain_grads(k1_plain, k3_plain, perturb=False, k3_exact=False):
         cfg = train_config(list(overrides) + ['generator.use_noise=false'])
         trainer = Trainer(cfg, device, seed=0)
         losses.g_forward = one_ulp if perturb else g_forward
+        if k3_exact:
+            (ray_march.ray_march_reduced_plain,
+             ray_march.ray_march_reduced_bwd_plain) = map(in_float64, k3_plain_fns)
         try:
             with plain_versions(k1_plain, k3_plain):
                 stats = trainer.step(make_batch(cfg, 4, 2, device), sched, False,
@@ -818,6 +863,7 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
                                      return_grads=True)
         finally:
             losses.g_forward = g_forward
+            ray_march.ray_march_reduced_plain, ray_march.ray_march_reduced_bwd_plain = k3_plain_fns
         return stats['_grads']['g']
 
     def rel_l2(a, b):
@@ -829,6 +875,19 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
         ref = gmain_grads(True, True)
         rel = rel_l2(gmain_grads(False, False), ref)
         floor = rel_l2(gmain_grads(True, True, perturb=True), ref)
+        if view:
+            # K3's own float32 spread: its plain version exact (float64, rounded once)
+            floor_k3 = rel_l2(gmain_grads(True, True, k3_exact=True), ref)
+            k1_alone = rel_l2(gmain_grads(False, True), ref)
+            for what, r in (('K1 alone', k1_alone), ('K3 alone', rel_l2(gmain_grads(True, False), ref)),
+                            ("K3's plain version exact", floor_k3)):
+                worst = max(r, key=r.get)
+                print(f'Gmain gradient through the render_bf16 view, {what} vs plain: median '
+                      f'{float(np.median(list(r.values()))):.3g}, max {r[worst]:.3g} ({worst})')
+            check(all(k1_alone[n] <= max(GRAD_LIMIT, BF16_FLOOR_FACTOR * floor[n])
+                      for n in k1_alone),
+                  'the Gmain gradient through K1 bf16 alone disagrees with the plain path')
+            floor = {n: max(floor[n], floor_k3[n]) for n in floor}
         if not bf16:
             k1_alone = rel_l2(gmain_grads(False, True), ref)
             k3_alone = rel_l2(gmain_grads(True, False), ref)
@@ -858,6 +917,8 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
 
 
 FRESH = ['training.dmain_reuse_fakes=false']  # Dmain renders fresh fakes, without gradients
+GMAIN_BF16 = ['training.gmain_render_bf16=true']  # Gmain renders through the render_bf16 view
+FAKE_BF16 = ['training.dmain_fake_bf16=true']     # ... and Dmain's fresh fakes through the all-bf16 one
 
 
 @contextlib.contextmanager
@@ -912,14 +973,20 @@ def fresh_fakes_check_phase(Trainer, Draws, sched, train_config, make_batch, ove
         return render
 
     cfg = train_config(list(overrides) + FRESH + ['generator.use_noise=false'])
-    bf16 = not cfg.generator.fp32_only
-    label = 'bf16 blocks' if bf16 else 'float32'
+    view = cfg.training.dmain_fake_bf16
+    bf16 = view or not cfg.generator.fp32_only
+    label = ('the dmain_fake_bf16 view' if view else 'bf16 blocks') if bf16 else 'float32'
+    counters = ([ray_march.ray_march_merged_bf16, triplane_mlp.triplane_mlp_bf16]
+                if view else [ray_march.ray_march_merged, triplane_mlp.triplane_mlp])
+    counters.append(bias_act.bias_act)
+    if view:
+        reset_counts([ray_march.ray_march_merged, triplane_mlp.triplane_mlp])
 
     def dmain_grads(plain, perturb=False):
         trainer = Trainer(cfg, device, seed=0)
         batch = make_batch(cfg, 4, 2, device)
         losses.g_forward = fake_render((plain, perturb))
-        reset_counts([ray_march.ray_march_merged, triplane_mlp.triplane_mlp, bias_act.bias_act])
+        reset_counts(counters)
         try:
             with (plain_versions(k1=True, k3=True, k4=True, k5=True) if plain
                   else contextlib.nullcontext()), \
@@ -929,11 +996,13 @@ def fresh_fakes_check_phase(Trainer, Draws, sched, train_config, make_batch, ove
                                1, lambda name, value: None, None, None)
         finally:
             losses.g_forward = g_forward
-        launched = (ray_march.ray_march_merged.launches, triplane_mlp.triplane_mlp.launches,
-                    bias_act.bias_act.launches)
+        launched = tuple(c.launches for c in counters)
         check(not any(launched) if plain else all(launched),
               f'the {"plain" if plain else "kernel"} fresh-fake render launched K3 merged, K4, '
               f'K5 {launched}')
+        if view:
+            check(ray_march.ray_march_merged.launches == triplane_mlp.triplane_mlp.launches == 0,
+                  "the bf16 view's fresh fakes launched the float32 K3 merged or K4")
         return {n: p.grad.detach().clone() for n, p in trainer.D.named_parameters()}
 
     def rel_l2(a, b):
@@ -1123,6 +1192,205 @@ def bf16_kernel_phase(bias_act, x, b, k5, g):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores, NVIDIA data sheet
+
+
+def render_bf16_kernel_phase(ray_march, splat, triplane_mlp, FullyConnected, init_weights):
+    """The bf16 entries of the bf16 render views (`generator.render_bf16`)
+    against their plain versions on the same inputs, timed warm and cold
+    beside their bounds and their float32 siblings:
+      - K4's bf16 entry at the served shape [4, 524288, 32] -> 64 -> 4:
+        every output within one bf16 ulp, the share one ulp apart printed;
+      - K3's merged entry with bf16 loads at the served chunk [4, 16384,
+        32 + 32, 3] (ties), its cut entry there (q = 0.5), and the merged
+        entry with float32 densities at the training shape of Dmain's fresh
+        fakes [16, 4096, 32 + 32, 3] (jittered): <= 1e-5 on every output;
+      - K1's bf16 entry at the training step's points (16 x 64^2 x 32, planes
+        48 x 512^2 x 32): its float32 sums (`round_out=False`) <= 1e-5 x max
+        |plain|, its stored bf16 gradient within one bf16 ulp, with and
+        without the other pass's addend, g_coords <= 1e-5 x max |plain|.
+    Returns the three entries' `kernels` records (K3 merged and its cut
+    entry as two)."""
+    bf = torch.bfloat16
+    g = torch.Generator(device='cuda').manual_seed(5)
+    cpu_gen = torch.Generator().manual_seed(5)
+    out = []
+
+    # K4 bf16
+    n, p, f, hid, o = 4, 16384 * 32, 32, 64, 4
+    fc0, fc1 = FullyConnected(f, hid, activation='lrelu'), FullyConnected(hid, o)
+    for fc in (fc0, fc1):
+        init_weights(fc, cpu_gen)
+        with torch.no_grad():
+            fc.bias.copy_(torch.randn(fc.bias.shape, generator=cpu_gen) * 0.1)
+    fc0, fc1 = fc0.cuda(), fc1.cuda()
+    feats32 = torch.randn(n, p, f, device='cuda', generator=g)
+    feats = feats32.to(bf)
+    with torch.no_grad():
+        w16 = (*triplane_mlp.fold_fully_connected(fc0, bf),
+               *triplane_mlp.fold_fully_connected(fc1, bf))
+        w32 = (*triplane_mlp.fold_fully_connected(fc0), *triplane_mlp.fold_fully_connected(fc1))
+        got = triplane_mlp.triplane_mlp(feats, *w16)
+        ref = triplane_mlp.triplane_mlp_plain_bf16(feats, *w16)
+        torch.cuda.synchronize()
+        check(all(t.dtype == bf for t in got), 'K4 bf16 returned another dtype')
+        ulps = torch.cat([bf16_ulps(a, b).reshape(-1) for a, b in zip(got, ref)])
+        share = float((ulps > 0).float().mean())
+        worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+        scale_ulp = max(2.0 ** (np.floor(np.log2(float(b.float().abs().max()))) - 7) for b in ref)
+        print(f'K4 bf16 at [{n},{p},{f}] -> {hid} -> {o}: {share:.3g} of the outputs differ from '
+              f'its plain version (the float32 sums in another order flip a bf16 rounding), at '
+              f'most {int(ulps.max())} ulps of the output (where the bias add cancels the '
+              f'product), max abs diff {worst:.3g} against one bf16 ulp at the outputs\' scale '
+              f'{scale_ulp:.3g}')
+        check(share <= 1e-3 and worst <= scale_ulp, 'K4 bf16 disagrees with its plain version')
+        fn16 = lambda: triplane_mlp.triplane_mlp(feats, *w16)  # noqa: E731
+        fn32 = lambda: triplane_mlp.triplane_mlp(feats32, *w32)  # noqa: E731
+        times = {label: dict(warm=cuda_ms(fn, 50), cold=cold_ms(fn))
+                 for label, fn in (('bf16', fn16), ('float32', fn32))}
+        plain_ms = cuda_ms(lambda: triplane_mlp.triplane_mlp_plain_bf16(feats, *w16), 10)
+    t = n * p
+    bytes_moved = 2 * (t * (f + o) + f * hid + hid + hid * o + o)
+    flops = t * (2 * f * hid + 2 * hid * o)
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    print(f'K4 bf16: warm {times["bf16"]["warm"]:.4f} ms, cold {times["bf16"]["cold"]:.4f} ms; '
+          f'float32 K4 warm {times["float32"]["warm"]:.4f} ms, cold '
+          f'{times["float32"]["cold"]:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms '
+          f'(by {bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at bf16) '
+          f'(sm, mem clocks {clocks()})')
+    out.append(dict(name='triplane_mlp_bf16', route='cuda', source='tdgp_torch/csrc/triplane_mlp.cu',
+                    replaces='tdgp/ops/pallas_kernels.py:305',
+                    max_abs_err=worst, max_ulps=int(ulps.max()), ulp_share=share,
+                    ms=times['bf16']['warm'], cold_ms=times['bf16']['cold'], plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    float32_ms=times['float32']['warm'], float32_cold_ms=times['float32']['cold']))
+    del feats, feats32, got, ref
+
+    # K3 merged and cut with bf16 loads
+    def to_bf16(sets, densities=True):
+        return tuple(x.to(bf) if i in (1, 4) or (densities and i in (2, 5)) else x
+                     for i, x in enumerate(sets))
+
+    b, r, s1, s2, c = 4, 16384, 32, 32, 3
+    served32 = merged_sets(g, b, r, s1, s2, c)
+    served = to_bf16(served32)
+    train = to_bf16(train_merged_sets(g, 16, 4096, s1, s2, c), densities=False)
+    worst, worst_cut = 0.0, 0.0
+    for label, sets in (('served', served), ('training, float32 densities', train)):
+        for clamp_mode, inf_depth, last_back in K3_CASES:
+            opts = (clamp_mode, 1.0, inf_depth, last_back)
+            got = ray_march.ray_march_merged(*sets, *opts)
+            ref = ray_march.ray_march_merged_plain(*sets, *opts)
+            torch.cuda.synchronize()
+            err = max(float((a - b_).abs().max()) for a, b_ in zip(got, ref))
+            check(err <= 1e-5, f'K3 merged bf16 ({label}, {opts}) disagrees with its plain '
+                               f'version: {err:.3g}')
+            worst = max(worst, err)
+            if label == 'served':
+                for q in (0.25, 0.5):
+                    got = ray_march.ray_march_merged_cut(*sets, q, *opts)
+                    ref = ray_march.ray_march_merged_cut_plain(*sets, q, *opts)
+                    torch.cuda.synchronize()
+                    err = max(float((a - b_).abs().max()) for a, b_ in zip(got, ref))
+                    check(err <= 1e-5, f'K3 cut bf16 (q {q}, {opts}) disagrees: {err:.3g}')
+                    worst_cut = max(worst_cut, err)
+    print(f'K3 merged with bf16 loads at [{b},{r},{s1}+{s2},{c}] (ties) and [16,4096,32+32,3] '
+          f'(float32 densities), four settings: max abs diff {worst:.3g}; its cut entry at q = '
+          f'0.25, 0.5: {worst_cut:.3g} (<= 1e-5)')
+    k3 = {}
+    for name, fn16, fn32 in (
+            ('ray_march_merged_bf16', lambda: ray_march.ray_march_merged(*served),
+             lambda: ray_march.ray_march_merged(*served32)),
+            ('ray_march_merged_cut_bf16', lambda: ray_march.ray_march_merged_cut(*served, 0.5),
+             lambda: ray_march.ray_march_merged_cut(*served32, 0.5))):
+        k3[name] = {label: dict(warm=cuda_ms(fn, 200, prefill=True), cold=cold_ms(fn),
+                                cold_clean=cold_ms(fn, clean=True))
+                    for label, fn in (('bf16', fn16), ('float32', fn32))}
+    plain_ms = cuda_ms(lambda: ray_march.ray_march_merged_plain(*served), 20)
+    plain_cut_ms = cuda_ms(lambda: ray_march.ray_march_merged_cut_plain(*served, 0.5), 10)
+    rays, s = b * r, s1 + s2
+    bytes_moved = rays * s * (4 + 2 * c + 2) + 4 * rays * (c + 3)
+    flops = rays * s * (2 * c + 14)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    for name, times in k3.items():
+        print(f'{name} at [{b},{r},{s1}+{s2},{c}]: ' + '; '.join(
+            f'{label} ' + ', '.join(f'{k} {v:.4f} ms' for k, v in tv.items())
+            for label, tv in times.items()) + f'; bound {bound_ms:.4f} ms (by {bound_by}: '
+            f'{bytes_moved / 1e6:.1f} MB) (sm, mem clocks {clocks()})')
+        out.append(dict(name=name, route='cuda', source='tdgp_torch/csrc/ray_march.cu',
+                        replaces='tdgp/ops/pallas_kernels.py:136',
+                        max_abs_err=worst if 'cut' not in name else worst_cut,
+                        ms=times['bf16']['warm'], cold_ms=times['bf16']['cold'],
+                        cold_clean_ms=times['bf16']['cold_clean'],
+                        plain_ms=plain_cut_ms if 'cut' in name else plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                        float32_ms=times['float32']['warm'],
+                        float32_cold_ms=times['float32']['cold']))
+    del served, served32, train
+
+    # K1 bf16 at the training step's points
+    n, h, w, f, scale = 16, 512, 512, 32, 0.5
+    p = 64 * 64 * 32
+    planes32 = torch.randn(3 * n, h, w, f, device='cuda', generator=g)
+    planes = planes32.to(bf)
+    coords = torch.rand(n, p, 3, device='cuda', generator=g) * 1.1 - 0.55
+    coords[:, :64, 0] = scale
+    coords[:, 64:128, 1] = -scale
+    cot32 = torch.randn(n, p, f, device='cuda', generator=g)
+    cot = cot32.to(bf)
+    sums, g_coords = splat.triplane_splat_bf16(planes, coords, cot, scale, round_out=False)
+    ref_sums, ref_coords = splat.triplane_sample_bwd_plain_bf16(planes, coords, cot, scale,
+                                                                round_out=False)
+    torch.cuda.synchronize()
+    err_sums = float((sums - ref_sums).abs().max())
+    rel_sums = err_sums / float(ref_sums.abs().max())
+    rel_coords = float((g_coords - ref_coords).abs().max() / ref_coords.abs().max())
+    print(f'K1 bf16 at planes [{3 * n},{h},{w},{f}], {n} x {p} points: float32 sums before the '
+          f'store {rel_sums:.3g} x max |plain|, g_coords {rel_coords:.3g} x max |plain|')
+    check(sums.dtype == torch.float32 and rel_sums <= 1e-5 and rel_coords <= 1e-5,
+          'K1 bf16 disagrees with its plain version')
+    worst_ulp, share, beyond = 0, 0.0, 0
+    for addend in (None, ref_sums):
+        got, _ = splat.triplane_splat_bf16(planes, coords, cot, scale, coords_grad=False,
+                                           addend=addend)
+        ref, _ = splat.triplane_sample_bwd_plain_bf16(planes, coords, cot, scale, False,
+                                                      addend=addend)
+        torch.cuda.synchronize()
+        check(got.dtype == bf, 'K1 bf16 stored another dtype')
+        ulps = bf16_ulps(got, ref)
+        worst_ulp = max(worst_ulp, int(ulps.max()))
+        share = max(share, float((ulps > 0).float().mean()))
+        # one bf16 ulp of the texel (<= 2^-7 of it) beyond the float32 sums' own 1e-5 x max
+        limit = ref.float().abs() * 2.0 ** -7 + 1e-5 * float(ref.float().abs().max())
+        beyond += int(((got.float() - ref.float()).abs() > limit).sum())
+    print(f'K1 bf16 stored gradient, alone and with the other pass\'s float32 addend: '
+          f'{share:.3g} of the texels differ from the plain version, at most {worst_ulp} bf16 '
+          f'ulps (texels whose float32 sum is near 0, where the sums\' order moves many ulps), '
+          f'{beyond} beyond one ulp of the texel plus 1e-5 x max |plain|')
+    check(beyond == 0, 'K1 bf16 stored gradient disagrees with its plain version')
+    del sums, ref_sums, ref_coords, got, ref
+    fn16 = lambda: splat.triplane_splat_bf16(planes, coords, cot, scale)  # noqa: E731
+    fn32 = lambda: splat.triplane_splat(planes32, coords, cot32, scale)  # noqa: E731
+    times = {label: dict(warm=cuda_ms(fn, 20), cold=cold_ms(fn, repeats=10))
+             for label, fn in (('bf16', fn16), ('float32', fn32))}
+    plain_ms = cuda_ms(lambda: splat.triplane_sample_bwd_plain_bf16(planes, coords, cot, scale), 3)
+    _, flops, texels, most = k1_work(splat, planes32, coords, scale)
+    bytes_moved = 2 * (texels * f + 3 * n * h * w * f + n * p * f) + 4 * n * p * 6
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    print(f'K1 bf16: ' + '; '.join(f'{label} ' + ', '.join(f'{k} {v:.4f} ms' for k, v in tv.items())
+                                   for label, tv in times.items())
+          + f'; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms (by {bound_by}: '
+            f'{bytes_moved / 1e9:.3f} GB; {texels} texels touched, at most {most} corners on one) '
+            f'(sm, mem clocks {clocks()})')
+    out.append(dict(name='triplane_splat_bf16', route='cuda', source='tdgp_torch/csrc/splat.cu',
+                    replaces='tdgp/ops/splat.py:258', max_abs_err=err_sums, max_ulps=worst_ulp,
+                    ulp_share=share, ms=times['bf16']['warm'], cold_ms=times['bf16']['cold'],
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    float32_ms=times['float32']['warm'],
+                    float32_cold_ms=times['float32']['cold']))
+    return out
+
+
 def reset_counts(counters):
     for c in counters:
         c.launches = 0
@@ -1165,7 +1433,7 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
 
     def read(what, k3_expected, k4_expected, calls):
         got = launch_counts(counters)
-        expected = {'ray_march_reduced': 0, 'ray_march_merged': k3_expected,
+        expected = {**{k: 0 for k in got}, 'ray_march_merged': k3_expected,
                     'triplane_mlp': k4_expected, **{n: calls.count[n] for n in K5_NAMES.values()}}
         print(f'{what}: launches {got} (expected {expected})')
         check(got == expected, f'kernel launch counts of the {what}')
@@ -1240,6 +1508,7 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
           f'density grid max abs diff / max |sigma| {sigma_rel:.3g}')
     check(diff <= 1e-4, 'the image through K4 and K5 disagrees with the plain versions')
     check(sigma_rel <= 1e-5, 'the density grid through K4 and K5 disagrees with the plain versions')
+    density_grid_own_precision(G, ws, cfg.camera.cube_scale)
     reset_counts(counters)
 
     run = ['--run-dir', run_dir, '--device', device]
@@ -1259,6 +1528,43 @@ def inference_phase(counters, tmp_dir, run_dir, overrides, device='cuda'):
           'the entry points did not run K4 as implied')
     reset_counts(counters)
     return launches
+
+
+def density_grid_own_precision(G, ws, cube_scale):
+    """The 128^3 density grid of seed 0 at the flagship's own precision (bf16
+    blocks 64-512), cuDNN deterministic: K4 + K5 against their plain
+    versions, each decoding the planes (through K5 and through its plain
+    version), <= 1e-5 x max |sigma| as at the float32 cut, and K4 alone on
+    one set of decoded planes. Without cuDNN's deterministic algorithms two
+    decodes give other planes: the 2.22e-5 that PR 10 read."""
+    from tdgp_torch import geometry
+    from tdgp_torch.models.epigraf import flatten_planes
+    from tdgp_torch.utils.misc import exact_fp32
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernel = geometry.extract_density_grid(G, ws[:1], 128, cube_scale)
+        again = geometry.extract_density_grid(G, ws[:1], 128, cube_scale)
+        with plain_versions(k1=False, k3=False, k4=True, k5=True):
+            plain = geometry.extract_density_grid(G, ws[:1], 128, cube_scale)
+        coords = geometry.create_voxel_coords(128, cube_scale, 1, ws.device)[:, :32 ** 3]
+        with torch.no_grad(), exact_fp32():
+            planes = flatten_planes(G.synthesis.decode_planes(ws[:1]))
+            k4 = G.synthesis.sample_densities(planes, coords)
+            with plain_versions(k1=False, k3=False, k4=True):
+                k4_plain = G.synthesis.sample_densities(planes, coords)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    scale = float(np.abs(plain).max())
+    both = float(np.abs(kernel - plain).max()) / scale
+    repeat = float(np.abs(kernel - again).max()) / scale
+    alone = float((k4 - k4_plain).abs().max() / k4_plain.abs().max())
+    print(f'density grid at the own precision (bf16 blocks), cuDNN deterministic: K4 + K5 vs '
+          f'plain, each decoding, {both:.3g} x max |sigma| (<= 1e-5); K4 alone on the same '
+          f'decoded planes {alone:.3g}; twice through the kernels {repeat:.3g}')
+    check(both <= 1e-5 and alone <= 1e-5, 'the density grid through K4 and K5 at the own '
+                                          'precision disagrees with the plain versions')
+    return dict(k4_alone=alone, k4_k5=both, repeat=repeat)
 
 
 def step_points_phase(calls):
@@ -1350,11 +1656,17 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
     n_micro = batch_size // (cfg.training.batch_gpu or batch_size)
     steps = TRAIN_PLAIN_STEPS + 1
     fresh = 0 if cfg.training.dmain_reuse_fakes else 1
-    expected = {'triplane_splat': 2 * n_micro * steps,  # coarse and fine pass of each Gmain render
+    k1 = '_bf16' if cfg.training.gmain_render_bf16 else ''  # the bf16 render views' entries
+    fake = '_bf16' if fresh and cfg.training.dmain_fake_bf16 else ''
+    expected = {**{name: 0 for name in ('triplane_splat', 'triplane_splat_bf16',
+                                        'ray_march_merged', 'ray_march_merged_bf16',
+                                        'triplane_mlp', 'triplane_mlp_bf16')},
+                'triplane_splat' + k1: 2 * n_micro * steps,  # coarse and fine pass of each Gmain render
                 'ray_march_reduced': n_micro * steps, 'ray_march_reduced_bwd': n_micro * steps,
-                'ray_march_merged': fresh * n_micro * steps,
-                'triplane_mlp': fresh * 2 * n_micro * steps,
+                'ray_march_merged' + fake: fresh * n_micro * steps,
+                'triplane_mlp' + fake: fresh * 2 * n_micro * steps,
                 **{n: bias_calls.unrecorded[n] for n in K5_NAMES.values()}}
+    expected = {k: v for k, v in expected.items() if k in launches or v}
     print(f'launches over {steps} steps: {launches} (expected {expected}; K5: the bias_act calls '
           f'that autograd does not record, of {dict(bias_calls.count)} on CUDA tensors); per '
           f'step: ' + ', '.join(f'{k} {v / steps:g}' for k, v in launches.items()))
@@ -2042,7 +2354,9 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
     at seeded random weights, ms per batch of 16; KID, precision/recall and
     IS of METRIC_IMAGES flagship images against METRIC_IMAGES of the folder
     and PPL at PPL_PAIRS pairs (VGG16 as its detector), the counts cut from
-    the registry's. Returns (the nfs256 launches, the readings, K3's cut
+    the registry's; one nfs256 batch under render_bf16 through K3's cut entry
+    with bf16 loads (vs plain, launches held). Returns (the launches of nfs256
+    and that batch, the readings, K3's cut
     entry)."""
     from tdgp_torch.config import load_config
     from tdgp_torch.data.dataset import ImageFolderDataset
@@ -2138,6 +2452,35 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
           f'{expected})')
     check(np.isfinite(nfs) and nfs >= 1.0, 'nfs256 is not a score')
     check(got == expected, 'kernel launch counts of nfs256')
+
+    # one batch of nfs256's depth maps under generator.render_bf16: the cut entry's bf16 loads
+    ctx16 = context(OVERRIDES + RENDER_BF16, device, 4)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_counts(counters)
+        with BiasActCalls() as calls16:
+            maps16 = depth_maps(ctx16)
+        launches16 = launch_counts(counters)
+        with plain_versions(k1=False, k3=True):
+            plain16 = depth_maps(ctx16)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    chunks16 = (4 // ctx16._resolve_batch_gpu()) * (gc.img_resolution ** 2) // (gc.max_batch_res ** 2)
+    expected16 = {**{k: 0 for k in launches16 if k not in K5_NAMES.values()},
+                  'ray_march_merged_cut_bf16': chunks16, 'triplane_mlp_bf16': 2 * chunks16,
+                  **{n: calls16.count[n] for n in K5_NAMES.values()}}
+    rel16 = float((maps16 - plain16).abs().max()) / float(plain16.abs().max())
+    print(f'nfs256 depth maps under render_bf16 [4, 256, 256, 1], cuDNN deterministic: K3 cut '
+          f'entry with bf16 loads vs its plain version {rel16:.3g} of max |depth| (<= '
+          f'{NFS_KERNEL_LIMIT:g}); launches {launches16} (expected {expected16})')
+    check(launches16 == expected16, 'kernel launch counts of nfs256 under render_bf16')
+    check(rel16 <= NFS_KERNEL_LIMIT, 'render_bf16 depth maps: K3 cut bf16 disagrees with its plain '
+                                     'version')
+    for k, v in launches16.items():  # the metrics path's launches: nfs256 and this batch
+        launches[k] = launches.get(k, 0) + v
+    readings.update(depth_render_bf16_kernel_vs_plain=rel16)
+    del ctx16
     readings.update(nfs256=nfs, nfs256_s=nfs_s, depth_kernel_vs_plain=rel,
                     depth_all_plain=rel_all, depth_all_plain_share=share_all,
                     depth_card_vs_cpu=cpu_diff, depth_card_vs_cpu_share=cpu_share,
@@ -2219,11 +2562,14 @@ def serve_run(G, served, requests, label):
     print(f'{label}: images {tuple(images[0].shape)}, mean {float(images[0].mean()):.4f}, '
           f'std {float(images[0].std()):.4f}')
     print(f'{label}: launches over {n} requests {launches}; expected K3 merged {chunks} x {n}, '
-          f'K3 unmerged 0, K4 2 x {chunks} x {n}, K5 the bias_act calls on CUDA tensors by '
-          f'dtype {dict(calls.count)} ({calls.strided} on tensors that are not contiguous)')
-    check(launches['ray_march_merged'] == chunks * n and launches['ray_march_reduced'] == 0,
-          'K3 launch counts')
-    check(launches['triplane_mlp'] == 2 * chunks * n, 'K4 launch count')
+          f'K3 unmerged 0, K4 2 x {chunks} x {n} (in their bf16 entries under render_bf16, the '
+          f'float32 ones never), K5 the bias_act calls on CUDA tensors by dtype '
+          f'{dict(calls.count)} ({calls.strided} on tensors that are not contiguous)')
+    sfx, other = ('_bf16', '') if gc.render_bf16 else ('', '_bf16')  # the bf16 render's entries
+    check(launches['ray_march_merged' + sfx] == chunks * n and launches['ray_march_reduced'] == 0
+          and launches.get('ray_march_merged' + other, 0) == 0, 'K3 launch counts')
+    check(launches['triplane_mlp' + sfx] == 2 * chunks * n
+          and launches.get('triplane_mlp' + other, 0) == 0, 'K4 launch count')
     for name in K5_NAMES.values():
         check(launches[name] == calls.count[name], f'K5 launch count ({name})')
     bf16 = not gc.fp32_only
@@ -2275,6 +2621,82 @@ def cross_check_cpu(load_generator, make_serving_fn, G, req):
     check(got <= CROSS_BF16_OF_FLOOR * floor, 'card disagrees with the CPU at bf16')
 
 
+RENDER_BF16 = ['generator.render_bf16=true']  # the bf16 render view of the served flagship
+RENDER_BF16_CPU_OF_FLOOR = 1.0  # render_bf16, card vs CPU at 64^2: relative L2 over the floor
+
+
+def render_bf16_serve_phase(served, requests, serve_own, density_counters, device='cuda'):
+    """The committed flagship served with `generator.render_bf16=true` at its
+    own precision (bf16 blocks 64-512): 3 requests after a warm-up
+    (`serve_run`: K3's merged entry with bf16 loads 4 and K4's bf16 entry 8
+    launches per request, their float32 entries never), ms per request,
+    images/s and peak memory beside the default render, and the relative L2
+    to its image; the density grid of one chunk of 32^3 points still
+    through the float32 K4 (`compute_densities` casts nothing, as in JAX);
+    the image through K3's and K4's bf16 entries against their plain
+    versions on the card with cuDNN deterministic (K3 alone <= 1e-4 max abs;
+    K4 and K5 too as a share of the bf16 floor, printed); and the card
+    against the port on the CPU at a 64^2 output, relative L2 within
+    RENDER_BF16_CPU_OF_FLOOR x the floor (the card's render_bf16 image
+    against its default render at 64^2). Returns the serve readings."""
+    from tdgp_torch.profile_serving import OVERRIDES, PSI, RUN_DIR
+    from tdgp_torch.serving import load_generator, make_serving_fn
+    from tdgp_torch.ops import triplane_mlp
+    G = load_generator(RUN_DIR, device, OVERRIDES + RENDER_BF16)
+    check(G.cfg.render_bf16 and not G.cfg.fp32_only, 'the render_bf16 view is not served')
+    r = serve_run(G, served, requests, 'render_bf16 (bf16 planes, features and MLP; blocks '
+                                       '64-512 bf16)')
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    floor = rel(r['images'][0], serve_own['images'][0])
+    print(f'render_bf16 vs the default render (bf16 blocks), served image: relative L2 '
+          f'{floor:.4g}; ms per request {r["ms"]:.1f} vs {serve_own["ms"]:.1f}, images/s '
+          f'{r["images_per_s"]:.2f} vs {serve_own["images_per_s"]:.2f}, peak memory '
+          f'{r["peak_gib"]:.2f} vs {serve_own["peak_gib"]:.2f} GiB')
+    with torch.no_grad():
+        z, c, angles = requests[0][:3]
+        ws = G.map_ws(z[:1], c[:1], camera_angles=angles[:1], truncation_psi=PSI)
+        coords = torch.rand(1, 32 ** 3, 3, device=device) - 0.5
+        reset_counts(density_counters)
+        sigma = G.synthesis.compute_densities(ws, coords)
+    check(sigma.dtype == torch.float32 and triplane_mlp.triplane_mlp.launches == 1
+          and triplane_mlp.triplane_mlp_bf16.launches == 0,
+          'the density grid under render_bf16 left the float32 K4')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        serve = make_serving_fn(G, truncation_psi=PSI)
+        kernels = serve(*requests[0])
+        with plain_versions(k1=False, k3=True):
+            k3_plain = serve(*requests[0])
+        with plain_versions(k1=False, k3=True, k4=True, k5=True):
+            all_plain = serve(*requests[0])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    k3_diff = float((kernels - k3_plain).abs().max())
+    all_rel = rel(kernels, all_plain) / floor
+    print(f'render_bf16 image, cuDNN deterministic: K3 merged bf16 vs its plain version max abs '
+          f'{k3_diff:.3g} (<= 1e-4); K3, K4 and K5 all plain: relative L2 {all_rel:.3g} of the '
+          f'bf16 floor (K4 bf16 and K5 flip bf16 roundings by their sum orders)')
+    check(k3_diff <= 1e-4, 'render_bf16: K3 merged bf16 disagrees with its plain version')
+    card = make_serving_fn(G, truncation_psi=PSI, resolution=64)(*requests[0]).cpu()
+    card_default = make_serving_fn(load_generator(RUN_DIR, device, OVERRIDES), truncation_psi=PSI,
+                                   resolution=64)(*requests[0]).cpu()
+    G_cpu = load_generator(RUN_DIR, 'cpu', OVERRIDES + RENDER_BF16)
+    cpu = make_serving_fn(G_cpu, truncation_psi=PSI, resolution=64)(
+        *[t.cpu() for t in requests[0]])
+    del G_cpu
+    cpu_floor = rel(card, card_default)
+    got = rel(card, cpu)
+    print(f'render_bf16, card vs CPU at 64x64: relative L2 {got:.4g}, floor {cpu_floor:.4g} '
+          f'({got / cpu_floor:.3f} of it; limit {RENDER_BF16_CPU_OF_FLOOR})')
+    check(got <= RENDER_BF16_CPU_OF_FLOOR * cpu_floor, 'render_bf16: the card disagrees with the CPU')
+    r.update(rel_to_default=floor, all_plain_of_floor=all_rel, k3_plain_max_abs=k3_diff,
+             cpu_of_floor=got / cpu_floor)
+    return r
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2304,7 +2726,8 @@ def main():
         k3, k3_merged = kernel_phase(ray_march)
 
     served = [ray_march.ray_march_reduced, ray_march.ray_march_merged,
-              triplane_mlp.triplane_mlp, bias_act.bias_act]
+              ray_march.ray_march_merged_bf16, triplane_mlp.triplane_mlp,
+              triplane_mlp.triplane_mlp_bf16, bias_act.bias_act]
     with phase('serve', seconds):
         G = load_generator(RUN_DIR, 'cuda', OVERRIDES)  # the precision it was trained at
         dec = G.synthesis.tri_plane_decoder
@@ -2334,17 +2757,23 @@ def main():
         del plain_img
         cross_check_cpu(load_generator, make_serving_fn, G, requests[0])
 
+    with phase('serve render_bf16', seconds):
+        serve_bf16 = render_bf16_serve_phase(served, requests, serve_own,
+                                             [triplane_mlp.triplane_mlp,
+                                              triplane_mlp.triplane_mlp_bf16])
+
     with phase('train kernels', seconds):
         k3_bwd, k1 = train_kernel_phase(ray_march, splat)
 
     cfg = profile_training.train_config()
     sched = compute_schedules(cfg, profile_training.CUR_NIMG)
     with phase('train check', seconds):
-        for overrides in (profile_training.FP32, ()):
+        for overrides in (profile_training.FP32, (), GMAIN_BF16):
             train_check_phase(Trainer, Draws, sched, profile_training.train_config,
                               profile_training.make_batch, overrides)
         fresh_image_diff = {}
-        for label, overrides in (('float32', profile_training.FP32), ('bf16', ())):
+        for label, overrides in (('float32', profile_training.FP32), ('bf16', ()),
+                                 ('dmain_fake_bf16', FAKE_BF16)):
             fresh_image_diff[label] = fresh_fakes_check_phase(
                 Trainer, Draws, sched, profile_training.train_config, profile_training.make_batch,
                 overrides)
@@ -2353,12 +2782,17 @@ def main():
         k4, k5, k5_bf16 = inference_kernel_phase(bias_act, triplane_mlp, FullyConnected,
                                                  init_weights)
 
+    with phase('render bf16 kernels', seconds):
+        k4_bf16, k3_merged_bf16, k3_cut_bf16, k1_bf16 = render_bf16_kernel_phase(
+            ray_march, splat, triplane_mlp, FullyConnected, init_weights)
+
     with phase('inference', seconds), tempfile.TemporaryDirectory() as tmp_dir:
         infer_launches = inference_phase(served, tmp_dir, RUN_DIR, OVERRIDES)
 
-    train_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
-                      ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
-                      triplane_mlp.triplane_mlp, bias_act.bias_act]
+    train_counters = [splat.triplane_splat, splat.triplane_splat_bf16,
+                      ray_march.ray_march_reduced, ray_march.ray_march_reduced_bwd,
+                      ray_march.ray_march_merged, ray_march.ray_march_merged_bf16,
+                      triplane_mlp.triplane_mlp, triplane_mlp.triplane_mlp_bf16, bias_act.bias_act]
     with phase('train', seconds):
         train_launches, k1_step, train_own = train_phase(
             Trainer, Draws, sched, cfg, profile_training.make_batch,
@@ -2372,8 +2806,18 @@ def main():
             Trainer, Draws, sched, profile_training.train_config(FRESH),
             profile_training.make_batch, None, profile_training.BATCH, train_counters,
             'own precision, fresh Dmain fakes (training.dmain_reuse_fakes=false)')
+        train_gmain16_launches, _, train_gmain16 = train_phase(
+            Trainer, Draws, sched, profile_training.train_config(GMAIN_BF16),
+            profile_training.make_batch, None, profile_training.BATCH, train_counters,
+            'own precision, training.gmain_render_bf16=true')
+        train_fake16_launches, _, train_fake16 = train_phase(
+            Trainer, Draws, sched, profile_training.train_config(FRESH + FAKE_BF16),
+            profile_training.make_batch, None, profile_training.BATCH, train_counters,
+            'own precision, fresh Dmain fakes through training.dmain_fake_bf16=true')
         for what, r in (('reused fakes', train_own), ('fresh fakes', train_fresh),
-                        ('reused fakes, float32 cut', train_fp32)):
+                        ('reused fakes, float32 cut', train_fp32),
+                        ('reused fakes, gmain_render_bf16', train_gmain16),
+                        ('fresh fakes, dmain_fake_bf16', train_fake16)):
             print(f'satellite step, {what}: {r["plain_ms"]:.1f} ms per plain step, '
                   f'{r["r1_ms"]:.1f} ms per R1 step, {r["images_per_s"]:.2f} images/s at 15:1, '
                   f'peak memory {r["peak_gib"]:.2f} GiB')
@@ -2390,8 +2834,10 @@ def main():
             metrics_launches, metrics_readings, k3_cut = metrics_phase(
                 ray_march, [splat.triplane_splat, ray_march.ray_march_reduced,
                             ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
-                            ray_march.ray_march_merged_cut, triplane_mlp.triplane_mlp,
-                            bias_act.bias_act], os.path.join(tmp_dir, 'data'))
+                            ray_march.ray_march_merged_cut, ray_march.ray_march_merged_bf16,
+                            ray_march.ray_march_merged_cut_bf16, triplane_mlp.triplane_mlp,
+                            triplane_mlp.triplane_mlp_bf16, bias_act.bias_act],
+                os.path.join(tmp_dir, 'data'))
     sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
                     ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                     triplane_mlp.triplane_mlp, bias_act.bias_act]
@@ -2411,8 +2857,11 @@ def main():
             profile_training.make_batch, sg2_counters, 'float32 cut', card)
         sg2_loop_launches, sg2_loop = stylegan2_loop_phase(tmp_dir, sg2_counters, card)
     by_path = {'serve': serve_own['launches'], 'serve_float32': serve_fp32['launches'],
+               'serve_render_bf16': serve_bf16['launches'],
                'inference': infer_launches, 'train': train_launches,
                'train_float32': train_fp32_launches, 'train_fresh_fakes': train_fresh_launches,
+               'train_gmain_render_bf16': train_gmain16_launches,
+               'train_dmain_fake_bf16': train_fake16_launches,
                'loop': loop_launches, 'stylegan2': sg2_launches,
                'stylegan2_float32': sg2_fp32_launches, 'stylegan2_loop': sg2_loop_launches,
                'metrics': metrics_launches}
@@ -2422,7 +2871,8 @@ def main():
                                   'float32 cut': serve_fp32['k5_per_request']['bias_act']}
     k5_bf16['launches_per_request'] = {'own precision':
                                        serve_own['k5_per_request']['bias_act_bf16']}
-    for k in (k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16):
+    new_entries = (k4_bf16, k3_merged_bf16, k3_cut_bf16, k1_bf16)
+    for k in (k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16, *new_entries):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())
 
@@ -2430,13 +2880,17 @@ def main():
           f'total {time.perf_counter() - t_start:.1f} s')
     print(f'loop: {json.dumps(loop_readings)}')
     train_readings = {'reused_fakes': train_own, 'fresh_fakes': train_fresh,
-                      'reused_fakes_float32': train_fp32, 'fresh_fake_image_diff': fresh_image_diff}
+                      'reused_fakes_float32': train_fp32, 'fresh_fake_image_diff': fresh_image_diff,
+                      'gmain_render_bf16': train_gmain16, 'dmain_fake_bf16': train_fake16}
     print(f'train: {json.dumps(train_readings)}')
     sg2_readings = {'card': card, 'own': sg2_own, 'float32': sg2_fp32, 'loop': sg2_loop,
                     'check': sg2_check}
     print(f'stylegan2: {json.dumps(sg2_readings)}')
     print(f'metrics: {json.dumps(metrics_readings)}')
-    print(json.dumps({'kernels': [k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16]}))
+    print(f'serve render_bf16: ' + json.dumps({k: v for k, v in serve_bf16.items()
+                                               if k not in ('serve', 'images')}))
+    print(json.dumps({'kernels': [k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16,
+                                  *new_entries]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -164,7 +164,8 @@ class GeneratorConfig:
     loads strictly. The TPU layout knobs (`plane_pack`, `sample_save`,
     `merged_splat`) are read by the JAX package only. Unless `fp32_only`,
     the decoder's `num_fp16_res` highest-resolution blocks run in bfloat16
-    (`models/stylegan2.py`); `render_bf16` is refused."""
+    (`models/stylegan2.py`); `render_bf16` renders from bf16 planes through
+    the bf16 MLP (`models/epigraf.py`)."""
     z_dim: int = 512
     w_dim: int = 512
     c_dim: int = 0
@@ -362,6 +363,17 @@ class Config:
 def is_2d(cfg: Config) -> bool:
     """The 2D StyleGAN2 baseline, not a tri-plane generator."""
     return cfg.model_name == 'stylegan2'
+
+
+def render_bf16_view(gc: GeneratorConfig, all_blocks: bool = False) -> GeneratorConfig:
+    """The config of a bf16 render view of a generator (the JAX step's
+    `dataclasses.replace`, `tdgp/training/train_step.py:239-257`):
+    `render_bf16` on; with `all_blocks` (`training.dmain_fake_bf16`) also
+    every decoder block from 8x8 up in bf16, else (`training.gmain_render_bf16`)
+    the blocks at the config's own precision."""
+    if all_blocks:
+        return dataclasses.replace(gc, render_bf16=True, fp32_only=False, num_fp16_res=16)
+    return dataclasses.replace(gc, render_bf16=True)
 
 
 def imagenet_config() -> Config:

@@ -62,7 +62,23 @@
 //    Without the coordinate gradient nothing of `planes` is read.
 // The order of the bins' atomics changes from run to run, so the order of
 // the float32 sums does too, and they change by rounding.
+//
+// The bf16 entry (tdgp_triplane_splat_bf16) is the backward of sampling bf16
+// planes, the bf16 render views' (generator.render_bf16, in Gmain under
+// training.gmain_render_bf16). It is the same kernel reading bf16 planes
+// (for the coordinate gradient) and a bf16 cotangent, each row g / 3
+// rounded to bf16 as the plain version's bf16 division rounds it, summing
+// in float32 as above, and storing g_planes in bf16, rounded once, or in
+// float32; it may add a float32 addend (another pass's sum, read once) to
+// each strip before the store. A render's fine pass stores its float32 sum,
+// and its coarse pass adds it and rounds the total: one rounding for both
+// passes, as the JAX package's TPU route rounds its merged coarse + fine
+// table once (tdgp/ops/splat.py:1030-1033, merged_splat). Its least traffic
+// on the training step's points is the float32 entry's with the cotangent
+// and the touched texels in 2 bytes, the float32 addend read and g_planes
+// written in 2 bytes (ops/splat.py and chip_smoke.py count it).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -240,17 +256,54 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
   return v[0];
 }
 
+bool make_geometry(long long n_batch, long long points_per_batch, int height, int width,
+                   float inv_scale, Geometry* geo, long long* n_bins) {
+  if (n_batch < 1 || points_per_batch < 1 || height < 1 || width < 1 ||
+      3 * n_batch * points_per_batch >= (1ll << 31))
+    return false;
+  geo->points_per_batch = (int)points_per_batch;
+  geo->height = height;
+  geo->width = width;
+  geo->strips_y = (height + kStripH - 1) / kStripH;
+  geo->tiles_x = (width + kStripW - 1) / kStripW;
+  geo->inv_scale = inv_scale;
+  *n_bins = 3 * n_batch * geo->strips_y * geo->tiles_x;
+  return *n_bins < (1ll << 31);
+}
+
 // One warp per strip of one plane (see the note at the top), kWarps strips
 // per block: small blocks, since a block holds its slot until its busiest
 // warp is done.
-template <int F>
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// a cotangent row's share of one plane: g / 3, rounded to bf16 for bf16 input
+__device__ __forceinline__ float third(float g) { return g * (1.f / 3.f); }
+__device__ __forceinline__ float third(__nv_bfloat16 g) {
+  return __bfloat162float(__float2bfloat16_rn(__bfloat162float(g) * (1.f / 3.f)));
+}
+
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&lo);
+  u.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+// TP: the planes' and the cotangent's type (float or bf16); TO: g_planes'.
+template <int F, typename TP = float, typename TO = float>
 __global__ void __launch_bounds__(32 * kWarps)
-splat_strip_kernel(const float* __restrict__ planes,   // [3N, H, W, F] or null
-                   const float* __restrict__ g,        // [N, P, F]
+splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
+                   const TP* __restrict__ g,           // [N, P, F]
                    const float* __restrict__ coords,   // [N, P, 3]
                    const int* __restrict__ entries,    // plane * P + point, by bin
                    const int* __restrict__ offsets,    // [n_bins + 1]
-                   float* __restrict__ g_planes,       // [3N, H, W, F]
+                   const float* __restrict__ addend,   // [3N, H, W, F] float32 or null
+                   TO* __restrict__ g_planes,          // [3N, H, W, F]
                    float2* __restrict__ d_plane,       // [3N, P] (dtx, dty) or null
                    Geometry geo, int n_bins) {
   static_assert(F % 4 == 0 && F <= 32, "a lane per feature");
@@ -269,7 +322,7 @@ splat_strip_kernel(const float* __restrict__ planes,   // [3N, H, W, F] or null
   const long long batch_row =  // + entry: the point's row of coords and g
       (long long)(plane / 3) * geo.points_per_batch - (long long)plane * geo.points_per_batch;
   const int k = plane % 3, iu = k == 2 ? 1 : 0, iv = k == 0 ? 1 : 2;  // the plane's two axes
-  const float* plane_base = planes + (long long)plane * height * width * F + lane;
+  const TP* plane_base = planes + (long long)plane * height * width * F + lane;
 
   for (int i = lane; i < kTexels * kF4; i += 32)
     reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -320,8 +373,8 @@ splat_strip_kernel(const float* __restrict__ planes,   // [3N, H, W, F] or null
 #pragma unroll
       for (int u = 0; u < 4; ++u) {  // 4 cotangent rows in flight
         const int e = __shfl_sync(kFullMask, my_e, (j + u) & 31);
-        gv[u] = j + u < count && active ? g[(batch_row + e) * F + lane] * (1.f / 3.f) : 0.f;
-      }  // (1/3: as torch's g / 3)
+        gv[u] = j + u < count && active ? third(g[(batch_row + e) * F + lane]) : 0.f;
+      }  // (1/3: as torch's g / 3 on the card)
       float v[8];
       bool any_home = false;
 #pragma unroll
@@ -338,11 +391,11 @@ splat_strip_kernel(const float* __restrict__ planes,   // [3N, H, W, F] or null
             r00 = r01 = r10 = r11 = 0.f;
             if (home) {
               const int ly = (pos & 63) - 1, lx = (pos >> 6 & 63) - 1;
-              const float* pv = plane_base + ((long long)(y_base + ly) * width + x_base + lx) * F;
-              v00 = active && (pos >> 12 & 1) ? __ldg(pv) : 0.f;
-              v01 = active && (pos >> 13 & 1) ? __ldg(pv + F) : 0.f;
-              v10 = active && (pos >> 14 & 1) ? __ldg(pv + (long long)width * F) : 0.f;
-              v11 = active && (pos >> 15 & 1) ? __ldg(pv + (long long)(width + 1) * F) : 0.f;
+              const TP* pv = plane_base + ((long long)(y_base + ly) * width + x_base + lx) * F;
+              v00 = active && (pos >> 12 & 1) ? widen(__ldg(pv)) : 0.f;
+              v01 = active && (pos >> 13 & 1) ? widen(__ldg(pv + F)) : 0.f;
+              v10 = active && (pos >> 14 & 1) ? widen(__ldg(pv + (long long)width * F)) : 0.f;
+              v11 = active && (pos >> 15 & 1) ? widen(__ldg(pv + (long long)(width + 1) * F)) : 0.f;
             }
           }
           r00 += (1.f - tx) * (1.f - ty) * gv[u];
@@ -368,11 +421,16 @@ splat_strip_kernel(const float* __restrict__ planes,   // [3N, H, W, F] or null
   __syncwarp();
 
   const int rows = min(kStripH, height - y_base), cols = min(kStripW, width - x_base);
-  float4* dst = reinterpret_cast<float4*>(
-      g_planes + (((long long)plane * height + y_base) * width + x_base) * F);
+  const long long origin = (((long long)plane * height + y_base) * width + x_base) * F;
   for (int i = lane; i < rows * cols * kF4; i += 32) {
     const int r = i / (cols * kF4), rest = i - r * cols * kF4;
-    dst[(long long)r * width * kF4 + rest] = reinterpret_cast<float4*>(acc)[r * kStripW * kF4 + rest];
+    const long long at = origin + ((long long)r * width * kF4 + rest) * 4;
+    float4 v = reinterpret_cast<float4*>(acc)[r * kStripW * kF4 + rest];
+    if (addend != nullptr) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(addend + at));
+      v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
+    }
+    store4(g_planes + at, v);
   }
 }
 
@@ -391,28 +449,52 @@ __global__ void coords_grad_kernel(const float2* __restrict__ d_plane, float* __
   g_coords[i * 3 + 2] = dxz.y * sy + dyz.y * sy;
 }
 
-template <int F>
-int launch_strips(const float* planes, const float* g, const float* coords, const int* entries,
-                  const int* offsets, float* g_planes, float2* d_plane, long long n_bins,
-                  const Geometry& geo, cudaStream_t s) {
-  splat_strip_kernel<F><<<(unsigned)((n_bins + kWarps - 1) / kWarps), 32 * kWarps, 0, s>>>(
-      planes, g, coords, entries, offsets, g_planes, d_plane, geo, (int)n_bins);
+template <int F, typename TP, typename TO>
+int launch_strips(const TP* planes, const TP* g, const float* coords, const int* entries,
+                  const int* offsets, const float* addend, TO* g_planes, float2* d_plane,
+                  long long n_bins, const Geometry& geo, cudaStream_t s) {
+  splat_strip_kernel<F, TP, TO><<<(unsigned)((n_bins + kWarps - 1) / kWarps), 32 * kWarps, 0,
+                                  s>>>(planes, g, coords, entries, offsets, addend, g_planes,
+                                       d_plane, geo, (int)n_bins);
   return (int)cudaGetLastError();
 }
 
-bool make_geometry(long long n_batch, long long points_per_batch, int height, int width,
-                   float inv_scale, Geometry* geo, long long* n_bins) {
-  if (n_batch < 1 || points_per_batch < 1 || height < 1 || width < 1 ||
-      3 * n_batch * points_per_batch >= (1ll << 31))
-    return false;
-  geo->points_per_batch = (int)points_per_batch;
-  geo->height = height;
-  geo->width = width;
-  geo->strips_y = (height + kStripH - 1) / kStripH;
-  geo->tiles_x = (width + kStripW - 1) / kStripW;
-  geo->inv_scale = inv_scale;
-  *n_bins = 3 * n_batch * geo->strips_y * geo->tiles_x;
-  return *n_bins < (1ll << 31);
+// The splat of either entry, then the coordinate gradient.
+template <typename TP, typename TO>
+int splat(const TP* planes, const TP* g, const float* coords, const int* entries,
+          const int* offsets, const float* addend, TO* g_planes, float* d_scratch,
+          float* g_coords, long long n_batch, long long points_per_batch, int height, int width,
+          int feats, float inv_scale, float sx, float sy, cudaStream_t s) {
+  Geometry geo;
+  long long n_bins;
+  const bool coords_grad = g_coords != nullptr;
+  if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins) ||
+      (coords_grad && (planes == nullptr || d_scratch == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const long long n_entries = 3 * n_batch * points_per_batch;
+  float2* d_plane = coords_grad ? reinterpret_cast<float2*>(d_scratch) : nullptr;
+  if (coords_grad) {  // entries with no corner in their plane add nothing
+    const cudaError_t err = cudaMemsetAsync(d_scratch, 0, n_entries * sizeof(float2), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int err;
+  if (feats == 32)
+    err = launch_strips<32>(planes, g, coords, entries, offsets, addend, g_planes, d_plane, n_bins,
+                            geo, s);
+  else if (feats == 16)
+    err = launch_strips<16>(planes, g, coords, entries, offsets, addend, g_planes, d_plane, n_bins,
+                            geo, s);
+  else if (feats == 8)
+    err = launch_strips<8>(planes, g, coords, entries, offsets, addend, g_planes, d_plane, n_bins,
+                           geo, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != 0 || !coords_grad) return err;
+  const long long n_points = n_batch * points_per_batch;
+  coords_grad_kernel<<<(unsigned)((n_points + 255) / 256), 256, 0, s>>>(d_plane, g_coords,
+                                                                        n_points, points_per_batch,
+                                                                        sx, sy);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -460,34 +542,27 @@ int tdgp_triplane_splat(const float* planes, const float* g, const float* coords
                         const int* entries, const int* offsets, float* g_planes, float* d_scratch,
                         float* g_coords, long long n_batch, long long points_per_batch, int height,
                         int width, int feats, float inv_scale, float sx, float sy, void* stream) {
-  Geometry geo;
-  long long n_bins;
-  const bool coords_grad = g_coords != nullptr;
-  if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins) ||
-      (coords_grad && (planes == nullptr || d_scratch == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long n_entries = 3 * n_batch * points_per_batch;
-  float2* d_plane = coords_grad ? reinterpret_cast<float2*>(d_scratch) : nullptr;
-  if (coords_grad) {  // entries with no corner in their plane add nothing
-    const cudaError_t err = cudaMemsetAsync(d_scratch, 0, n_entries * sizeof(float2), s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int err;
-  if (feats == 32)
-    err = launch_strips<32>(planes, g, coords, entries, offsets, g_planes, d_plane, n_bins, geo, s);
-  else if (feats == 16)
-    err = launch_strips<16>(planes, g, coords, entries, offsets, g_planes, d_plane, n_bins, geo, s);
-  else if (feats == 8)
-    err = launch_strips<8>(planes, g, coords, entries, offsets, g_planes, d_plane, n_bins, geo, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (err != 0 || !coords_grad) return err;
-  const long long n_points = n_batch * points_per_batch;
-  coords_grad_kernel<<<(unsigned)((n_points + 255) / 256), 256, 0, s>>>(d_plane, g_coords,
-                                                                        n_points, points_per_batch,
-                                                                        sx, sy);
-  return (int)cudaGetLastError();
+  return splat(planes, g, coords, entries, offsets, (const float*)nullptr, g_planes, d_scratch,
+               g_coords, n_batch, points_per_batch, height, width, feats, inv_scale, sx, sy,
+               (cudaStream_t)stream);
+}
+
+// The bf16 entry: planes and g bf16; addend float32 [3N, H, W, F] or null,
+// added to each texel's sum; g_planes bf16 where out_bf16 is not 0, else
+// float32. Otherwise as tdgp_triplane_splat.
+int tdgp_triplane_splat_bf16(const __nv_bfloat16* planes, const __nv_bfloat16* g,
+                             const float* coords, const int* entries, const int* offsets,
+                             const float* addend, void* g_planes, float* d_scratch,
+                             float* g_coords, long long n_batch, long long points_per_batch,
+                             int height, int width, int feats, float inv_scale, float sx, float sy,
+                             int out_bf16, void* stream) {
+  if (out_bf16)
+    return splat(planes, g, coords, entries, offsets, addend,
+                 static_cast<__nv_bfloat16*>(g_planes), d_scratch, g_coords, n_batch,
+                 points_per_batch, height, width, feats, inv_scale, sx, sy, (cudaStream_t)stream);
+  return splat(planes, g, coords, entries, offsets, addend, static_cast<float*>(g_planes),
+               d_scratch, g_coords, n_batch, points_per_batch, height, width, feats, inv_scale, sx,
+               sy, (cudaStream_t)stream);
 }
 
 const char* tdgp_splat_error_string(int code) {

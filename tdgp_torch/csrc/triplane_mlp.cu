@@ -40,7 +40,32 @@
 // thread t of the group then writes output t of its rows. Instantiated for
 // (F, HID, OUT) = (32, 64, 4), the 256^2 configs, (16, 32, 4), the 64^2
 // configs, and (8, 16, 4), the test config; the wrapper refuses others.
+//
+// The bf16 entry (triplane_mlp_bf16_kernel) is the MLP of the bf16 render
+// views (generator.render_bf16). It replaces no TPU kernel: there the JAX
+// package runs the two FullyConnected layers in bf16 in XLA
+// (tdgp/models/epigraf.py:287-289, tdgp/models/layers.py:38-52), and this
+// entry computes what they compute, from bf16 features and the weights
+// folded in bf16 by the caller (cast, then scaled by the gain rounded to
+// bf16):
+//   h = bf16(x . w0)                   (float32 sum of exact products)
+//   h = bf16(h + b0); h = h >= 0 ? h : bf16(h * bf16(0.2)); h = bf16(h * bf16(sqrt 2))
+//   y = bf16(bf16(h . w1) + b1)
+// with rgb and sigma stored in bf16. Bound on an H100: device memory. Per
+// point it reads 2 F bytes and writes 2 OUT bytes: at F = 32, OUT = 4, 72
+// bytes, 151 MB for a served pass of 2,097,152 points, 0.045 ms at 3.35
+// TB/s; its 9.66 GFLOP take 0.010 ms at 989 TFLOP/s bf16. Design: the float32
+// kernel's, with the first product as one bf16 mma.sync m16n8k16 per
+// (k-step of 16, n-tile) and m-tile (bf16 x bf16 products are exact in the
+// float32 accumulator, so only the order of the sum differs from XLA's),
+// tiles of 128 points staged by cp.async in rows of F + 8 bf16 (80 bytes at
+// F = 32: the A fragments' 4-byte loads hit 32 distinct banks), and each
+// rounding of the chain above applied to the accumulator fragments in
+// registers. The second product stays on the CUDA cores in float32: its
+// products of two bf16 values are exact there too. Instantiated for (F,
+// HID, OUT) = (32, 64, 4) and (16, 32, 4).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -265,6 +290,208 @@ int launch(const float* feats, const float* w0, const float* b0, const float* w1
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the bf16 entry
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// two bf16 values in one register, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int F>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* s_x, const __nv_bfloat16* feats,
+                                               long long first, long long n_points) {
+  constexpr int kRow = F + 8;
+  constexpr int kChunks = kTile * F / 8;  // 16-byte chunks of 8 values
+  for (int q = threadIdx.x; q < kChunks; q += kThreads) {
+    const int row = q / (F / 8), col = (q % (F / 8)) * 8;
+    const bool valid = first + row < n_points;
+    const __nv_bfloat16* src = valid ? feats + (first + row) * F + col : feats;
+    cp_async16(s_x + row * kRow + col, src, valid);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int F, int HID, int OUT>
+struct SmemBf16 {
+  static constexpr int kRow = F + 8;
+  uint2 w0[F / 16][HID / 8][32];  // per (k-step, n-tile, lane): the B fragment's two registers
+  float b0[HID];
+  float w1[HID][OUT];
+  float b1[OUT];
+  alignas(16) __nv_bfloat16 x[2][kTile * kRow];  // the double buffer of feature tiles
+};
+
+template <int F, int HID, int OUT>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+triplane_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ feats,  // [T, F]
+                         const __nv_bfloat16* __restrict__ w0,     // [F, HID], folded
+                         const __nv_bfloat16* __restrict__ b0,     // [HID]
+                         const __nv_bfloat16* __restrict__ w1,     // [HID, OUT], folded
+                         const __nv_bfloat16* __restrict__ b1,     // [OUT]
+                         __nv_bfloat16* __restrict__ rgb,          // [T, OUT - 1]
+                         __nv_bfloat16* __restrict__ sigma,        // [T]
+                         long long n_points) {
+  static_assert(F % 16 == 0 && HID % 8 == 0 && OUT <= 4, "widths");
+  constexpr int kK = F / 16, kN = HID / 8, kRow = F + 8;
+  extern __shared__ uint4 smem_raw[];
+  auto& s = *reinterpret_cast<SmemBf16<F, HID, OUT>*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = lane >> 2, tig = lane & 3;  // fragment row group, thread in group
+  const float alpha = round_bf16(0.2f), gain = round_bf16(1.41421356237309504880f);
+
+  const long long n_tiles = (n_points + kTile - 1) / kTile;
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) load_tile_bf16<F>(s.x[0], feats, tile * kTile, n_points);
+
+  // B fragment of w0 for k-step k, n-tile j: rows (k) 16k + 2 tig (+1) and
+  // 16k + 2 tig + 8 (+1), column (n) 8j + group
+  for (int i = tid; i < kK * kN * 32; i += kThreads) {
+    const int k = i / (kN * 32), j = (i / 32) % kN, l = i % 32;
+    const int kr = 16 * k + 2 * (l & 3), n = 8 * j + (l >> 2);
+    s.w0[k][j][l] = make_uint2(pack_bf16(w0[kr * HID + n], w0[(kr + 1) * HID + n]),
+                               pack_bf16(w0[(kr + 8) * HID + n], w0[(kr + 9) * HID + n]));
+  }
+  for (int i = tid; i < HID; i += kThreads) s.b0[i] = __bfloat162float(b0[i]);
+  for (int i = tid; i < HID * OUT; i += kThreads) s.w1[i / OUT][i % OUT] = __bfloat162float(w1[i]);
+  if (tid < OUT) s.b1[tid] = __bfloat162float(b1[tid]);
+
+  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const long long next = tile + gridDim.x;
+    if (next < n_tiles) {
+      load_tile_bf16<F>(s.x[buf ^ 1], feats, next * kTile, n_points);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // tile `buf` (and, the first time, the weights) in place
+
+    float acc[kMTiles][kN][4];
+#pragma unroll
+    for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][j][c] = 0.f;
+
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      uint32_t a[kMTiles][4];
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m) {
+        // A fragment: rows group, group + 8; columns 2 tig (+1), 2 tig + 8 (+1) of k-step k
+        const __nv_bfloat16* x =
+            s.x[buf] + (warp * kMTiles * 16 + m * 16 + group) * kRow + 16 * k + 2 * tig;
+        a[m][0] = *reinterpret_cast<const uint32_t*>(x);
+        a[m][1] = *reinterpret_cast<const uint32_t*>(x + 8 * kRow);
+        a[m][2] = *reinterpret_cast<const uint32_t*>(x + 8);
+        a[m][3] = *reinterpret_cast<const uint32_t*>(x + 8 * kRow + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const uint2 b = s.w0[k][j][lane];
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) mma_bf16(acc[m][j], a[m], b.x, b.y);
+      }
+    }
+
+    // hidden unit of acc[m][j][c]: 8 j + 2 tig + (c & 1); row group + 8 (c >> 1)
+    float y[kMTiles][2][OUT];
+#pragma unroll
+    for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int o = 0; o < OUT; ++o) y[m][r][o] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int unit = 8 * j + 2 * tig + c;
+        const float bj = s.b0[unit];
+        float wo[OUT];
+#pragma unroll
+        for (int o = 0; o < OUT; ++o) wo[o] = s.w1[unit][o];
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float h = round_bf16(round_bf16(acc[m][j][2 * r + c]) + bj);
+            h = h >= 0.f ? h : round_bf16(h * alpha);
+            h = round_bf16(h * gain);
+#pragma unroll
+            for (int o = 0; o < OUT; ++o) y[m][r][o] = fmaf(h, wo[o], y[m][r][o]);
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int o = 0; o < OUT; ++o) {
+          y[m][r][o] += __shfl_xor_sync(0xffffffffu, y[m][r][o], 1);
+          y[m][r][o] += __shfl_xor_sync(0xffffffffu, y[m][r][o], 2);
+        }
+    if (tig < OUT) {
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long point = tile * kTile + warp * kMTiles * 16 + m * 16 + 8 * r + group;
+          float v = y[m][r][0];
+#pragma unroll
+          for (int o = 1; o < OUT; ++o) v = tig == o ? y[m][r][o] : v;
+          const __nv_bfloat16 out = __float2bfloat16_rn(round_bf16(v) + s.b1[tig]);
+          if (point < n_points) {
+            if (tig < OUT - 1) rgb[point * (OUT - 1) + tig] = out;
+            else sigma[point] = out;
+          }
+        }
+    }
+    __syncthreads();  // every warp is done with tile `buf` before it is refilled
+  }
+}
+
+template <int F, int HID, int OUT>
+int launch_bf16(const __nv_bfloat16* feats, const __nv_bfloat16* w0, const __nv_bfloat16* b0,
+                const __nv_bfloat16* w1, const __nv_bfloat16* b1, __nv_bfloat16* rgb,
+                __nv_bfloat16* sigma, long long n_points, cudaStream_t stream) {
+  static int n_sms = 0;
+  const int smem = (int)sizeof(SmemBf16<F, HID, OUT>);
+  if (n_sms == 0) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(triplane_mlp_bf16_kernel<F, HID, OUT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      n_sms = 0;
+      return (int)err;
+    }
+  }
+  const long long n_tiles = (n_points + kTile - 1) / kTile;
+  const long long most = (long long)n_sms * kBlocksPerSm;
+  const unsigned blocks = (unsigned)(n_tiles < most ? n_tiles : most);
+  triplane_mlp_bf16_kernel<F, HID, OUT><<<blocks, kThreads, smem, stream>>>(
+      feats, w0, b0, w1, b1, rgb, sigma, n_points);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -284,6 +511,21 @@ int tdgp_triplane_mlp(const float* feats, const float* w0, const float* b0, cons
     return launch<16, 32, 4>(feats, w0, b0, w1, b1, rgb, sigma, n_points, s);
   if (f == 8 && hid == 16 && out == 4)
     return launch<8, 16, 4>(feats, w0, b0, w1, b1, rgb, sigma, n_points, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 entry: every tensor bf16 and contiguous, the weights folded in
+// bf16; (f, hid, out) one of (32, 64, 4) and (16, 32, 4). Same return value.
+int tdgp_triplane_mlp_bf16(const __nv_bfloat16* feats, const __nv_bfloat16* w0,
+                           const __nv_bfloat16* b0, const __nv_bfloat16* w1,
+                           const __nv_bfloat16* b1, __nv_bfloat16* rgb, __nv_bfloat16* sigma,
+                           long long n_points, int f, int hid, int out, void* stream) {
+  if (n_points < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (f == 32 && hid == 64 && out == 4)
+    return launch_bf16<32, 64, 4>(feats, w0, b0, w1, b1, rgb, sigma, n_points, s);
+  if (f == 16 && hid == 32 && out == 4)
+    return launch_bf16<16, 32, 4>(feats, w0, b0, w1, b1, rgb, sigma, n_points, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,8 +8,15 @@ discriminator sees, and the camera adaptor warps prior cameras into the
 learned camera distribution. Unless `fp32_only`, the decoder's
 `num_fp16_res` highest-resolution blocks compute in bfloat16
 (`models/stylegan2.py`); the planes leave the decoder in float32, and the
-mapping, the sampling, the MLP and the renderer are float32 throughout
-(`render_bf16`, the JAX package's bf16 render streams, is refused).
+mapping, the sampling, the MLP and the renderer are float32 throughout,
+unless `render_bf16`: then the planes are cast to bf16, sampled into bf16
+features (`ops/splat.py`) and mapped by the MLP in bf16, as the JAX
+package's bf16 render streams do (`tdgp/models/epigraf.py:241-244,
+287-289`); rays, depths and the marches stay float32, and so do the density
+queries of geometry extraction (`compute_densities`), as in JAX.
+`Generator.view` builds such a view of a generator over its own parameters,
+as the JAX train step's bf16 views (`training.dmain_fake_bf16`,
+`training.gmain_render_bf16`) are.
 
 At eval (serving) noise is the stored const noise and sampling draws
 nothing, so a forward pass is a pure function of its inputs. In training
@@ -21,10 +28,14 @@ the final march through kernel K3 forward and backward. Where they do not
 (serving, inference, geometry), the MLP runs in kernel K4, every
 bias + activation of the decoder and the mapping in kernel K5, and the
 merge of the coarse and fine samples with the final march in K3's merged
-entry.
+entry. Under `render_bf16` the same routes take their bf16 entries: K4's
+and K3's merged entry's where autograd does not record; where it records,
+the bf16 `FullyConnected` layers and K1's bf16 entry, a render's two passes
+rounding their plane gradient once together (`triplane_sample_pair`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -36,7 +47,7 @@ from tdgp_torch.models.camera_adaptor import CameraAdaptor
 from tdgp_torch.models.depth_adaptor import DepthAdaptor
 from tdgp_torch.models.layers import FullyConnected, MappingNetwork
 from tdgp_torch.models.stylegan2 import SynthesisBlocksSequence, sg2_num_ws
-from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample
+from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample, triplane_sample_pair
 from tdgp_torch.ops.triplane_mlp import fold_fully_connected, triplane_mlp
 from tdgp_torch.rendering.camera import compute_cam2world_matrix
 from tdgp_torch.rendering.rays import sample_rays
@@ -94,6 +105,8 @@ class TriPlaneMLP(nn.Module):
             setattr(self, f'fc{i}', FullyConnected(dims[i], dims[i + 1], activation=act))
 
     def forward(self, x: torch.Tensor):
+        """x float32, or bf16 (the bf16 render views: the layers and K4's
+        bf16 entry compute in bf16, as the JAX layers do on bf16 input)."""
         records = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
         if records or (x.device.type == 'cpu' and self.n_layers != 2):
@@ -104,7 +117,9 @@ class TriPlaneMLP(nn.Module):
             raise NotImplementedError(f'kernel K4 runs the 2-layer tri-plane MLP; n_layers '
                                       f'{self.n_layers} runs only where gradients are recorded '
                                       f'or on the CPU')
-        return triplane_mlp(x, *fold_fully_connected(self.fc0), *fold_fully_connected(self.fc1))
+        dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+        return triplane_mlp(x, *fold_fully_connected(self.fc0, dtype),
+                            *fold_fully_connected(self.fc1, dtype))
 
 
 class SynthesisNetwork(nn.Module):
@@ -114,8 +129,6 @@ class SynthesisNetwork(nn.Module):
         super().__init__()
         if cfg.architecture != 'skip':
             raise NotImplementedError(f'architecture {cfg.architecture!r} is not ported')
-        if cfg.render_bf16:
-            raise NotImplementedError('generator.render_bf16 is not ported')
         self.cfg = cfg
         self.sample_impl = resolve_sample_impl(cfg.plane_sample_impl)
         self.num_ws = sg2_num_ws(0, cfg.tri_plane.res)
@@ -172,13 +185,19 @@ class SynthesisNetwork(nn.Module):
         _, sigma = self.tri_plane_mlp(self._sample_fn(planes.device)(planes, coords))
         return sigma
 
-    def _sample_fn(self, device: torch.device):
+    def _sample_fn(self, device: torch.device, dtype: torch.dtype = torch.float32):
+        """The plane sampler for planes on `device` of `dtype`: without
+        gradients the gather, with them `triplane_sample` (K1 as its
+        backward), for bf16 planes a `triplane_sample_pair` for the two
+        passes of one render."""
         scale = self.cfg.camera.cube_scale
         if self.sample_impl == 'jnp' and device.type != 'cpu':
             raise NotImplementedError("plane_sample_impl 'jnp' (the plain splat) runs on CPU "
                                       "tensors only; on the card it runs in kernel K1 ('fused')")
         if not torch.is_grad_enabled():
             return lambda planes, coords: tri_plane_sample(planes, coords, scale)
+        if dtype == torch.bfloat16:
+            return triplane_sample_pair(scale)
         return lambda planes, coords: triplane_sample(planes, coords, scale)
 
     def forward(self, ws: torch.Tensor, camera_params: TensorGroup,
@@ -206,11 +225,18 @@ class SynthesisNetwork(nn.Module):
         h = w = resolution
         noise = self.tri_plane_decoder.draw_noise(draws.scope('noise'), n) if train else None
         planes = flatten_planes(self.decode_planes(ws, noise))
+        if c.render_bf16:
+            planes = planes.to(torch.bfloat16)
         c2w = compute_cam2world_matrix(camera_params)
         ray_o, ray_d = sample_rays(c2w, camera_params.fov, resolution=(w, h),
                                    patch_params=patch_params)
         opts = self.render_opts(cut_quantile)
-        sample = self._sample_fn(planes.device)
+        sample = self._sample_fn(planes.device, planes.dtype)
+        if c.render_bf16 and not torch.is_grad_enabled():
+            # the gather sums in float32: widen the bf16 planes once, not per pass and chunk
+            planes = planes.float()
+            sample = functools.partial(tri_plane_sample, scale=c.camera.cube_scale,
+                                       out_dtype=torch.bfloat16)
 
         def run_model(coords):
             return self.tri_plane_mlp(sample(planes, coords))
@@ -250,6 +276,22 @@ class Generator(nn.Module):
             num_ws=self.synthesis.num_ws, num_layers=cfg.map_depth,
             camera_cond=cfg.camera_cond, camera_cond_drop_p=cfg.camera_cond_drop_p,
             camera_raw_scalars=cfg.camera_cond_raw)
+
+    def view(self, cfg: GeneratorConfig) -> 'Generator':
+        """A Generator of config `cfg` (one that differs from this one's only
+        in precision, as `config.render_bf16_view` makes it) over this
+        generator's own parameter and buffer tensors: a change to either
+        shows in both. Not a submodule: it saves nothing of its own."""
+        view = Generator(cfg)
+        pairs = list(zip(view.named_modules(), self.named_modules()))
+        if len(pairs) != len(list(self.modules())) or any(
+                name != their_name or type(mine) is not type(theirs)
+                for (name, mine), (their_name, theirs) in pairs):
+            raise ValueError('a view must differ from its generator only in precision')
+        for (_, mine), (_, theirs) in pairs:
+            mine._parameters, mine._buffers = theirs._parameters, theirs._buffers
+            mine.training = theirs.training
+        return view
 
     def map_ws(self, z: torch.Tensor, c: Optional[torch.Tensor],
                camera_angles: Optional[torch.Tensor] = None,

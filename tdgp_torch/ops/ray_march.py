@@ -24,6 +24,15 @@ as `ray_march_merged_plain` for CPU tensors. It has no backward, and refuses
 CUDA inputs that autograd records: training merges with
 `unify_samples_sorted` and marches with `ray_march_reduced`.
 
+Under the bf16 render views (`generator.render_bf16`) the model gives bf16
+colours and densities (densities in float32 where a training render added
+its noise). `ray_march_merged` and `ray_march_merged_cut` hand them to their
+bf16-load entries, `ray_march_merged_bf16` and `ray_march_merged_cut_bf16`
+(their own launch counts), which widen each value to float32 exactly as
+they load it and march in float32, as the JAX package does after its merge
+promotes them; the plain versions are the same functions, since
+`unify_samples_sorted` returns float32 as JAX's one-hot merge does.
+
 `ray_march_merged_cut` is the same march with the JAX package's eval-time
 quantile cut (NFS's depth maps; the JAX package marches it in jnp): the
 clamped densities below their quantile over both sets are marched as 0. The
@@ -56,9 +65,10 @@ def _last_delta(use_inf_depth: bool) -> float:
 
 def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     """`jnp.quantile(x, q)` over all of x (its default linear interpolation),
-    as a one-element float32 tensor on x's device: x sorted, the positions
-    floor and ceil of q (n - 1) and their weights in float32 as JAX takes
-    them, NaN if x holds one. A sort, not `torch.quantile`, which refuses
+    as a one-element tensor of x's dtype on x's device: x sorted, the
+    positions floor and ceil of q (n - 1) and their weights in float32 as JAX
+    takes them (bf16 values widened, the result rounded once), NaN if x
+    holds one. A sort, not `torch.quantile`, which refuses
     inputs of 2^24 elements and more."""
     flat = x.reshape(-1)
     n = flat.numel()
@@ -68,12 +78,24 @@ def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     low_weight = np.float32(1) - high_weight
     low, high = (int(min(max(i, 0), n - 1)) for i in (low, high))
     ordered = torch.sort(flat).values
-    out = ordered[low:low + 1] * low_weight + ordered[high:high + 1] * high_weight
+    out = (widen(ordered[low:low + 1]) * low_weight
+           + widen(ordered[high:high + 1]) * high_weight).to(flat.dtype)
     return torch.where(torch.isnan(flat).any(), torch.full_like(out, float('nan')), out)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """bf16 -> float32 (exact); other dtypes as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def clamp_densities(densities: torch.Tensor, clamp_mode: str = 'softplus',
                     sp_beta: float = 1.0) -> torch.Tensor:
+    """softplus(beta x) / beta or relu(x). In bf16 (the coarse march of an
+    eval render under `generator.render_bf16`) softplus is JAX's chain,
+    max(x, 0) + log1p(exp(-|x|)), each step rounded to bf16."""
+    if clamp_mode == 'softplus' and densities.dtype == torch.bfloat16:
+        x = sp_beta * densities
+        return (x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))) / sp_beta
     if clamp_mode == 'softplus':
         return F.softplus(sp_beta * densities) / sp_beta
     if clamp_mode == 'relu':
@@ -130,7 +152,9 @@ def unify_samples_sorted(depths1, colors1, densities1, depths2, colors2, densiti
 
     Merged positions come from comparison counts, strict for set 1 and
     non-strict for set 2, so ties go to set 1 first and the positions are a
-    permutation; the values are scattered to them.
+    permutation; the values are scattered to them. bf16 colours and
+    densities come out in the depths' dtype (float32), as JAX's float32
+    one-hot products promote them.
     """
     s1, s2 = depths1.shape[-1], depths2.shape[-1]
     pos1 = torch.arange(s1, device=depths1.device) + (
@@ -139,13 +163,17 @@ def unify_samples_sorted(depths1, colors1, densities1, depths2, colors2, densiti
         depths1[..., None, :] <= depths2[..., :, None]).sum(-1)
     pos = torch.cat([pos1, pos2], -1)                                   # [B,R,S]
 
+    dtype = depths1.dtype
+
     def merge(v1, v2):
-        v = torch.cat([v1, v2], -1)
+        v = torch.cat([v1.to(torch.promote_types(v1.dtype, dtype)),
+                       v2.to(torch.promote_types(v2.dtype, dtype))], -1)
         return torch.empty_like(v).scatter_(-1, pos, v)
 
     all_depths = merge(depths1, depths2)
     all_densities = merge(densities1, densities2)
-    colors = torch.cat([colors1, colors2], -2)
+    colors = torch.cat([c.to(torch.promote_types(c.dtype, dtype)) for c in (colors1, colors2)],
+                       -2)
     idx = pos[..., None].expand_as(colors)
     all_colors = torch.empty_like(colors).scatter_(-2, idx, colors)
     return all_depths, all_colors, all_densities
@@ -224,9 +252,16 @@ def _kernels():
     cut = lib.tdgp_ray_march_merged_cut
     cut.argtypes = [ctypes.c_void_p] * 11 + merged.argtypes[10:]
     cut.restype = ctypes.c_int
+    merged_bf16 = lib.tdgp_ray_march_merged_bf16
+    merged_bf16.argtypes = merged.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p]
+    merged_bf16.restype = ctypes.c_int
+    cut_bf16 = lib.tdgp_ray_march_merged_cut_bf16
+    cut_bf16.argtypes = cut.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p]
+    cut_bf16.restype = ctypes.c_int
     lib.tdgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_cuda_error_string.restype = ctypes.c_char_p
     return types.SimpleNamespace(fwd=fwd, bwd=bwd, merged=merged, cut=cut,
+                                 merged_bf16=merged_bf16, cut_bf16=cut_bf16,
                                  error_string=lib.tdgp_cuda_error_string)
 
 
@@ -363,9 +398,16 @@ def _check_merged(sets, clamp_mode: str) -> None:
         raise ValueError(f'need S1, S2 >= 1 and S1 + S2 <= {MAX_MERGED}, got {t1[2]} + {t2[2]}')
     if not 1 <= c1[-1] <= MAX_CHANNELS:
         raise ValueError(f'need 1 <= C <= {MAX_CHANNELS}, got {c1[-1]}')
+    depths, values = (sets[0], sets[3]), (sets[1], sets[2], sets[4], sets[5])
+    if any(t.dtype != torch.float32 for t in depths) or not (
+            all(t.dtype == torch.float32 for t in values)
+            or (sets[1].dtype == sets[4].dtype == torch.bfloat16
+                and sets[2].dtype == sets[5].dtype
+                and sets[2].dtype in (torch.bfloat16, torch.float32))):
+        raise TypeError(f'ray_march_merged takes float32 depths with float32 colours and '
+                        f'densities, or bf16 colours and bf16 or float32 densities; got '
+                        f'{[t.dtype for t in sets]}')
     for t in sets:
-        if t.dtype != torch.float32:
-            raise TypeError(f'ray_march_merged takes float32, got {t.dtype}')
         if t.device != sets[0].device:
             raise ValueError(f'inputs on {sets[0].device} and {t.device}')
         if not t.is_contiguous():
@@ -384,28 +426,65 @@ def ray_march_merged(depths1: torch.Tensor, colors1: torch.Tensor, densities1: t
     what `ray_march_merged_plain` computes. Not differentiable on the card."""
     sets = (depths1, colors1, densities1, depths2, colors2, densities2)
     _check_merged(sets, clamp_mode)
-    device = depths1.device
-    if device.type == 'cpu':
+    if colors1.dtype == torch.bfloat16:
+        return ray_march_merged_bf16(*sets, clamp_mode, sp_beta, use_inf_depth, last_back)
+    if depths1.device.type == 'cpu':
         return ray_march_merged_plain(*sets, clamp_mode, sp_beta, use_inf_depth, last_back)
+    out = _launch_merged('ray_march_merged', sets, None, clamp_mode, sp_beta, use_inf_depth,
+                         last_back)
+    ray_march_merged.launches += 1
+    return out
+
+
+def _launch_merged(what, sets, threshold, clamp_mode, sp_beta, use_inf_depth, last_back):
+    """One launch of the merged kernel's entry for `sets`' dtypes, with the
+    cut where `threshold` is given -> (rgb, depth, weights_sum, final_transmittance)."""
+    device = sets[0].device
     if device.type != 'cuda':
-        raise ValueError(f'ray_march_merged runs on CUDA or CPU tensors, not {device}')
+        raise ValueError(f'{what} runs on CUDA or CPU tensors, not {device}')
     if torch.is_grad_enabled() and any(t.requires_grad for t in sets):
-        raise RuntimeError('ray_march_merged has no backward: where autograd records, merge '
-                           'with unify_samples_sorted and march with ray_march_reduced')
-    b, r, s1 = depths1.shape
-    s2, c = depths2.shape[2], colors1.shape[3]
+        raise RuntimeError(f'{what} has no backward: where autograd records, merge with '
+                           f'unify_samples_sorted and march with ray_march_reduced')
+    b, r, s1 = sets[0].shape
+    s2, c = sets[3].shape[2], sets[1].shape[3]
     rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
     depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
                            for _ in range(3))
     k = _kernels()
+    bf16 = sets[1].dtype == torch.bfloat16
+    fn = {(False, False): k.merged, (False, True): k.cut, (True, False): k.merged_bf16,
+          (True, True): k.cut_bf16}[bf16, threshold is not None]
+    pointers = [t.data_ptr() for t in (*sets, *([] if threshold is None else [threshold]),
+                                       rgb, depth, wsum, ftrans)]
+    extra = [int(sets[2].dtype == torch.bfloat16)] if bf16 else []
     with torch.cuda.device(device):
-        err = k.merged(*[t.data_ptr() for t in (*sets, rgb, depth, wsum, ftrans)], b * r, s1, s2,
-                     c, _CLAMP_MODES[clamp_mode], float(sp_beta), _last_delta(use_inf_depth),
-                     int(last_back), torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*pointers, b * r, s1, s2, c, _CLAMP_MODES[clamp_mode], float(sp_beta),
+                 _last_delta(use_inf_depth), int(last_back), *extra,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f'ray_march_merged launch failed: {k.error_string(err).decode()}')
-    ray_march_merged.launches += 1
+        raise RuntimeError(f'{what} launch failed: {k.error_string(err).decode()}')
     return rgb, depth, wsum, ftrans
+
+
+def ray_march_merged_bf16(depths1: torch.Tensor, colors1: torch.Tensor, densities1: torch.Tensor,
+                          depths2: torch.Tensor, colors2: torch.Tensor, densities2: torch.Tensor,
+                          clamp_mode: str = 'softplus', sp_beta: float = 1.0,
+                          use_inf_depth: bool = True, last_back: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's merged entry with bf16 loads: `ray_march_merged` for bf16 colours
+    and bf16 or float32 densities (float32 depths), each widened to float32
+    as it is loaded; counted in `ray_march_merged_bf16.launches`;
+    `ray_march_merged_plain` for CPU tensors."""
+    sets = (depths1, colors1, densities1, depths2, colors2, densities2)
+    _check_merged(sets, clamp_mode)
+    if colors1.dtype != torch.bfloat16:
+        raise TypeError(f'ray_march_merged_bf16 takes bf16 colours, got {colors1.dtype}')
+    if depths1.device.type == 'cpu':
+        return ray_march_merged_plain(*sets, clamp_mode, sp_beta, use_inf_depth, last_back)
+    out = _launch_merged('ray_march_merged_bf16', sets, None, clamp_mode, sp_beta,
+                         use_inf_depth, last_back)
+    ray_march_merged_bf16.launches += 1
+    return out
 
 
 def cut_threshold(densities1: torch.Tensor, densities2: torch.Tensor, cut_quantile: float,
@@ -413,7 +492,7 @@ def cut_threshold(densities1: torch.Tensor, densities2: torch.Tensor, cut_quanti
     """The `cut_quantile`-quantile of the clamped densities of both sample
     sets together (one-element tensor on their device): the threshold of
     the merged march, which a quantile takes in any order."""
-    return quantile(torch.cat([clamp_densities(x, clamp_mode, sp_beta).reshape(-1)
+    return quantile(torch.cat([clamp_densities(widen(x), clamp_mode, sp_beta).reshape(-1)
                                for x in (densities1, densities2)]), cut_quantile)
 
 
@@ -440,35 +519,49 @@ def ray_march_merged_cut(depths1: torch.Tensor, colors1: torch.Tensor, densities
     tensors."""
     sets = (depths1, colors1, densities1, depths2, colors2, densities2)
     _check_merged(sets, clamp_mode)
+    if colors1.dtype == torch.bfloat16:
+        return ray_march_merged_cut_bf16(*sets, cut_quantile, clamp_mode, sp_beta,
+                                         use_inf_depth, last_back)
+    return _merged_cut(ray_march_merged_cut, sets, cut_quantile, clamp_mode, sp_beta,
+                       use_inf_depth, last_back)
+
+
+def _merged_cut(counter, sets, cut_quantile, clamp_mode, sp_beta, use_inf_depth, last_back):
+    what = counter.__name__
     if not 0.0 < cut_quantile <= 1.0:
         raise ValueError(f'cut_quantile must be in (0, 1], got {cut_quantile}')
-    device = depths1.device
-    if device.type == 'cpu':
+    if sets[0].device.type == 'cpu':
         return ray_march_merged_cut_plain(*sets, cut_quantile, clamp_mode, sp_beta,
                                           use_inf_depth, last_back)
-    if device.type != 'cuda':
-        raise ValueError(f'ray_march_merged_cut runs on CUDA or CPU tensors, not {device}')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in sets):
-        raise RuntimeError('ray_march_merged_cut has no backward')
-    threshold = cut_threshold(densities1, densities2, cut_quantile, clamp_mode, sp_beta)
-    b, r, s1 = depths1.shape
-    s2, c = depths2.shape[2], colors1.shape[3]
-    rgb = torch.empty((b, r, c), dtype=torch.float32, device=device)
-    depth, wsum, ftrans = (torch.empty((b, r), dtype=torch.float32, device=device)
-                           for _ in range(3))
-    k = _kernels()
-    with torch.cuda.device(device):
-        err = k.cut(*[t.data_ptr() for t in (*sets, threshold, rgb, depth, wsum, ftrans)], b * r,
-                  s1, s2, c, _CLAMP_MODES[clamp_mode], float(sp_beta),
-                  _last_delta(use_inf_depth), int(last_back),
-                  torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'ray_march_merged_cut launch failed: {k.error_string(err).decode()}')
-    ray_march_merged_cut.launches += 1
-    return rgb, depth, wsum, ftrans
+    threshold = cut_threshold(sets[2], sets[5], cut_quantile, clamp_mode, sp_beta)
+    out = _launch_merged(what, sets, threshold, clamp_mode, sp_beta, use_inf_depth, last_back)
+    counter.launches += 1
+    return out
+
+
+def ray_march_merged_cut_bf16(depths1: torch.Tensor, colors1: torch.Tensor,
+                              densities1: torch.Tensor, depths2: torch.Tensor,
+                              colors2: torch.Tensor, densities2: torch.Tensor,
+                              cut_quantile: float, clamp_mode: str = 'softplus',
+                              sp_beta: float = 1.0, use_inf_depth: bool = True,
+                              last_back: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's cut entry with bf16 loads (`ray_march_merged_cut` for bf16
+    colours and bf16 or float32 densities): the threshold over the widened
+    clamped densities, then one launch, counted in
+    `ray_march_merged_cut_bf16.launches`; `ray_march_merged_cut_plain` for
+    CPU tensors."""
+    sets = (depths1, colors1, densities1, depths2, colors2, densities2)
+    _check_merged(sets, clamp_mode)
+    if colors1.dtype != torch.bfloat16:
+        raise TypeError(f'ray_march_merged_cut_bf16 takes bf16 colours, got {colors1.dtype}')
+    return _merged_cut(ray_march_merged_cut_bf16, sets, cut_quantile, clamp_mode, sp_beta,
+                       use_inf_depth, last_back)
 
 
 ray_march_reduced.launches = 0
 ray_march_reduced_bwd.launches = 0
 ray_march_merged.launches = 0
 ray_march_merged_cut.launches = 0
+ray_march_merged_bf16.launches = 0
+ray_march_merged_cut_bf16.launches = 0

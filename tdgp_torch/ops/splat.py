@@ -25,6 +25,21 @@ For CUDA tensors the backward launches the kernel and counts it in
 (`index_add_`, the counterpart of `triplane_splat_ref` :775) and the
 coordinate gradient in plain PyTorch. `triplane_splat_binned_plain` walks
 the kernel's bins in plain PyTorch, for the tests.
+
+bf16 planes (the bf16 render views, `generator.render_bf16`): the forward
+sums each plane's four corners in float32 from the bf16 texels and rounds
+once to bf16, then takes the mean of the three planes in float32 and rounds
+once, where the JAX package's `grid_sample_2d` and `jnp.mean` round. The
+backward is K1's bf16 entry, `triplane_splat_bf16` (its own launch count):
+the bf16 cotangent divided by 3 and rounded as JAX's bf16 division rounds
+it, the splat summed in float32, the plane gradient rounded once to bf16 as
+the JAX package's TPU route rounds it at its boundary
+(`tdgp/ops/splat.py:1030-1033`), the coordinate gradient in float32 from
+the corner texels; `triplane_sample_bwd_plain_bf16` on CPU tensors. A
+render's two passes share that one rounding (`triplane_sample_pair`, the
+counterpart of `merged_splat`'s `triplane_sample_pair_first/second`): the
+fine pass's backward keeps its float32 sum, and the coarse pass's backward
+adds its own to it and rounds the total once.
 """
 from __future__ import annotations
 
@@ -37,22 +52,32 @@ import torch
 
 from tdgp_torch.ops import cuda_build
 from tdgp_torch.ops.grid_sample import grid_sample_2d
+from tdgp_torch.ops.ray_march import widen
 
 _PROJ = ((0, 1), (0, 2), (1, 2))  # plane projections: x/y, x/z, y/z
 
 
-def tri_plane_sample(planes: torch.Tensor, coords: torch.Tensor, scale: float) -> torch.Tensor:
+def tri_plane_sample(planes: torch.Tensor, coords: torch.Tensor, scale: float,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Sample the x/y, x/z and y/z planes at 3-D points and average them.
 
     planes: [N*3, H, W, F]; coords: [N, P, 3] world coordinates; scale: the
-    cube's half side. Returns [N, P, F].
+    cube's half side. Returns [N, P, F] in `out_dtype`, by default the
+    planes'. bf16 planes, or float32 ones (bf16 values widened) with
+    `out_dtype` bf16: each plane's bilinear sum in float32 rounded once to
+    bf16, then ((a + b) + c) / 3 of the three in float32 rounded once.
     """
     n3, _, _, f = planes.shape
     n, p = coords.shape[0], coords.shape[1]
+    out_dtype = out_dtype or planes.dtype
     coords = coords / scale
     grids = torch.stack([coords[..., list(pr)] for pr in _PROJ], dim=1)
-    feats = grid_sample_2d(planes, grids.reshape(n3, p, 2))
-    return feats.reshape(n, 3, p, f).mean(dim=1)
+    feats = grid_sample_2d(widen(planes), grids.reshape(n3, p, 2))
+    if out_dtype != torch.bfloat16:
+        return feats.reshape(n, 3, p, f).mean(dim=1)
+    feats = feats.to(out_dtype).reshape(n, 3, p, f)  # in grid_sample's layout, as yet
+    mean = (feats[:, 0].float() + feats[:, 1] + feats[:, 2]) / 3
+    return mean.to(out_dtype, memory_format=torch.contiguous_format)
 
 
 def _plane_coords(coords: torch.Tensor, scale: float, h: int, w: int) -> torch.Tensor:
@@ -145,6 +170,28 @@ def triplane_sample_bwd_plain(planes: torch.Tensor, coords: torch.Tensor, g: tor
     g_pts = _point_cotangent(g)
     g_planes = triplane_splat_plain(g_pts, coords, scale, n3, h, w)
     g_coords = triplane_coords_grad_plain(planes, coords, g_pts, scale) if coords_grad else None
+    return g_planes, g_coords
+
+
+def triplane_sample_bwd_plain_bf16(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                                   scale: float, coords_grad: bool = True,
+                                   addend: Optional[torch.Tensor] = None, round_out: bool = True
+                                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's bf16 entry in plain PyTorch: bf16 planes [N*3, H, W, F] and
+    cotangent g [N, P, F] -> (g_planes [N*3, H, W, F], g_coords [N, P, 3]
+    float32 or None). Each (plane, point) row is g / 3 rounded to bf16,
+    widened; the splat sums in float32, adds `addend` (float32, another
+    pass's sum) and rounds the total once to bf16, or with `round_out` False
+    returns it in float32; the coordinate gradient is float32."""
+    n3, h, w, _ = planes.shape
+    g_pts = _point_cotangent(g.to(torch.bfloat16)).float()
+    g_planes = triplane_splat_plain(g_pts, coords, scale, n3, h, w)
+    if addend is not None:
+        g_planes = g_planes + addend
+    if round_out:
+        g_planes = g_planes.to(torch.bfloat16)
+    g_coords = (triplane_coords_grad_plain(planes.float(), coords, g_pts, scale)
+                if coords_grad else None)
     return g_planes, g_coords
 
 
@@ -259,7 +306,11 @@ def _library():
     lib.tdgp_splat_bin_entries.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_void_p]
     lib.tdgp_triplane_splat.argtypes = [ctypes.c_void_p] * 8 + geometry[:4] + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.tdgp_splat_bin_counts, lib.tdgp_splat_bin_entries, lib.tdgp_triplane_splat):
+    lib.tdgp_triplane_splat_bf16.argtypes = [ctypes.c_void_p] * 9 + geometry[:4] + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    for fn in (lib.tdgp_splat_bin_counts, lib.tdgp_splat_bin_entries, lib.tdgp_triplane_splat,
+               lib.tdgp_triplane_splat_bf16):
         fn.restype = ctypes.c_int
     lib.tdgp_splat_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_splat_error_string.restype = ctypes.c_char_p
@@ -313,9 +364,9 @@ def _check(planes: torch.Tensor, coords: torch.Tensor) -> None:
             or planes.shape[0] != 3 * coords.shape[0]:
         raise ValueError(f'expected planes [3N,H,W,F] and coords [N,P,3], got '
                          f'{tuple(planes.shape)}, {tuple(coords.shape)}')
-    for t in (planes, coords):
-        if t.dtype != torch.float32:
-            raise TypeError(f'triplane_sample takes float32, got {t.dtype}')
+    if coords.dtype != torch.float32 or planes.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'triplane_sample takes float32 coordinates and float32 or bf16 '
+                        f'planes, got {coords.dtype} and {planes.dtype}')
     if planes.device != coords.device:
         raise ValueError(f'inputs on {planes.device} and {coords.device}')
 
@@ -329,40 +380,88 @@ def triplane_splat(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor, 
     the plane mean) -> (g_planes [N*3, H, W, F], g_coords [N, P, 3] or None).
     """
     _check(planes, coords)
-    device = planes.device
-    if device.type == 'cpu':
+    if planes.dtype == torch.bfloat16:
+        return triplane_splat_bf16(planes, coords, g, scale, coords_grad)
+    if planes.device.type == 'cpu':
         return triplane_sample_bwd_plain(planes, coords, g, scale, coords_grad)
+    out = _splat(planes, coords, g, scale, coords_grad, 'triplane_splat')
+    triplane_splat.launches += 1
+    return out
+
+
+def triplane_splat_bf16(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                        scale: float, coords_grad: bool = True,
+                        addend: Optional[torch.Tensor] = None, round_out: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's bf16 entry: bf16 planes [N*3, H, W, F] and cotangent g [N, P, F],
+    float32 coords [N, P, 3] -> (g_planes, g_coords float32 or None), what
+    `triplane_sample_bwd_plain_bf16` computes: the float32 strip sums plus
+    `addend` (float32 [N*3, H, W, F], read once), stored in bf16, or in
+    float32 with `round_out` False. Counted in `triplane_splat_bf16.launches`;
+    the plain version for CPU tensors."""
+    _check(planes, coords)
+    if planes.dtype != torch.bfloat16:
+        raise TypeError(f'triplane_splat_bf16 takes bf16 planes, got {planes.dtype}')
+    if planes.device.type == 'cpu':
+        return triplane_sample_bwd_plain_bf16(planes, coords, g, scale, coords_grad, addend,
+                                              round_out)
+    out = _splat(planes, coords, g, scale, coords_grad, 'triplane_splat_bf16', addend,
+                 round_out)
+    triplane_splat_bf16.launches += 1
+    return out
+
+
+def _splat(planes, coords, g, scale, coords_grad, what, addend=None, round_out=False):
+    """One launch of K1's float32 entry, or of its bf16 entry for bf16 planes."""
+    device = planes.device
     if device.type != 'cuda':
-        raise ValueError(f'triplane_splat runs on CUDA or CPU tensors, not {device}')
+        raise ValueError(f'{what} runs on CUDA or CPU tensors, not {device}')
     n3, h, w, f = planes.shape
     n, p = coords.shape[0], coords.shape[1]
     if f not in KERNEL_FEATS:
         raise NotImplementedError(f'kernel K1 is built for F in {KERNEL_FEATS}, not {f}')
     if n3 * p >= 2 ** 31:
         raise ValueError(f'kernel K1 takes fewer than 2^31 (plane, point) entries, not {n3 * p}')
-    g = g.to(torch.float32).contiguous()
+    bf16 = planes.dtype == torch.bfloat16
+    g = g.to(planes.dtype).contiguous()
     if tuple(g.shape) != (n, p, f):
         raise ValueError(f'cotangent {tuple(g.shape)} for output {(n, p, f)}')
+    if addend is not None:
+        if addend.dtype != torch.float32 or tuple(addend.shape) != tuple(planes.shape) \
+                or addend.device != device:
+            raise ValueError(f'addend must be float32 {tuple(planes.shape)} on {device}')
+        addend = addend.contiguous()
     planes, coords = planes.contiguous(), coords.contiguous()
     entries, offsets = triplane_splat_bins(coords, h, w, scale)
-    g_planes = torch.empty((n3, h, w, f), dtype=torch.float32, device=device)  # written once
+    out_dtype = torch.bfloat16 if bf16 and round_out else torch.float32
+    g_planes = torch.empty((n3, h, w, f), dtype=out_dtype, device=device)  # written once
     d_scratch = torch.empty((n3, p, 2), dtype=torch.float32, device=device) if coords_grad else None
     g_coords = torch.empty((n, p, 3), dtype=torch.float32, device=device) if coords_grad else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    lib = _library()
+    pointers = [ptr(planes) if coords_grad else None, g.data_ptr(), coords.data_ptr(),
+                entries.data_ptr(), offsets.data_ptr()]
+    pointers += [ptr(addend)] if bf16 else []
+    pointers += [g_planes.data_ptr(), ptr(d_scratch), ptr(g_coords)]
+    scalars = [n, p, h, w, f, _inv_scale(scale), 0.5 * (w - 1) / scale, 0.5 * (h - 1) / scale]
+    scalars += [int(out_dtype == torch.bfloat16)] if bf16 else []
+    fn = lib.tdgp_triplane_splat_bf16 if bf16 else lib.tdgp_triplane_splat
     with torch.cuda.device(device):
-        _launched(_library().tdgp_triplane_splat(
-            ptr(planes) if coords_grad else None, g.data_ptr(), coords.data_ptr(),
-            entries.data_ptr(), offsets.data_ptr(), g_planes.data_ptr(), ptr(d_scratch),
-            ptr(g_coords), n, p, h, w, f, _inv_scale(scale), 0.5 * (w - 1) / scale,
-            0.5 * (h - 1) / scale, torch.cuda.current_stream(device).cuda_stream), 'triplane_splat')
-    triplane_splat.launches += 1
+        _launched(fn(*pointers, *scalars, torch.cuda.current_stream(device).cuda_stream), what)
     return g_planes, g_coords
 
 
 triplane_splat.launches = 0
+triplane_splat_bf16.launches = 0
+
+
+def _bwd(plain, bf16):
+    if bf16:
+        return triplane_sample_bwd_plain_bf16 if plain else triplane_splat_bf16
+    return triplane_sample_bwd_plain if plain else triplane_splat
 
 
 class TriplaneSample(torch.autograd.Function):
@@ -376,10 +475,94 @@ class TriplaneSample(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         planes, coords = ctx.saved_tensors
-        bwd = triplane_sample_bwd_plain if ctx.plain else triplane_splat
+        bwd = _bwd(ctx.plain, planes.dtype == torch.bfloat16)
         g_planes, g_coords = bwd(planes, coords, g, ctx.scale,
                                  coords_grad=ctx.needs_input_grad[1])
         return (g_planes if ctx.needs_input_grad[0] else None), g_coords, None, None
+
+
+class _Carry:
+    """The float32 plane gradient of a render's second (fine) pass, handed
+    to its first (coarse) pass's backward."""
+    g_planes: Optional[torch.Tensor] = None
+
+
+class _TriplaneSampleFirst(torch.autograd.Function):
+    """The first pass of a pair: its backward runs after the second's (the
+    token orders them), adds the second's float32 plane gradient to its own
+    and rounds the sum once."""
+
+    @staticmethod
+    def forward(ctx, planes, coords, scale, plain, carry):
+        ctx.save_for_backward(planes, coords)
+        ctx.scale, ctx.plain, ctx.carry = scale, plain, carry
+        ctx.set_materialize_grads(False)
+        token = torch.zeros((), dtype=torch.float32, device=planes.device)
+        return tri_plane_sample(planes, coords, scale), token
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _g_token):
+        planes, coords = ctx.saved_tensors
+        addend, ctx.carry.g_planes = ctx.carry.g_planes, None
+        if g is None:
+            g = planes.new_zeros((coords.shape[0], coords.shape[1], planes.shape[3]))
+        g_planes, g_coords = _bwd(ctx.plain, True)(
+            planes, coords, g, ctx.scale, coords_grad=ctx.needs_input_grad[1], addend=addend)
+        return (g_planes if ctx.needs_input_grad[0] else None), g_coords, None, None, None
+
+
+class _TriplaneSampleSecond(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, planes, coords, token, scale, plain, carry):
+        ctx.save_for_backward(planes, coords)
+        ctx.scale, ctx.plain, ctx.carry = scale, plain, carry
+        return tri_plane_sample(planes, coords, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        planes, coords = ctx.saved_tensors
+        g_planes, g_coords = _bwd(ctx.plain, True)(
+            planes, coords, g, ctx.scale, coords_grad=ctx.needs_input_grad[1], round_out=False)
+        ctx.carry.g_planes = g_planes if ctx.needs_input_grad[0] else None
+        return None, g_coords, torch.zeros((), device=planes.device), None, None, None
+
+
+class TriplaneSamplePair:
+    """`triplane_sample` for a render's two passes over the same bf16
+    planes, called first with the coarse pass's coordinates, then with the
+    fine pass's: the plane gradient of both is summed in float32 and rounded
+    to bf16 once, in the coarse pass's backward (K1's bf16 entry twice, or
+    with `plain` its plain version)."""
+
+    def __init__(self, scale: float, plain: bool = False):
+        self.scale, self.plain, self._pending = scale, plain, None
+
+    def __call__(self, planes: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        _check(planes, coords)
+        if planes.dtype != torch.bfloat16:
+            raise TypeError(f'triplane_sample_pair takes bf16 planes, got {planes.dtype}')
+        if self._pending is None:
+            carry = _Carry()
+            feats, token = _TriplaneSampleFirst.apply(planes, coords, self.scale, self.plain,
+                                                      carry)
+            self._pending = token, carry
+            return feats
+        (token, carry), self._pending = self._pending, None
+        return _TriplaneSampleSecond.apply(planes, coords, token, self.scale, self.plain, carry)
+
+
+def triplane_sample_pair(scale: float) -> TriplaneSamplePair:
+    """A sampler for the two passes of one render over bf16 planes, K1's
+    bf16 entry as its backward (`TriplaneSamplePair`)."""
+    return TriplaneSamplePair(scale)
+
+
+def triplane_sample_pair_reference(scale: float) -> TriplaneSamplePair:
+    """`triplane_sample_pair` with K1's plain version as its backward on any
+    device: the reference the kernel is held against on the card."""
+    return TriplaneSamplePair(scale, plain=True)
 
 
 def triplane_sample(planes: torch.Tensor, coords: torch.Tensor, scale: float) -> torch.Tensor:

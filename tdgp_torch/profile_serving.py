@@ -1,6 +1,6 @@
 """Where the time of a served request goes, on the card.
 
-    python3 -m tdgp_torch.profile_serving [--requests 3]
+    python3 -m tdgp_torch.profile_serving [--requests 3] [--override generator.render_bf16=true]
 
 Loads the trained flagship generator as `chip_smoke.py` does (float32, final
 march in kernel K3), serves a warm-up request of batch 4 at 256x256, then
@@ -13,8 +13,9 @@ march in kernel K3), serves a warm-up request of batch 4 at 256x256, then
   - traces the requests with torch.profiler and prints the device time by
     operation, the device's busy share of the wall time and the peak memory,
     and the port's own kernels by name (K3 the final march, K4 the tri-plane
-    MLP, K5 bias + activation): their device time, share and launches per
-    request. They are launched through ctypes, so they show up only among
+    MLP, K5 bias + activation; under `generator.render_bf16` K3's merged
+    entry with bf16 loads and K4's bf16 entry): their device time, share and
+    launches per request. They are launched through ctypes, so they show up only among
     the kernels, not among the operations.
 The last line is a JSON object of these numbers, with the card's name and
 power limit. Needs a CUDA device.
@@ -47,6 +48,7 @@ PSI = 0.7
 OWN_KERNELS = {'K3 ray_march_reduced': 'ray_march_reduced_kernel',
                'K3 ray_march_merged': 'ray_march_merged_kernel',
                'K4 triplane_mlp': 'triplane_mlp_kernel',
+               'K4 triplane_mlp_bf16': 'triplane_mlp_bf16_kernel',
                'K5 bias_act': 'bias_act_'}
 
 

@@ -10,13 +10,16 @@ R1 every 16 steps), or with `--preset stylegan2` the 2D StyleGAN2 baseline
 entry point loads it, batch 16: R1 and path-length regularization every 16
 steps, style mixing), at its own precision (G's and D's bf16 blocks;
 `--override generator.fp32_only=true --override discriminator.fp32_only=true`
-is the float32 cut), random weights from a seed, batch 16
+is the float32 cut; `--override training.gmain_render_bf16=true` and, with
+`training.dmain_reuse_fakes=false`, `training.dmain_fake_bf16=true` the bf16
+render views), random weights from a seed, batch 16
 of a synthetic real batch made on the card, schedules at 500 kimg. After a
 warm-up step it traces `--steps` plain steps and one R1 step with
 torch.profiler and prints the device time by phase (Gmain, camera
 regularizers, PL, Dmain, R1, EMA, per run of each), by operation and by
 kernel (per step, averaged over the traced steps), the port's own kernels
-(K1, K3, K3's backward, K5) by name, the device's busy share of the wall time and the
+(K1, K3, K3's backward, K3's merged entry and K4 where fresh fakes are
+rendered, K5; each with its bf16 entries) by name, the device's busy share of the wall time and the
 peak memory. The last line is a JSON object
 of these numbers, with the card's name and power limit. Needs a CUDA device.
 """
@@ -46,6 +49,8 @@ OWN_KERNELS = {'K1 triplane_splat': ('bin_count_kernel', 'bin_scatter_kernel',
                                      'splat_strip_kernel', 'coords_grad_kernel'),
                'K3 ray_march_reduced': ('ray_march_reduced_kernel',),
                'K3 ray_march_reduced_bwd': ('ray_march_reduced_bwd_kernel',),
+               'K3 ray_march_merged': ('ray_march_merged_kernel',),
+               'K4 triplane_mlp': ('triplane_mlp_kernel', 'triplane_mlp_bf16_kernel'),
                'K5 bias_act': ('bias_act_',)}
 BATCH = 16
 CUR_NIMG = 500_000  # mid-training schedule values, as bench.py takes them

@@ -13,6 +13,11 @@ final pass needs only the per-ray sums and goes through kernel K3
 record, the merge of the coarse and fine samples and the march are one
 launch of its merged entry; where it records (training), the samples are
 merged by `unify_samples_sorted` and marched by K3's forward and backward.
+A bf16 model (`generator.render_bf16`) gives bf16 colours and densities:
+the eval coarse march clamps its densities in bf16, as the JAX package's
+does; in training the densities turn float32 where the noise is added (an
+array there, of zeros too); the merged entry loads bf16 as it is, and the
+recorded merge returns float32, which the float32 K3 marches.
 On CPU tensors the wrappers compute the plain versions. Only the classical
 marcher is ported.
 
@@ -183,6 +188,8 @@ def importance_render(run_model: RunModelFn, ray_origins: torch.Tensor,
         s = tdist.shape[-1]
         coords = ray_origins[:, :, None, :] + tdist[..., None] * ray_directions[:, :, None, :]
         rgb, sigma = run_model(coords.reshape(batch, num_rays * s, 3))
+        if draws is not None:  # JAX adds its noise array, of 0 too: bf16 sigma turns float32
+            sigma = sigma.to(torch.promote_types(sigma.dtype, tdist.dtype))
         if draws is not None and density_noise != 0.0:
             sigma = sigma + draws.normal(noise_name, sigma.shape) * density_noise
         return (rgb.reshape(batch, num_rays, s, rgb.shape[-1]),

@@ -38,7 +38,12 @@ D input passes through the ADA pipe (`training/augment.py`) at the
 schedules' `ada_p`, with draws of its own per phase and microbatch
 ('aug/gmain/<i>', 'aug/dmain_fake/<i>', 'aug/dmain_real/<i>', 'aug/r1/<i>').
 Every random choice comes from the `Draws` given to `step`; the tests replay
-the JAX package's draws through it. The step runs at the configuration's
+the JAX package's draws through it. The bf16 render views are G's
+`Generator.view`s over its own parameters, as the JAX step's are:
+`training.gmain_render_bf16` renders Gmain through a `render_bf16` view
+(the decoder at the config's precision), `training.dmain_fake_bf16` Dmain's
+fresh fakes through a view with `render_bf16` and every decoder block from
+8x8 up in bf16 (`config.render_bf16_view`). The step runs at the configuration's
 precision, TF32 off: G's and D's bf16 blocks (`num_fp16_res`, unless
 `fp32_only`) compute in bfloat16 with float32 parameters, and the gradients
 come back to float32 through each cast; Adam, the EMA, `w_avg` and the
@@ -46,10 +51,10 @@ NaN/Inf scrub are float32.
 
 Not ported, and refused with a `NotImplementedError` naming the setting:
 an augment mode other than 'noaug', 'ada' and 'fixed', path-length
-regularization of the 3DGP model, the bf16 render views (`dmain_fake_bf16`
-with fresh fakes, `gmain_render_bf16`; with reused fakes `dmain_fake_bf16`
-has no effect and a warning says so, as in the JAX package), R1
-rematerialization, G's gradient clipping and training over several devices.
+regularization of the 3DGP model, R1 rematerialization, G's gradient
+clipping and training over several devices. With reused fakes
+`dmain_fake_bf16` has no effect and a warning says so, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from tdgp_torch.config import Config, is_2d
+from tdgp_torch.config import Config, is_2d, render_bf16_view
 from tdgp_torch.models.discriminator import Discriminator
 from tdgp_torch.models.epigraf import Generator
 from tdgp_torch.models.layers import init_weights
@@ -98,9 +103,6 @@ def check_supported(cfg: Config) -> None:
         'gradient through the splat and ray-march kernels has no kernel)':
             l.pl_weight > 0 and not is_2d(cfg),
         'loss.r1_remat': l.r1_remat,
-        'training.dmain_fake_bf16 (the bf16 render views, ROADMAP.md section 1 item 3)':
-            t.dmain_fake_bf16 and not t.dmain_reuse_fakes,
-        'training.gmain_render_bf16': t.gmain_render_bf16,
         'num_devices': cfg.num_devices > 1,
         'training.g_optim.grad_clip': t.g_optim.grad_clip is not None,
     }
@@ -196,6 +198,14 @@ class Trainer:
         init_weights(G, torch.Generator().manual_seed(seed))
         init_weights(D, torch.Generator().manual_seed(seed + 1))
         self.G, self.D = G.to(self.device), D.to(self.device)
+        # the bf16 render views over G's parameters (G itself where off)
+        self.G_main = self.G_fake = self.G
+        if not is_2d(cfg):
+            t = cfg.training
+            if t.gmain_render_bf16:
+                self.G_main = self.G.view(render_bf16_view(cfg.generator))
+            if t.dmain_fake_bf16 and not t.dmain_reuse_fakes:
+                self.G_fake = self.G.view(render_bf16_view(cfg.generator, all_blocks=True))
         self.pl_mean = torch.zeros((), device=self.device)
         self.G_ema = copy.deepcopy(self.G).eval()
         _set_requires_grad(self.G_ema, False)
@@ -286,8 +296,8 @@ class Trainer:
         fakes = [] if cfg.training.dmain_reuse_fakes and not is_2d(cfg) else None
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
-            out, pp = self._g_forward(zg[sl], cg[sl], camg.select(sl), condg[sl], sched,
-                                      draws.scope(f'gmain/{i}'))
+            out, pp = self._g_forward(self.G_main, zg[sl], cg[sl], camg.select(sl), condg[sl],
+                                      sched, draws.scope(f'gmain/{i}'))
             logits, _ = losses.d_forward(D, out.img, cg[sl], sched, cfg, patch_params=pp,
                                          augment_fn=self._augment(draws, sched, f'gmain/{i}'))
             loss = losses.adv_loss_g(logits, cfg.loss.adv_loss_type).mean()
@@ -300,12 +310,13 @@ class Trainer:
         _set_requires_grad(D, True)
         return (zg, cg, camg, condg), fakes
 
-    def _g_forward(self, z, c, cam, cond, sched, draws):
-        """The model's G forward: `losses.g_forward_2d` for the 2D model
-        (which takes no camera), `losses.g_forward` otherwise."""
+    def _g_forward(self, G, z, c, cam, cond, sched, draws):
+        """The model's G forward through `G` (G or one of its views):
+        `losses.g_forward_2d` for the 2D model (which takes no camera),
+        `losses.g_forward` otherwise."""
         if is_2d(self.cfg):
-            return losses.g_forward_2d(self.G, z, c, sched, self.cfg, draws)
-        return losses.g_forward(self.G, z, c, cam, cond, sched, self.cfg, draws)
+            return losses.g_forward_2d(G, z, c, sched, self.cfg, draws)
+        return losses.g_forward(G, z, c, cam, cond, sched, self.cfg, draws)
 
     def _camera_regs(self, sched, draws, stats):
         """The camera adaptor's regularizers, once per step; their gradients
@@ -400,8 +411,8 @@ class Trainer:
             sl = slice(i * m, (i + 1) * m)
             if fakes is None:
                 with torch.no_grad():
-                    out, fake_pp = self._g_forward(zd[sl], cd[sl], camd.select(sl), condd[sl],
-                                                   sched, draws.scope(f'dmain/{i}'))
+                    out, fake_pp = self._g_forward(self.G_fake, zd[sl], cd[sl], camd.select(sl),
+                                                   condd[sl], sched, draws.scope(f'dmain/{i}'))
                 fake_img, fake_c = out.img.float(), cd[sl]
             else:
                 (fake_img, fake_pp), fake_c = fakes[i], cg[sl]

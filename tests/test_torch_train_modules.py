@@ -595,9 +595,6 @@ def test_trainer_needs_a_card_unless_given_the_cpu(monkeypatch):
     ('training.augment.mode', 'training.augment.mode=adaptive'),
     ('loss.pl_weight (path-length regularization of the 3DGP model', 'loss.pl_weight=2.0'),
     ('loss.r1_remat', 'loss.r1_remat=true'),
-    ('training.dmain_fake_bf16',
-     'training.dmain_fake_bf16=true training.dmain_reuse_fakes=false'),
-    ('training.gmain_render_bf16', 'training.gmain_render_bf16=true'),
     ('num_devices', 'num_devices=4'),
     ('training.g_optim.grad_clip', 'training.g_optim.grad_clip=1.0')])
 def test_trainer_refuses_unported_settings(setting, override):
@@ -610,10 +607,11 @@ def test_trainer_refuses_unported_settings(setting, override):
 def test_dmain_fake_bf16_with_reused_fakes_warns_as_jax():
     """With Dmain reusing Gmain's fakes (the default) there is no Dmain
     render for the bf16 view: the JAX step warns that the setting has no
-    effect, and so does the port; with fresh fakes it is refused above."""
+    effect, and so does the port, which then builds no view."""
     cfg = pcfg.apply_overrides(fp32_d(pcfg.tiny_test_config()), ['training.dmain_fake_bf16=true'])
     with pytest.warns(UserWarning, match='dmain_fake_bf16 has no effect'):
-        Trainer(cfg, 'cpu')
+        trainer = Trainer(cfg, 'cpu')
+    assert trainer.G_fake is trainer.G
 
 
 @pytest.mark.parametrize('setting', ['plane_sample_impl', 'ray_march_impl'])
