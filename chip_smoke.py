@@ -165,9 +165,18 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   from the snapshot for one more tick: cur_nimg, batch_idx
                   and ada_p restored, losses finite. sec/kimg per tick,
                   images/s, the metric's seconds, peak memory.
- 10. metrics:     the rest of the metric suite (`metrics_phase`). K3's cut entry
+ 10. metrics:     the rest of the metric suite (`metrics_phase`). First the quantile
+                  threshold's select kernel (`threshold_kernel_phase`:
+                  `cut_threshold` and `quantile` on CUDA tensors, csrc/quantile.cu)
+                  against the sort bit for bit (a zero of either sign as a zero) at the
+                  served chunk [4, 16384, 32 + 32] (raw densities, float32 and bf16
+                  loads, softplus and relu), the coarse chunk [4, 16384, 32] (clamped,
+                  float32 and bf16) and small shapes (ties, all equal, a NaN, one value,
+                  ±0, one top bin, relu's zeros, two sets of different sizes), q = 0.25,
+                  0.5, 1; its in-kernel clamp against F.softplus bit for bit; timed cold
+                  and warm beside the sort, torch.quantile and its bound. K3's cut entry
                   (`ray_march_merged_cut`: the merged march with NFS's quantile cut,
-                  the threshold a sort on the card) against its plain version at
+                  the threshold the select) against its plain version (the sort) at
                   the served chunk [4, 16384, 32 + 32, 3] with ties and at small
                   shapes, q = 0.25 and 0.5, the four settings (<= 1e-5), timed
                   warm and cold beside its bound, the threshold alone and the
@@ -181,8 +190,9 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   and a 64^2 output (without the cut <= NFS_CPU_LIMIT everywhere;
                   with it at most NFS_CPU_SHARE of the pixels beyond that, and the
                   batch's NFS within NFS_CPU_REL), then the 256 maps through the
-                  registry: the value, its seconds, K3's cut entry once and K4
-                  twice per ray chunk, no other K3, K5 once per bias_act call.
+                  registry: the value, its seconds, K3's cut entry once, the select
+                  twice (the coarse and the final march) and K4 twice per ray chunk,
+                  no other K3, the sort never (`SortCalls`), K5 once per bias_act call.
                   InceptionV3 (299^2) and VGG16 (224^2) at seeded random weights
                   under exact_fp32: ms per batch of 16. KID, precision/recall and
                   IS of METRIC_IMAGES flagship images against as many of the
@@ -215,7 +225,8 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   (after 6: `render_bf16_kernel_phase`) holds K4's bf16 entry at the
                   served shape (a share of outputs one bf16 ulp apart, all within one ulp
                   at the outputs' scale: where the bias add cancels the product, a flip
-                  of the product is many ulps of the output), K3's merged and cut entries
+                  of the product is many ulps of the output; also at both widths with
+                  partial warp tiles, `k4_bf16_small_shapes`), K3's merged and cut entries
                   with bf16 loads at the served chunk and at the fresh fakes' training
                   shape with float32 densities (<= 1e-5) and K1's bf16 entry at the
                   step's points (its float32 sums <= 1e-5 x max, the stored bf16 gradient
@@ -270,15 +281,16 @@ BF16_FLOOR_FACTOR = 3       # the train check with bf16 blocks: limit = this x t
 @contextlib.contextmanager
 def plain_versions(k1=True, k3=True, k4=False, k5=False):
     """The generator with the plain PyTorch versions of K1 (backward), K3
-    (forward and backward, and the merged forward), K4 and K5 in place of
-    the kernels' wrappers, on the card: the reference the kernels' path is
-    held against."""
+    (forward and backward, the merged forward, its cut entry, and the coarse
+    march's quantile threshold: the sort in place of the select), K4 and K5
+    in place of the kernels' wrappers, on the card: the reference the
+    kernels' path is held against."""
     from tdgp_torch.models import epigraf, layers, stylegan2
     from tdgp_torch.ops import bias_act, ray_march, splat, triplane_mlp
     from tdgp_torch.rendering import renderer
     saved = (epigraf.triplane_sample, epigraf.triplane_sample_pair, renderer.ray_march_reduced,
-             renderer.ray_march_merged, renderer.ray_march_merged_cut, epigraf.triplane_mlp,
-             layers.bias_act, stylegan2.bias_act)
+             renderer.ray_march_merged, renderer.ray_march_merged_cut, renderer.quantile,
+             epigraf.triplane_mlp, layers.bias_act, stylegan2.bias_act)
     if k1:
         epigraf.triplane_sample = splat.triplane_sample_reference
         epigraf.triplane_sample_pair = splat.triplane_sample_pair_reference
@@ -286,6 +298,7 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
         renderer.ray_march_reduced = ray_march.ray_march_reduced_reference
         renderer.ray_march_merged = ray_march.ray_march_merged_plain
         renderer.ray_march_merged_cut = ray_march.ray_march_merged_cut_plain
+        renderer.quantile = ray_march.quantile_plain  # the coarse march's threshold
     if k4:
         def mlp_plain(feats, *weights):  # K4's plain version of the features' dtype
             if feats.dtype == torch.bfloat16:
@@ -298,8 +311,8 @@ def plain_versions(k1=True, k3=True, k4=False, k5=False):
         yield
     finally:
         (epigraf.triplane_sample, epigraf.triplane_sample_pair, renderer.ray_march_reduced,
-         renderer.ray_march_merged, renderer.ray_march_merged_cut, epigraf.triplane_mlp,
-         layers.bias_act, stylegan2.bias_act) = saved
+         renderer.ray_march_merged, renderer.ray_march_merged_cut, renderer.quantile,
+         epigraf.triplane_mlp, layers.bias_act, stylegan2.bias_act) = saved
 
 
 class BiasActCalls:
@@ -1195,6 +1208,31 @@ def bf16_kernel_phase(bias_act, x, b, k5, g):
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores, NVIDIA data sheet
 
 
+def k4_bf16_small_shapes(triplane_mlp, g):
+    """K4's bf16 entry against its plain version at both widths it is built
+    for, (32, 64, 4) and (16, 32, 4), with point counts that leave a warp's
+    tile of 32 partial (1, 33, 1000, 40001): at most one bf16 ulp at the
+    outputs' scale. Returns the largest difference over that ulp."""
+    worst = 0.0
+    for f, hid in ((32, 64), (16, 32)):
+        w = [(torch.randn(f, hid, device='cuda', generator=g) / f ** 0.5).to(torch.bfloat16),
+             (torch.randn(hid, device='cuda', generator=g) * 0.1).to(torch.bfloat16),
+             (torch.randn(hid, 4, device='cuda', generator=g) / hid ** 0.5).to(torch.bfloat16),
+             (torch.randn(4, device='cuda', generator=g) * 0.1).to(torch.bfloat16)]
+        for p in (1, 33, 1000, 40001):
+            feats = torch.randn(1, p, f, device='cuda', generator=g).to(torch.bfloat16)
+            got, ref = triplane_mlp.triplane_mlp(feats, *w), triplane_mlp.triplane_mlp_plain_bf16(feats, *w)
+            torch.cuda.synchronize()
+            scale_ulp = max(float(r.float().abs().max()) for r in ref) * 2.0 ** -7
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+            check(err <= scale_ulp, f'K4 bf16 at [1,{p},{f}] -> {hid} -> 4 disagrees with its plain '
+                                    f'version: {err:.3g} (one ulp of the scale {scale_ulp:.3g})')
+            worst = max(worst, err / scale_ulp)
+    print(f'K4 bf16 at (F, HID) = (32, 64), (16, 32) and 1, 33, 1000, 40001 points: at most '
+          f'{worst:.3g} of one bf16 ulp at the outputs\' scale')
+    return worst
+
+
 def render_bf16_kernel_phase(ray_march, splat, triplane_mlp, FullyConnected, init_weights):
     """The bf16 entries of the bf16 render views (`generator.render_bf16`)
     against their plain versions on the same inputs, timed warm and cold
@@ -1244,6 +1282,7 @@ def render_bf16_kernel_phase(ray_march, splat, triplane_mlp, FullyConnected, ini
               f'product), max abs diff {worst:.3g} against one bf16 ulp at the outputs\' scale '
               f'{scale_ulp:.3g}')
         check(share <= 1e-3 and worst <= scale_ulp, 'K4 bf16 disagrees with its plain version')
+        k4_bf16_small_shapes(triplane_mlp, g)
         fn16 = lambda: triplane_mlp.triplane_mlp(feats, *w16)  # noqa: E731
         fn32 = lambda: triplane_mlp.triplane_mlp(feats32, *w32)  # noqa: E731
         times = {label: dict(warm=cuda_ms(fn, 50), cold=cold_ms(fn))
@@ -2278,6 +2317,152 @@ METRIC_IMAGES = 256         # KID, PR, IS: generated and real images (the regist
 PPL_PAIRS = 64              # PPL: pairs (the registry's 2048 cut)
 
 
+def same_bits(got, ref):
+    """Whether two one-element thresholds are the same bits, NaN as NaN and
+    a zero of either sign as a zero (the select and the sort may order -0
+    and +0 either way)."""
+    a, b = float(got.float()), float(ref.float())
+    if np.isnan(a) or np.isnan(b):
+        return bool(np.isnan(a) and np.isnan(b))
+    return got.dtype == ref.dtype and (a == b == 0.0 or bool(
+        (got.view(torch.int16 if got.dtype == torch.bfloat16 else torch.int32)
+         == ref.view(torch.int16 if ref.dtype == torch.bfloat16 else torch.int32)).all()))
+
+
+class SortCalls:
+    """Counts the calls of the sort (`ray_march.quantile_plain`) on CUDA
+    tensors while it is entered: the card's path takes its thresholds by the
+    select kernel and should show none."""
+
+    def __enter__(self):
+        from tdgp_torch.ops import ray_march
+        self.count = 0
+        self._saved = inner = ray_march.quantile_plain
+
+        def counted(x, q):
+            self.count += x.is_cuda
+            return inner(x, q)
+
+        ray_march.quantile_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from tdgp_torch.ops import ray_march
+        ray_march.quantile_plain = self._saved
+
+
+def threshold_kernel_phase(ray_march, g):
+    """The quantile threshold's select kernel (`cut_threshold`, `quantile` on
+    CUDA tensors) against the sort on the card, bit for bit (a zero of
+    either sign as a zero): the final march's threshold over the raw
+    densities of both sets at the served chunk [4, 16384, 32 + 32], float32
+    and bf16 loads, softplus and relu, q = 0.25, 0.5, 1; the coarse march's
+    over its clamped densities [4, 16384, 32], float32 and bf16 (softplus in
+    bf16, JAX's chain); small shapes: ties, all equal, a NaN, one value, ±0,
+    every value in one top bin, relu's many zeros, two sets of different
+    sizes. The kernel's own clamp (the keys of its first pass) against
+    `F.softplus` on the served chunk, bit for bit. Timed: the threshold at
+    the served and the coarse chunk, cold and warm (the calls enqueued ahead),
+    beside the sort, `torch.quantile` of the clamped values (one PyTorch call
+    of the same function: 4,194,304 < 2^24 values) and the bound of the bytes
+    (the densities read once). Returns the `cut_threshold` kernels record."""
+    bf = torch.bfloat16
+    checked, worst = 0, 0.0
+
+    def hold_bits(got, ref, what):
+        nonlocal checked, worst
+        check(same_bits(got, ref), f'cut threshold, {what}: the select gives {got.tolist()}, '
+                                   f'the sort {ref.tolist()}')
+        diff = (got.float() - ref.float()).abs()
+        worst = max(worst, float(torch.where(torch.isnan(diff), 0.0, diff).max()))
+        checked += 1
+
+    b, r, s1, s2 = 4, 16384, 32, 32
+    d1 = torch.randn(b, r, s1, device='cuda', generator=g) * 2
+    d2 = torch.randn(b, r, s2, device='cuda', generator=g) * 2
+    for dtype in (torch.float32, bf):
+        x1, x2 = d1.to(dtype), d2.to(dtype)
+        for clamp_mode in ('softplus', 'relu'):
+            for q in (0.25, 0.5, 1.0):
+                hold_bits(ray_march.cut_threshold(x1, x2, q, clamp_mode),
+                          ray_march.cut_threshold_plain(x1, x2, q, clamp_mode),
+                          f'served chunk, {dtype} loads, {clamp_mode}, q {q}')
+        for q in (0.25, 0.5, 1.0):
+            clamped = ray_march.clamp_densities(x1)
+            hold_bits(ray_march.quantile(clamped, q), ray_march.quantile_plain(clamped, q),
+                      f'coarse chunk, {dtype}, q {q}')
+    keys = ray_march.cut_threshold_keys(d1, d2)
+    clamped = torch.cat([torch.nn.functional.softplus(x).reshape(-1) for x in (d1, d2)])
+    clamp_same = bool((ray_march.key_values(keys).view(torch.int32)
+                       == clamped.view(torch.int32)).all())
+    check(clamp_same, 'the select clamps the densities otherwise than F.softplus')
+
+    rs = np.random.RandomState(11)
+    small = {'ties': np.round(rs.randn(4, 33, 20), 1), 'all_equal': np.full(777, 0.37),
+             'nan': np.where(rs.rand(5000) < 1e-3, np.nan, rs.randn(5000)),
+             'one_value': rs.randn(1), 'signed_zeros': np.where(rs.rand(999) < 0.5, 0.0, -0.0),
+             'one_top_bin': 1.0 + rs.rand(3000) * 1e-3,
+             'relu_zeros': np.maximum(rs.randn(10000), 0.0)}
+    for name, x in small.items():
+        for dtype in (torch.float32, bf):
+            t = torch.from_numpy(x.astype(np.float32)).to('cuda', dtype)
+            for q in (0.25, 0.5, 1.0):
+                hold_bits(ray_march.quantile(t, q), ray_march.quantile_plain(t, q),
+                          f'{name}, {dtype}, q {q}')
+    for n1, n2 in ((1, 1), (5, 3000), (40000, 7)):
+        x1 = torch.randn(n1, device='cuda', generator=g)
+        x2 = torch.randn(n2, device='cuda', generator=g)
+        x1[::3] = -5.0  # relu's zeros
+        for clamp_mode in ('softplus', 'relu'):
+            for q in (0.25, 0.5, 1.0):
+                hold_bits(ray_march.cut_threshold(x1, x2, q, clamp_mode),
+                          ray_march.cut_threshold_plain(x1, x2, q, clamp_mode),
+                          f'sets of {n1} and {n2}, {clamp_mode}, q {q}')
+    torch.cuda.synchronize()
+    print(f'cut threshold: the select equals the sort bit for bit in {checked} cases (max abs '
+          f'diff {worst:.3g}; served '
+          f'chunk [{b},{r},{s1}+{s2}] float32 and bf16 loads, softplus and relu; coarse chunk '
+          f'[{b},{r},{s1}] float32 and bf16; small shapes {sorted(small)}; two sets of different '
+          f'sizes; q = 0.25, 0.5, 1); its clamp equals F.softplus bit for bit on the '
+          f'{keys.numel()} served densities: {clamp_same}')
+
+    times = {}
+    clamped_cat = torch.cat([ray_march.clamp_densities(x).reshape(-1) for x in (d1, d2)])
+    coarse = ray_march.clamp_densities(d1)
+    d1b, d2b = d1.to(bf), d2.to(bf)
+    for label, fn in (
+            ('served', lambda: ray_march.cut_threshold(d1, d2, CUT_Q)),
+            ('served_bf16', lambda: ray_march.cut_threshold(d1b, d2b, CUT_Q)),
+            ('coarse', lambda: ray_march.quantile(coarse, CUT_Q)),
+            ('served_sort', lambda: ray_march.cut_threshold_plain(d1, d2, CUT_Q)),
+            ('coarse_sort', lambda: ray_march.quantile_plain(coarse, CUT_Q)),
+            ('served_library', lambda: torch.quantile(clamped_cat, CUT_Q)),
+            ('coarse_library', lambda: torch.quantile(coarse, CUT_Q))):
+        times[label] = dict(warm=cuda_ms(fn, 50, prefill=True), cold=cold_ms(fn))
+    lib_diff = float(torch.quantile(clamped_cat, CUT_Q) - ray_march.cut_threshold(d1, d2, CUT_Q))
+    n = d1.numel() + d2.numel()
+    bytes_moved, flops = 4 * n + 4, 4 * n  # densities read once; scale, exp, log1p, divide
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    coarse_bound_ms, _ = bound(4 * coarse.numel() + 4, 0)
+    print('cut threshold: ' + '; '.join(
+        f'{label} warm {t["warm"]:.4f} ms, cold {t["cold"]:.4f} ms' for label, t in times.items())
+        + f'; bound {bound_ms:.4f} ms at the served chunk ({bytes_moved / 1e6:.1f} MB by '
+          f'{bound_by}), {coarse_bound_ms:.4f} ms at the coarse chunk; torch.quantile minus the '
+          f'threshold {lib_diff:.3g} (its own interpolation) (sm, mem clocks {clocks()})')
+    return dict(name='cut_threshold', route='cuda', source='tdgp_torch/csrc/quantile.cu',
+                replaces='tdgp/rendering/renderer.py:54 (_apply_cut_quantile\'s jnp.quantile, '
+                         'renderer.py:80 and :125; no Pallas kernel)',
+                max_abs_err=worst, cases_bit_for_bit=checked, clamp_equals_softplus=clamp_same,
+                ms=times['served']['cold'], ms_warm=times['served']['warm'],
+                plain_ms=times['served_sort']['warm'],
+                library_ms=times['served_library']['warm'], bound_ms=bound_ms,
+                bound_by=bound_by, bf16_ms=times['served_bf16']['cold'],
+                coarse_ms=times['coarse']['cold'], coarse_ms_warm=times['coarse']['warm'],
+                coarse_plain_ms=times['coarse_sort']['warm'],
+                coarse_library_ms=times['coarse_library']['warm'],
+                coarse_bound_ms=coarse_bound_ms)
+
+
 def cut_kernel_phase(ray_march, g):
     """K3's cut entry (`ray_march_merged_cut`) against its plain version at
     the served chunk [4, 16384, 32 + 32, 3] with ties and at small shapes,
@@ -2320,7 +2505,7 @@ def cut_kernel_phase(ray_march, g):
     flops += b * r * 64 * (7 * 2 + 1)  # the merge's binary search, and the compare
     bound_ms, bound_by = bound(bytes_moved, flops)
     print(f'K3 cut at [{b},{r},32+32,{c}]: {times["cold"]:.4f} ms cold, {times["warm"]:.4f} ms '
-          f'warm ({threshold_ms:.4f} ms of it the threshold, a sort of '
+          f'warm ({threshold_ms:.4f} ms of it the threshold, the select over '
           f'{clamped.numel()} densities); the merged entry without the cut {uncut_ms:.4f} ms '
           f'cold; plain {plain_ms:.4f} ms; bound {1e3 * bound_ms:.1f} us '
           f'({bytes_moved / 1e6:.1f} MB by {bound_by})')
@@ -2370,6 +2555,7 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
     from tdgp_torch.profile_serving import FP32, OVERRIDES, RUN_DIR
     from tdgp_torch.serving import load_generator
     g = torch.Generator(device=device).manual_seed(3)
+    threshold = threshold_kernel_phase(ray_march, g)
     k3_cut = cut_kernel_phase(ray_march, g)
     readings = {}
     dataset = ImageFolderDataset(data_dir, resolution=256, use_labels=True)
@@ -2437,7 +2623,7 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
     torch.cuda.synchronize()
     reset_counts(counters)
     t0 = time.perf_counter()
-    with BiasActCalls() as calls:
+    with BiasActCalls() as calls, SortCalls() as sorts:
         nfs = registry.nfs256(ctx)['nfs256']
     torch.cuda.synchronize()
     nfs_s = time.perf_counter() - t0
@@ -2445,13 +2631,15 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
     gc = ctx.cfg.generator
     # one launch per ray chunk of each render call (of _resolve_batch_gpu images)
     chunks = (256 // ctx._resolve_batch_gpu()) * (gc.img_resolution ** 2) // (gc.max_batch_res ** 2)
+    # the threshold: one select for the coarse march and one for the final march of a chunk
     expected = {'ray_march_merged_cut': chunks, 'ray_march_merged': 0, 'ray_march_reduced': 0,
-                'triplane_mlp': 2 * chunks, **{n: calls.count[n] for n in K5_NAMES.values()}}
+                'cut_threshold': 2 * chunks, 'triplane_mlp': 2 * chunks,
+                **{n: calls.count[n] for n in K5_NAMES.values()}}
     got = {k: launches.get(k) for k in expected}
     print(f'nfs256 of the flagship: {nfs!r} in {nfs_s:.1f} s; launches {launches} (expected '
-          f'{expected})')
+          f'{expected}); the sort on the card {sorts.count} times (expected 0)')
     check(np.isfinite(nfs) and nfs >= 1.0, 'nfs256 is not a score')
-    check(got == expected, 'kernel launch counts of nfs256')
+    check(got == expected and sorts.count == 0, 'kernel launch counts of nfs256')
 
     # one batch of nfs256's depth maps under generator.render_bf16: the cut entry's bf16 loads
     ctx16 = context(OVERRIDES + RENDER_BF16, device, 4)
@@ -2459,7 +2647,7 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
     torch.backends.cudnn.deterministic = True
     try:
         reset_counts(counters)
-        with BiasActCalls() as calls16:
+        with BiasActCalls() as calls16, SortCalls() as sorts16:
             maps16 = depth_maps(ctx16)
         launches16 = launch_counts(counters)
         with plain_versions(k1=False, k3=True):
@@ -2468,13 +2656,15 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
         torch.backends.cudnn.deterministic = deterministic
     chunks16 = (4 // ctx16._resolve_batch_gpu()) * (gc.img_resolution ** 2) // (gc.max_batch_res ** 2)
     expected16 = {**{k: 0 for k in launches16 if k not in K5_NAMES.values()},
-                  'ray_march_merged_cut_bf16': chunks16, 'triplane_mlp_bf16': 2 * chunks16,
+                  'ray_march_merged_cut_bf16': chunks16, 'cut_threshold': 2 * chunks16,
+                  'triplane_mlp_bf16': 2 * chunks16,
                   **{n: calls16.count[n] for n in K5_NAMES.values()}}
     rel16 = float((maps16 - plain16).abs().max()) / float(plain16.abs().max())
     print(f'nfs256 depth maps under render_bf16 [4, 256, 256, 1], cuDNN deterministic: K3 cut '
           f'entry with bf16 loads vs its plain version {rel16:.3g} of max |depth| (<= '
           f'{NFS_KERNEL_LIMIT:g}); launches {launches16} (expected {expected16})')
-    check(launches16 == expected16, 'kernel launch counts of nfs256 under render_bf16')
+    check(launches16 == expected16 and sorts16.count == 0,
+          'kernel launch counts of nfs256 under render_bf16')
     check(rel16 <= NFS_KERNEL_LIMIT, 'render_bf16 depth maps: K3 cut bf16 disagrees with its plain '
                                      'version')
     for k, v in launches16.items():  # the metrics path's launches: nfs256 and this batch
@@ -2485,7 +2675,7 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
                     depth_all_plain=rel_all, depth_all_plain_share=share_all,
                     depth_card_vs_cpu=cpu_diff, depth_card_vs_cpu_share=cpu_share,
                     depth_card_vs_cpu_uncut=uncut_diff, batch_nfs_card_vs_cpu=nfs_rel,
-                    cut_zeroed=k3_cut['zeroed'])
+                    cut_zeroed=k3_cut['zeroed'], nfs256_sorts_on_card=sorts.count)
 
     images = torch.randint(0, 256, (16, 256, 256, 3), dtype=torch.uint8, device=device,
                            generator=g)
@@ -2527,7 +2717,7 @@ def metrics_phase(ray_march, counters, data_dir, device='cuda'):
     readings.update(kid=kid, precision=precision, recall=recall, is_mean=is_mean, is_std=is_std,
                     ppl=ppl, kid_pr_is_s=suite_s, ppl_s=ppl_s, metric_images=METRIC_IMAGES,
                     ppl_pairs=PPL_PAIRS)
-    return launches, readings, k3_cut
+    return launches, readings, k3_cut, threshold
 
 
 def serve_run(G, served, requests, label):
@@ -2831,12 +3021,13 @@ def main():
                           ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                           triplane_mlp.triplane_mlp, bias_act.bias_act], train_images_per_s)
         with phase('metrics', seconds):
-            metrics_launches, metrics_readings, k3_cut = metrics_phase(
+            metrics_launches, metrics_readings, k3_cut, threshold = metrics_phase(
                 ray_march, [splat.triplane_splat, ray_march.ray_march_reduced,
                             ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                             ray_march.ray_march_merged_cut, ray_march.ray_march_merged_bf16,
-                            ray_march.ray_march_merged_cut_bf16, triplane_mlp.triplane_mlp,
-                            triplane_mlp.triplane_mlp_bf16, bias_act.bias_act],
+                            ray_march.ray_march_merged_cut_bf16, ray_march.cut_threshold,
+                            triplane_mlp.triplane_mlp, triplane_mlp.triplane_mlp_bf16,
+                            bias_act.bias_act],
                 os.path.join(tmp_dir, 'data'))
     sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
                     ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
@@ -2871,7 +3062,7 @@ def main():
                                   'float32 cut': serve_fp32['k5_per_request']['bias_act']}
     k5_bf16['launches_per_request'] = {'own precision':
                                        serve_own['k5_per_request']['bias_act_bf16']}
-    new_entries = (k4_bf16, k3_merged_bf16, k3_cut_bf16, k1_bf16)
+    new_entries = (k4_bf16, k3_merged_bf16, k3_cut_bf16, k1_bf16, threshold)
     for k in (k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16, *new_entries):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())

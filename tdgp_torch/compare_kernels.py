@@ -1,4 +1,4 @@
-"""Time K1, K4 and K3 against the kernels of another checkout, in turns, on one card.
+"""Time K1, K4, K3 and K3 cut's threshold against another checkout, in turns, on one card.
 
     python3 -m tdgp_torch.compare_kernels --parent DIR
 
@@ -25,7 +25,20 @@ against each other (<= 1e-5 x max |earlier|; K3 <= 1e-5 absolute):
     (`tdgp_torch/rendering/renderer.py` there) then its K3, against this
     tree's merged entry on the same two sets of 32 samples; and the earlier
     merged entry (`tdgp_ray_march_merged`, where the checkout has it)
-    against this tree's.
+    against this tree's;
+  - K4's bf16 entry (`tdgp_triplane_mlp_bf16`, where the checkout has it)
+    at the served shape in bf16, its outputs held to this tree's at one
+    bf16 ulp of their scale, at most 1e-3 of them apart;
+  - K3's cut path at the served chunk [4, 16384, 32 + 32, 3], q = 0.5,
+    where this tree's threshold source (`csrc/quantile.cu`) is new or
+    differs: the earlier threshold (the checkout's own `cut_threshold` in
+    `tdgp_torch/ops/ray_march.py`, a sort there) then its
+    `tdgp_ray_march_merged_cut`, against this tree's `ray_march_merged_cut`
+    (the select, then the cut entry), with `chip_smoke.timed`; the two
+    thresholds alone, and at the coarse chunk [4, 16384, 32] the earlier
+    `quantile` against this tree's, with `chip_smoke.cuda_ms` and
+    `chip_smoke.cold_ms`; thresholds bit for bit (a zero of either sign as a
+    zero), the march <= 1e-5 absolute.
 Prints the card's name and power limit, one line per input, and a JSON
 object of the times as its last line. Needs a CUDA device.
 """
@@ -95,6 +108,52 @@ def earlier_mlp(lib):
     return run
 
 
+def earlier_mlp_bf16(lib):
+    """The earlier bf16 entry of K4, or None where the checkout predates it."""
+    fn = getattr(lib, 'tdgp_triplane_mlp_bf16', None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(feats, w0, b0, w1, b1):
+        n, p, f = feats.shape
+        hid, out = w0.shape[1], w1.shape[1]
+        rgb = torch.empty((n, p, out - 1), dtype=feats.dtype, device=feats.device)
+        sigma = torch.empty((n, p), dtype=feats.dtype, device=feats.device)
+        err = fn(*[t.data_ptr() for t in (feats, w0, b0, w1, b1, rgb, sigma)], n * p, f, hid, out,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'the earlier K4 bf16 failed to launch: {err}')
+        return rgb, sigma
+    return run
+
+
+def earlier_cut(lib, threshold_fn):
+    """The earlier cut path: `threshold_fn` (the checkout's `cut_threshold`)
+    then its `tdgp_ray_march_merged_cut`, or None where it predates it."""
+    fn = getattr(lib, 'tdgp_ray_march_merged_cut', None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(*sets, q=0.5):  # softplus, inf depth, no last_back
+        b, r, s1 = sets[0].shape
+        s2, c = sets[3].shape[2], sets[1].shape[3]
+        threshold = threshold_fn(sets[2], sets[5], q)
+        rgb = torch.empty((b, r, c), device=sets[0].device)
+        depth, wsum, ftrans = (torch.empty((b, r), device=sets[0].device) for _ in range(3))
+        err = fn(*[t.data_ptr() for t in (*sets, threshold, rgb, depth, wsum, ftrans)], b * r, s1,
+                 s2, c, 0, 1.0, 1e10, 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'the earlier K3 cut failed to launch: {err}')
+        return rgb, depth, wsum, ftrans
+    return run
+
+
 def earlier_march(lib):
     fn = lib.tdgp_ray_march_reduced
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -149,8 +208,12 @@ def earlier_module(parent: str, rel_path: str, name: str):
 
 
 def changed(parent: str, name: str) -> bool:
-    """Whether `csrc/<name>.cu` of the earlier checkout differs from this tree's."""
-    with open(os.path.join(parent, 'tdgp_torch', 'csrc', f'{name}.cu'), 'rb') as f:
+    """Whether `csrc/<name>.cu` of the earlier checkout differs from this
+    tree's, or is not there."""
+    path = os.path.join(parent, 'tdgp_torch', 'csrc', f'{name}.cu')
+    if not os.path.exists(path):
+        return True
+    with open(path, 'rb') as f:
         earlier = f.read()
     with open(cuda_build.sources()[name], 'rb') as f:
         return f.read() != earlier
@@ -184,11 +247,12 @@ def main() -> int:
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f'card: {card}')
-    cuda_build.build(['splat', 'triplane_mlp', 'ray_march'])
+    cuda_build.build(['splat', 'triplane_mlp', 'ray_march', 'quantile'])
     result = {}
     gen = torch.Generator(device='cuda').manual_seed(0)
     for name, compare in (('splat', k1_phase), ('triplane_mlp', k4_phase),
-                          ('ray_march', k3_phase)):
+                          ('triplane_mlp', k4_bf16_phase), ('ray_march', k3_phase),
+                          ('quantile', cut_phase)):
         if changed(args.parent, name):
             compare(args.parent, chip_smoke, result, gen)
         else:
@@ -256,6 +320,83 @@ def k4_phase(parent, chip_smoke, result, gen):
     result['k4_served'] = {'earlier_ms': earlier, 'this_ms': this}
     del feats
     torch.cuda.empty_cache()
+
+
+def k4_bf16_phase(parent, chip_smoke, result, gen):
+    old_mlp = earlier_mlp_bf16(build_earlier(parent, 'triplane_mlp'))
+    if old_mlp is None:
+        print('K4 bf16: the earlier checkout has no bf16 entry, not compared')
+        return
+    bf = torch.bfloat16
+    n, p, f, hid, out = 4, 16384 * 32, 32, 64, 4
+    feats = torch.randn(n, p, f, device='cuda', generator=gen).to(bf)
+    weights = [(torch.randn(f, hid, device='cuda', generator=gen) / f ** 0.5).to(bf),
+               (torch.randn(hid, device='cuda', generator=gen) * 0.1).to(bf),
+               (torch.randn(hid, out, device='cuda', generator=gen) / hid ** 0.5).to(bf),
+               (torch.randn(out, device='cuda', generator=gen) * 0.1).to(bf)]
+    got, ref = triplane_mlp.triplane_mlp(feats, *weights), old_mlp(feats, *weights)
+    share = float(torch.cat([(a != b).reshape(-1) for a, b in zip(got, ref)]).float().mean())
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+    scale_ulp = max(float(b.float().abs().max()) for b in ref) * 2.0 ** -7
+    if not (share <= 1e-3 and worst <= scale_ulp):
+        raise AssertionError(f'K4 bf16: this tree and the earlier kernel disagree: {share:.3g} of '
+                             f'the outputs, at most {worst:.3g} (one ulp of the scale {scale_ulp:.3g})')
+    runs = {}
+    for key, measure in (('warm', lambda fn: chip_smoke.cuda_ms(fn, 50, prefill=True)),
+                         ('cold', chip_smoke.cold_ms)):
+        earlier, this = in_turns(lambda fn, iters: measure(fn), lambda: old_mlp(feats, *weights),
+                                 lambda: triplane_mlp.triplane_mlp(feats, *weights), 50)
+        runs[key] = {'earlier_ms': earlier, 'this_ms': this}
+        print(f'K4 bf16 [{n},{p},{f}] -> {hid} -> {out} {key}: earlier {earlier[0]:.4f} / '
+              f'{earlier[1]:.4f} ms, this {this[0]:.4f} / {this[1]:.4f} ms (turns: earlier, this, '
+              f'this, earlier); {share:.3g} of the outputs apart, at most {worst:.3g} (one ulp of '
+              f'the scale {scale_ulp:.3g})')
+    result['k4_bf16_served'] = {**runs, 'share_apart': share, 'max_abs_diff': worst}
+    del feats
+    torch.cuda.empty_cache()
+
+
+def cut_phase(parent, chip_smoke, result, gen):
+    old_module = earlier_module(parent, 'tdgp_torch/ops/ray_march.py', 'earlier_ray_march')
+    old_cut = earlier_cut(build_earlier(parent, 'ray_march'), old_module.cut_threshold)
+    if old_cut is None:
+        print('K3 cut: the earlier checkout has no cut entry, not compared')
+        return
+    q = 0.5
+    sets = chip_smoke.merged_sets(gen, 4, 16384, 32, 32, 3)
+    thresholds = (ray_march.cut_threshold(sets[2], sets[5], q),
+                  old_module.cut_threshold(sets[2], sets[5], q))
+    coarse = ray_march.clamp_densities(sets[2])
+    coarse_thresholds = ray_march.quantile(coarse, q), old_module.quantile(coarse, q)
+    if not (chip_smoke.same_bits(*thresholds) and chip_smoke.same_bits(*coarse_thresholds)):
+        raise AssertionError(f'K3 cut: the thresholds differ: {thresholds}, {coarse_thresholds}')
+    err = max(float((a - b).abs().max()) for a, b in zip(ray_march.ray_march_merged_cut(*sets, q),
+                                                         old_cut(*sets, q=q)))
+    if not err <= 1e-5:
+        raise AssertionError(f'K3 cut: this tree and the earlier path disagree: {err}')
+    runs = [chip_smoke.timed(f'K3 cut, {who}', fn, 200)
+            for who, fn in (('earlier', lambda: old_cut(*sets, q=q)),
+                            ('this', lambda: ray_march.ray_march_merged_cut(*sets, q)),
+                            ('this', lambda: ray_march.ray_march_merged_cut(*sets, q)),
+                            ('earlier', lambda: old_cut(*sets, q=q)))]
+    result['k3_cut'] = {'earlier': [runs[0], runs[3]], 'this': runs[1:3], 'max_abs_diff': err}
+    for key in runs[0]:
+        print(f'K3 cut at [4,16384,32+32,3] {key}: earlier {runs[0][key]:.4f} / '
+              f'{runs[3][key]:.4f}, this {runs[1][key]:.4f} / {runs[2][key]:.4f} (turns: earlier, '
+              f'this, this, earlier); agree to {err:.3g}')
+    for label, earlier_fn, this_fn in (
+            ('threshold_served', lambda: old_module.cut_threshold(sets[2], sets[5], q),
+             lambda: ray_march.cut_threshold(sets[2], sets[5], q)),
+            ('threshold_coarse', lambda: old_module.quantile(coarse, q),
+             lambda: ray_march.quantile(coarse, q))):
+        times = {}
+        for key, measure in (('warm', lambda fn: chip_smoke.cuda_ms(fn, 50, prefill=True)),
+                             ('cold', chip_smoke.cold_ms)):
+            earlier, this = in_turns(lambda fn, iters: measure(fn), earlier_fn, this_fn, 50)
+            times[key] = {'earlier_ms': earlier, 'this_ms': this}
+            print(f'{label} {key}: earlier {earlier[0]:.4f} / {earlier[1]:.4f} ms, this '
+                  f'{this[0]:.4f} / {this[1]:.4f} ms (turns: earlier, this, this, earlier)')
+        result[label] = times
 
 
 def k3_phase(parent, chip_smoke, result, gen):

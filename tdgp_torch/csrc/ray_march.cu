@@ -91,6 +91,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "clamp_density.cuh"
+
 namespace {
 
 constexpr int kMaxChannels = 4;
@@ -108,15 +110,6 @@ static_assert(kMaxMerged <= kMaxChunk, "the merged forward marches in one pass")
 
 template <int N>
 using Int = std::integral_constant<int, N>;
-
-__device__ __forceinline__ float clamp_density(float x, int clamp_mode, float beta) {
-  if (clamp_mode == 0) {
-    // torch.nn.functional.softplus: linear above a threshold of 20
-    const float y = beta * x;
-    return (y > 20.f ? y : log1pf(expf(y))) / beta;
-  }
-  return fmaxf(x, 0.f);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -481,14 +474,8 @@ __device__ __forceinline__ Sample load_sample(const float* densities, const floa
   r.t = depths[base + s];
   r.delta = (s + 1 < n_steps) ? depths[base + s + 1] - r.t : last_delta;
   const float x = densities[base + s];
-  if (clamp_mode == 0) {
-    const float y = beta * x;
-    r.sigma = (y > 20.f ? y : log1pf(expf(y))) / beta;
-    r.dsigma = 1.f / (1.f + expf(-y));
-  } else {
-    r.sigma = fmaxf(x, 0.f);
-    r.dsigma = x > 0.f ? 1.f : 0.f;
-  }
+  r.sigma = clamp_density(x, clamp_mode, beta);
+  r.dsigma = clamp_mode == 0 ? 1.f / (1.f + expf(-beta * x)) : x > 0.f ? 1.f : 0.f;
   r.e = expf(-r.delta * r.sigma);
   r.alpha = 1.f - r.e;
   r.factor = (1.f - r.alpha) + 1e-10f;

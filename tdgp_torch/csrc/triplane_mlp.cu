@@ -54,16 +54,28 @@
 // with rgb and sigma stored in bf16. Bound on an H100: device memory. Per
 // point it reads 2 F bytes and writes 2 OUT bytes: at F = 32, OUT = 4, 72
 // bytes, 151 MB for a served pass of 2,097,152 points, 0.045 ms at 3.35
-// TB/s; its 9.66 GFLOP take 0.010 ms at 989 TFLOP/s bf16. Design: the float32
-// kernel's, with the first product as one bf16 mma.sync m16n8k16 per
-// (k-step of 16, n-tile) and m-tile (bf16 x bf16 products are exact in the
-// float32 accumulator, so only the order of the sum differs from XLA's),
-// tiles of 128 points staged by cp.async in rows of F + 8 bf16 (80 bytes at
-// F = 32: the A fragments' 4-byte loads hit 32 distinct banks), and each
-// rounding of the chain above applied to the accumulator fragments in
-// registers. The second product stays on the CUDA cores in float32: its
-// products of two bf16 values are exact there too. Instantiated for (F,
-// HID, OUT) = (32, 64, 4) and (16, 32, 4).
+// TB/s; its 9.66 GFLOP take 0.010 ms at 989 TFLOP/s bf16. Its first design,
+// the float32 kernel's with bf16 products, took the float32 kernel's 0.19 ms
+// on an H100 (tdgp_torch/probe_kernels.py): its loads alone took 0.050 ms
+// and its loads and stores 0.061, so the per-point arithmetic held it
+// (~1,000 instructions a thread and tile for the roundings and the second
+// product on the CUDA cores, behind block-wide barriers). The design now:
+//  - both products on the tensor cores (mma.sync m16n8k16 bf16): the first
+//    product's accumulator fragments of n-tiles 2kk and 2kk + 1, rounded,
+//    are the A fragment of k-step kk of the second, against w1 padded to 8
+//    columns with zeros; bf16 x bf16 products are exact in the float32
+//    accumulator, so only the order of the sums differs from XLA's;
+//  - the rounding chain in bf16 pairs, one instruction a step for two
+//    values: cvt.rn.bf16x2 of the sums, fma.rn.bf16x2 with 1 for the bias
+//    add and with -0 for the products (each one rounding of the exact
+//    result, what a float32 add or product of two bf16 values rounded to
+//    bf16 gives), the leaky ReLU as max.bf16x2(h, h alpha);
+//  - each warp on its own tiles of 32 points, with its own ring of 4 tiles
+//    in shared memory filled by cp.async (rows of F + 8 bf16: the A
+//    fragments' 4-byte loads hit 32 distinct banks), so no block barrier;
+//    the weights' fragments in registers; a tile's outputs staged in
+//    shared memory and stored as 64-byte runs.
+// Instantiated for (F, HID, OUT) = (32, 64, 4) and (16, 32, 4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,13 +304,45 @@ int launch(const float* feats, const float* w0, const float* b0, const float* w1
 
 // ------------------------------------------------------------ the bf16 entry
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int kStages = 4;     // tiles a warp has in flight: a ring in shared memory
+constexpr int kWarpTile = 32;  // points a warp tile: two 16-row m-tiles
+constexpr uint32_t kOneBf16x2 = 0x3f803f80u, kNegZeroBf16x2 = 0x80008000u;
 
 // two bf16 values in one register, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// two floats rounded to bf16 (to nearest) in one register, `lo` in the low half
+__device__ __forceinline__ uint32_t cvt_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// a * b + c on two bf16 pairs, each rounded once: a + c with b = 1, a * b
+// with c = -0 (both exactly what a float32 add or product of two bf16
+// values rounded to bf16 gives)
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// The hidden layer's chain on two units of one row, in bf16 pairs: the
+// float32 sums rounded, the bias added, the leaky ReLU as max(h, h alpha)
+// (equal to h >= 0 ? h : h alpha in bf16, since |h alpha| rounds below
+// |h|, and -0 stays -0), the gain; each step rounded once.
+__device__ __forceinline__ uint32_t hidden_bf16x2(float c0, float c1, uint32_t bias,
+                                                  uint32_t alpha, uint32_t gain) {
+  const uint32_t h = fma_bf16x2(cvt_bf16x2(c0, c1), kOneBf16x2, bias);
+  return fma_bf16x2(max_bf16x2(h, fma_bf16x2(h, alpha, kNegZeroBf16x2)), gain, kNegZeroBf16x2);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -310,28 +354,34 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp's copies of the 32 feature rows from point `first` into a stage
+// of its ring (rows of F + 8 bf16), 16 bytes a copy; rows past the end zeroed.
 template <int F>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* s_x, const __nv_bfloat16* feats,
-                                               long long first, long long n_points) {
-  constexpr int kRow = F + 8;
-  constexpr int kChunks = kTile * F / 8;  // 16-byte chunks of 8 values
-  for (int q = threadIdx.x; q < kChunks; q += kThreads) {
+__device__ __forceinline__ void load_warp_tile(__nv_bfloat16* s_x, const __nv_bfloat16* feats,
+                                               long long first, long long n_points, int lane) {
+  constexpr int kRow = F + 8, kChunks = kWarpTile * F / 8;
+#pragma unroll
+  for (int q = lane; q < kChunks; q += 32) {
     const int row = q / (F / 8), col = (q % (F / 8)) * 8;
     const bool valid = first + row < n_points;
-    const __nv_bfloat16* src = valid ? feats + (first + row) * F + col : feats;
-    cp_async16(s_x + row * kRow + col, src, valid);
+    cp_async16(s_x + row * kRow + col, valid ? feats + (first + row) * F + col : feats, valid);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <int F, int HID, int OUT>
 struct SmemBf16 {
   static constexpr int kRow = F + 8;
-  uint2 w0[F / 16][HID / 8][32];  // per (k-step, n-tile, lane): the B fragment's two registers
-  float b0[HID];
-  float w1[HID][OUT];
-  float b1[OUT];
-  alignas(16) __nv_bfloat16 x[2][kTile * kRow];  // the double buffer of feature tiles
+  alignas(16) __nv_bfloat16 x[kWarps][kStages][kWarpTile * kRow];  // each warp's ring
+  uint32_t y[kWarps][kWarpTile * 2];  // a warp tile's outputs, pairs (r, g) and (b, sigma)
 };
 
 template <int F, int HID, int OUT>
@@ -344,125 +394,110 @@ triplane_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ feats,  // [T, F]
                          __nv_bfloat16* __restrict__ rgb,          // [T, OUT - 1]
                          __nv_bfloat16* __restrict__ sigma,        // [T]
                          long long n_points) {
-  static_assert(F % 16 == 0 && HID % 8 == 0 && OUT <= 4, "widths");
-  constexpr int kK = F / 16, kN = HID / 8, kRow = F + 8;
+  static_assert(F % 16 == 0 && HID % 16 == 0 && OUT == 4, "widths");
+  constexpr int kK = F / 16, kN = HID / 8, kK2 = HID / 16, kRow = F + 8;
+  constexpr int kStage = kWarpTile * kRow;
   extern __shared__ uint4 smem_raw[];
   auto& s = *reinterpret_cast<SmemBf16<F, HID, OUT>*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int group = lane >> 2, tig = lane & 3;  // fragment row group, thread in group
-  const float alpha = round_bf16(0.2f), gain = round_bf16(1.41421356237309504880f);
+  __nv_bfloat16* const ring = s.x[warp][0];
+  uint32_t* const ys = s.y[warp];
 
-  const long long n_tiles = (n_points + kTile - 1) / kTile;
-  long long tile = blockIdx.x;
-  if (tile < n_tiles) load_tile_bf16<F>(s.x[0], feats, tile * kTile, n_points);
-
-  // B fragment of w0 for k-step k, n-tile j: rows (k) 16k + 2 tig (+1) and
-  // 16k + 2 tig + 8 (+1), column (n) 8j + group
-  for (int i = tid; i < kK * kN * 32; i += kThreads) {
-    const int k = i / (kN * 32), j = (i / 32) % kN, l = i % 32;
-    const int kr = 16 * k + 2 * (l & 3), n = 8 * j + (l >> 2);
-    s.w0[k][j][l] = make_uint2(pack_bf16(w0[kr * HID + n], w0[(kr + 1) * HID + n]),
-                               pack_bf16(w0[(kr + 8) * HID + n], w0[(kr + 9) * HID + n]));
+  const long long n_tiles = (n_points + kWarpTile - 1) / kWarpTile;
+  const long long stride = (long long)gridDim.x * kWarps;
+  long long tile = (long long)blockIdx.x * kWarps + warp;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {  // the first tiles in flight
+    if (tile + st * stride < n_tiles)
+      load_warp_tile<F>(ring + st * kStage, feats, (tile + st * stride) * kWarpTile, n_points,
+                        lane);
+    commit_group();
   }
-  for (int i = tid; i < HID; i += kThreads) s.b0[i] = __bfloat162float(b0[i]);
-  for (int i = tid; i < HID * OUT; i += kThreads) s.w1[i / OUT][i % OUT] = __bfloat162float(w1[i]);
-  if (tid < OUT) s.b1[tid] = __bfloat162float(b1[tid]);
 
-  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
-    const long long next = tile + gridDim.x;
-    if (next < n_tiles) {
-      load_tile_bf16<F>(s.x[buf ^ 1], feats, next * kTile, n_points);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();  // tile `buf` (and, the first time, the weights) in place
-
-    float acc[kMTiles][kN][4];
+  // The weights, in registers. w0's B fragment for k-step k, n-tile j: rows
+  // 16k + 2 tig (+1) and 16k + 2 tig + 8 (+1), column 8j + group; w1's for
+  // k-step kk: rows 16kk + 2 tig (+1) and (+8, +9), column group, padded to
+  // 8 columns with zeros; b0 for units 8j + 2 tig (+1); b1 for outputs
+  // 2 tig (+1).
+  uint32_t bw0[kK][kN][2], bw1[kK2][2], bb0[kN];
 #pragma unroll
-    for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-      for (int j = 0; j < kN; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][j][c] = 0.f;
-
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      uint32_t a[kMTiles][4];
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m) {
-        // A fragment: rows group, group + 8; columns 2 tig (+1), 2 tig + 8 (+1) of k-step k
-        const __nv_bfloat16* x =
-            s.x[buf] + (warp * kMTiles * 16 + m * 16 + group) * kRow + 16 * k + 2 * tig;
-        a[m][0] = *reinterpret_cast<const uint32_t*>(x);
-        a[m][1] = *reinterpret_cast<const uint32_t*>(x + 8 * kRow);
-        a[m][2] = *reinterpret_cast<const uint32_t*>(x + 8);
-        a[m][3] = *reinterpret_cast<const uint32_t*>(x + 8 * kRow + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const uint2 b = s.w0[k][j][lane];
-#pragma unroll
-        for (int m = 0; m < kMTiles; ++m) mma_bf16(acc[m][j], a[m], b.x, b.y);
-      }
-    }
-
-    // hidden unit of acc[m][j][c]: 8 j + 2 tig + (c & 1); row group + 8 (c >> 1)
-    float y[kMTiles][2][OUT];
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int o = 0; o < OUT; ++o) y[m][r][o] = 0.f;
+  for (int k = 0; k < kK; ++k)
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
+      const int kr = 16 * k + 2 * tig, n = 8 * j + group;
+      bw0[k][j][0] = pack_bf16(w0[kr * HID + n], w0[(kr + 1) * HID + n]);
+      bw0[k][j][1] = pack_bf16(w0[(kr + 8) * HID + n], w0[(kr + 9) * HID + n]);
+    }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int unit = 8 * j + 2 * tig + c;
-        const float bj = s.b0[unit];
-        float wo[OUT];
+  for (int kk = 0; kk < kK2; ++kk) {
+    const int kr = 16 * kk + 2 * tig;
+    auto w = [&](int row) { return group < OUT ? w1[row * OUT + group] : zero; };
+    bw1[kk][0] = pack_bf16(w(kr), w(kr + 1));
+    bw1[kk][1] = pack_bf16(w(kr + 8), w(kr + 9));
+  }
 #pragma unroll
-        for (int o = 0; o < OUT; ++o) wo[o] = s.w1[unit][o];
+  for (int j = 0; j < kN; ++j) bb0[j] = pack_bf16(b0[8 * j + 2 * tig], b0[8 * j + 2 * tig + 1]);
+  const uint32_t bb1 = tig < 2 ? pack_bf16(b1[2 * tig], b1[2 * tig + 1]) : 0u;
+  const __nv_bfloat16 alpha1 = __float2bfloat16_rn(0.2f), gain1 = __float2bfloat16_rn(kSqrt2);
+  const uint32_t alpha = pack_bf16(alpha1, alpha1), gain = pack_bf16(gain1, gain1);
+
+  for (int i = 0; tile < n_tiles; ++i, tile += stride) {
+    const long long ahead = tile + (kStages - 1) * stride;
+    if (ahead < n_tiles)
+      load_warp_tile<F>(ring + ((i + kStages - 1) % kStages) * kStage, feats, ahead * kWarpTile,
+                        n_points, lane);
+    commit_group();
+    wait_group<kStages - 1>();  // this lane's copies of tile i have landed
+    __syncwarp();               // and every lane's are visible
+    const __nv_bfloat16* xs = ring + (i % kStages) * kStage;
+    const long long first = tile * kWarpTile;
 #pragma unroll
-        for (int m = 0; m < kMTiles; ++m)
+    for (int m = 0; m < 2; ++m) {
+      uint32_t a[kK][4];  // A fragments: rows group, group + 8; columns 2 tig (+1), 2 tig + 8 (+1)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float h = round_bf16(round_bf16(acc[m][j][2 * r + c]) + bj);
-            h = h >= 0.f ? h : round_bf16(h * alpha);
-            h = round_bf16(h * gain);
+      for (int k = 0; k < kK; ++k) {
+        const __nv_bfloat16* x = xs + (16 * m + group) * kRow + 16 * k + 2 * tig;
+        a[k][0] = *reinterpret_cast<const uint32_t*>(x);
+        a[k][1] = *reinterpret_cast<const uint32_t*>(x + 8 * kRow);
+        a[k][2] = *reinterpret_cast<const uint32_t*>(x + 8);
+        a[k][3] = *reinterpret_cast<const uint32_t*>(x + 8 * kRow + 8);
+      }
+      float y[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int o = 0; o < OUT; ++o) y[m][r][o] = fmaf(h, wo[o], y[m][r][o]);
-          }
+      for (int kk = 0; kk < kK2; ++kk) {
+        // n-tiles 2kk and 2kk + 1 of the first product: hidden units 16kk .. 16kk + 15,
+        // whose accumulator fragments, rounded, are the A fragment of k-step kk of the second
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          mma_bf16(c0, a[k], bw0[k][2 * kk][0], bw0[k][2 * kk][1]);
+          mma_bf16(c1, a[k], bw0[k][2 * kk + 1][0], bw0[k][2 * kk + 1][1]);
+        }
+        const uint32_t h[4] = {hidden_bf16x2(c0[0], c0[1], bb0[2 * kk], alpha, gain),
+                               hidden_bf16x2(c0[2], c0[3], bb0[2 * kk], alpha, gain),
+                               hidden_bf16x2(c1[0], c1[1], bb0[2 * kk + 1], alpha, gain),
+                               hidden_bf16x2(c1[2], c1[3], bb0[2 * kk + 1], alpha, gain)};
+        mma_bf16(y, h, bw1[kk][0], bw1[kk][1]);
+      }
+      if (tig < 2) {  // outputs 2 tig, 2 tig + 1 of rows group, group + 8: rounded, b1 added
+        ys[(16 * m + group) * 2 + tig] = fma_bf16x2(cvt_bf16x2(y[0], y[1]), kOneBf16x2, bb1);
+        ys[(16 * m + group + 8) * 2 + tig] = fma_bf16x2(cvt_bf16x2(y[2], y[3]), kOneBf16x2, bb1);
       }
     }
+    __syncwarp();
+    // the warp's 32 sigmas and 96 rgb values, each store 64 contiguous bytes
+    const __nv_bfloat16* yb = reinterpret_cast<const __nv_bfloat16*>(ys);  // [32][r, g, b, sigma]
+    if (first + lane < n_points) sigma[first + lane] = yb[4 * lane + OUT - 1];
 #pragma unroll
-    for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int o = 0; o < OUT; ++o) {
-          y[m][r][o] += __shfl_xor_sync(0xffffffffu, y[m][r][o], 1);
-          y[m][r][o] += __shfl_xor_sync(0xffffffffu, y[m][r][o], 2);
-        }
-    if (tig < OUT) {
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const long long point = tile * kTile + warp * kMTiles * 16 + m * 16 + 8 * r + group;
-          float v = y[m][r][0];
-#pragma unroll
-          for (int o = 1; o < OUT; ++o) v = tig == o ? y[m][r][o] : v;
-          const __nv_bfloat16 out = __float2bfloat16_rn(round_bf16(v) + s.b1[tig]);
-          if (point < n_points) {
-            if (tig < OUT - 1) rgb[point * (OUT - 1) + tig] = out;
-            else sigma[point] = out;
-          }
-        }
+    for (int c = 0; c < OUT - 1; ++c) {
+      const int e = 32 * c + lane, row = e / (OUT - 1);
+      if (first + row < n_points) rgb[first * (OUT - 1) + e] = yb[4 * row + e % (OUT - 1)];
     }
-    __syncthreads();  // every warp is done with tile `buf` before it is refilled
+    __syncwarp();  // the stage and the outputs are read before they are written again
   }
+  wait_group<0>();
 }
 
 template <int F, int HID, int OUT>
@@ -484,9 +519,10 @@ int launch_bf16(const __nv_bfloat16* feats, const __nv_bfloat16* w0, const __nv_
       return (int)err;
     }
   }
-  const long long n_tiles = (n_points + kTile - 1) / kTile;
+  const long long n_tiles = (n_points + kWarpTile - 1) / kWarpTile;
+  const long long want = (n_tiles + kWarps - 1) / kWarps;
   const long long most = (long long)n_sms * kBlocksPerSm;
-  const unsigned blocks = (unsigned)(n_tiles < most ? n_tiles : most);
+  const unsigned blocks = (unsigned)(want < most ? want : most);
   triplane_mlp_bf16_kernel<F, HID, OUT><<<blocks, kThreads, smem, stream>>>(
       feats, w0, b0, w1, b1, rgb, sigma, n_points);
   return (int)cudaGetLastError();

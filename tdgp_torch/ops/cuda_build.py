@@ -2,7 +2,7 @@
 
 Each `tdgp_torch/csrc/<name>.cu` has a plain C interface and compiles on
 its own into `tdgp_torch/build/lib<name>-<hash>.so`, keyed by a hash of the
-source and the flags, at first use. The kernels launch on PyTorch's current
+source, the headers of `csrc/` (`*.cuh`) and the flags, at first use. The kernels launch on PyTorch's current
 stream and allocate nothing; their wrappers live in `tdgp_torch/ops/`.
 """
 from __future__ import annotations
@@ -41,8 +41,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(sources()[name], 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256()
+    for path in [sources()[name], *sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))]:
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f'lib{name}-{digest[:16]}.so')
 
 

@@ -36,10 +36,16 @@ promotes them; the plain versions are the same functions, since
 `ray_march_merged_cut` is the same march with the JAX package's eval-time
 quantile cut (NFS's depth maps; the JAX package marches it in jnp): the
 clamped densities below their quantile over both sets are marched as 0. The
-threshold is taken on the device (`quantile`, a sort, as `jnp.quantile`
-interpolates), and the merged kernel's cut instantiation reads it there
-(`ray_march_merged_cut.launches`); `ray_march_merged_cut_plain` for CPU
-tensors.
+threshold is taken on the device by a radix select (`cut_threshold`, kernel
+in `csrc/quantile.cu`, which reads the raw densities of both sets and
+clamps them as the march does), and the merged kernel's cut instantiation
+reads it there (`ray_march_merged_cut.launches`); `ray_march_merged_cut_plain`
+for CPU tensors. The coarse march of a cut render takes its threshold by the
+same kernel: the renderer hands `quantile` (the select on CUDA tensors) to
+`cut_below_quantile`. The select's launches count in
+`cut_threshold.launches`, one per threshold; its plain version is the sort,
+`quantile_plain` (`cut_threshold_plain`), which every plain version takes on
+any device, and `quantile_radix_plain` walks the kernel's passes in PyTorch.
 """
 from __future__ import annotations
 
@@ -63,7 +69,26 @@ def _last_delta(use_inf_depth: bool) -> float:
     return 1e10 if use_inf_depth else 1e-3
 
 
-def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+def _quantile_weights(n: int, q: float):
+    """(low, high, low_weight, high_weight) of `jnp.quantile`'s linear
+    interpolation over n values: the positions floor and ceil of q (n - 1)
+    and their weights, in float32 as JAX takes them."""
+    pos = np.float32(q) * (np.float32(n) - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    high_weight = np.float32(pos - low)
+    low_weight = np.float32(1) - high_weight
+    low, high = (int(min(max(i, 0), n - 1)) for i in (low, high))
+    return low, high, low_weight, high_weight
+
+
+def _interpolate(lo: torch.Tensor, hi: torch.Tensor, low_weight, high_weight, dtype, has_nan):
+    """lo * w_low + hi * w_high in float32 (bf16 widened), rounded once to
+    `dtype`; NaN where `has_nan`."""
+    out = (widen(lo) * low_weight + widen(hi) * high_weight).to(dtype)
+    return torch.where(has_nan, torch.full_like(out, float('nan')), out)
+
+
+def quantile_plain(x: torch.Tensor, q: float) -> torch.Tensor:
     """`jnp.quantile(x, q)` over all of x (its default linear interpolation),
     as a one-element tensor of x's dtype on x's device: x sorted, the
     positions floor and ceil of q (n - 1) and their weights in float32 as JAX
@@ -71,16 +96,132 @@ def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     holds one. A sort, not `torch.quantile`, which refuses
     inputs of 2^24 elements and more."""
     flat = x.reshape(-1)
-    n = flat.numel()
-    pos = np.float32(q) * (np.float32(n) - np.float32(1))
-    low, high = np.floor(pos), np.ceil(pos)
-    high_weight = np.float32(pos - low)
-    low_weight = np.float32(1) - high_weight
-    low, high = (int(min(max(i, 0), n - 1)) for i in (low, high))
+    low, high, low_weight, high_weight = _quantile_weights(flat.numel(), q)
     ordered = torch.sort(flat).values
-    out = (widen(ordered[low:low + 1]) * low_weight
-           + widen(ordered[high:high + 1]) * high_weight).to(flat.dtype)
-    return torch.where(torch.isnan(flat).any(), torch.full_like(out, float('nan')), out)
+    return _interpolate(ordered[low:low + 1], ordered[high:high + 1], low_weight, high_weight,
+                        flat.dtype, torch.isnan(flat).any())
+
+
+# (shift, bits) of the select's digits, from the top of the 32-bit keys (csrc/quantile.cu)
+QUANTILE_DIGITS = ((21, 11), (10, 11), (0, 10))
+
+
+def quantile_keys(values: torch.Tensor) -> torch.Tensor:
+    """The select's order-preserving keys of float32 (or bf16, widened)
+    values, as int64 in [0, 2^32): the float's bits with the sign bit
+    flipped for a positive value, all bits flipped for a negative one."""
+    bits = widen(values).contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    return torch.where(bits >> 31 == 1, bits ^ 0xffffffff, bits | 0x80000000)
+
+
+def key_values(keys: torch.Tensor) -> torch.Tensor:
+    """The float32 values of `quantile_keys`' keys (int64)."""
+    bits = torch.where(keys >> 31 == 1, keys ^ 0x80000000, keys ^ 0xffffffff)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def quantile_radix_plain(x: torch.Tensor, q: float, blocks: int = 3) -> torch.Tensor:
+    """`quantile_plain(x, q)` by the select kernel's passes
+    (`csrc/quantile.cu`), in PyTorch: the values' keys (`quantile_keys`);
+    for each digit of QUANTILE_DIGITS, every block of the values (`blocks`
+    of them, as the kernel's blocks split them) counts the digits of the keys
+    that share the prefix found so far for rank low, and, where it differs,
+    for rank high, the blocks' histograms are added, and the bin that holds
+    each rank gives the next digit of its prefix and its rank within the bin;
+    after the last digit the prefixes are the keys of ranks low and high,
+    interpolated as `quantile_plain` does."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    low, high, low_weight, high_weight = _quantile_weights(n, q)
+    keys = quantile_keys(flat)
+    parts = keys.tensor_split(blocks)
+    prefix, rank = [0, 0], [low, high]
+    for shift, bits in QUANTILE_DIGITS:
+        above = ~((1 << (shift + bits)) - 1) & 0xffffffff
+        two = prefix[0] != prefix[1]
+        hists = [sum(torch.bincount((part[(part & above) == prefix[t]] >> shift) & ((1 << bits) - 1),
+                                    minlength=1 << bits) for part in parts)
+                 for t in range(2 if two else 1)]
+        for t in range(2):
+            hist = hists[t if two else 0]
+            before = torch.cumsum(hist, 0) - hist
+            digit = int(torch.nonzero((before <= rank[t]) & (rank[t] < before + hist))[0, 0])
+            prefix[t] |= digit << shift
+            rank[t] -= int(before[digit])
+    lo, hi = key_values(torch.tensor(prefix, dtype=torch.int64)).split(1)
+    return _interpolate(lo, hi, low_weight, high_weight, flat.dtype, torch.isnan(flat).any())
+
+
+@functools.cache
+def _select_kernel():
+    lib = cuda_build.library('quantile')
+    fn = lib.tdgp_quantile_select
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.tdgp_quantile_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.tdgp_quantile_scratch_bytes.restype = ctypes.c_longlong
+    lib.tdgp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdgp_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.tdgp_quantile_scratch_bytes, lib.tdgp_cuda_error_string
+
+
+def _select(values, q: float, clamp_mode, sp_beta: float, out_dtype: torch.dtype,
+            keys_out: bool = False):
+    """One select (`csrc/quantile.cu`) over the values of one or two CUDA
+    tensors of one dtype (float32 or bf16), each clamped first by
+    `clamp_mode` (None: as they are) -> the q-quantile as a one-element
+    tensor of `out_dtype` on their device, counted in `cut_threshold.launches`;
+    with `keys_out`, also the keys its first pass wrote (int64, as
+    `quantile_keys` gives them), for holding its clamp on the card."""
+    device = values[0].device
+    if device.type != 'cuda':
+        raise ValueError(f'cut_threshold runs on CUDA or CPU tensors, not {device}')
+    dtype = values[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(
+            v.dtype != dtype or v.device != device for v in values):
+        raise TypeError(f'cut_threshold takes float32 or bf16 tensors of one dtype on one '
+                        f'device, got {[(v.dtype, str(v.device)) for v in values]}')
+    if clamp_mode is not None and clamp_mode not in _CLAMP_MODES:
+        raise NotImplementedError(f'Unknown clamp mode: {clamp_mode}')
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f'q must be in [0, 1], got {q}')
+    values = [v.contiguous() for v in values]
+    sizes = [v.numel() for v in values]
+    n = sum(sizes)
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f'cut_threshold takes 1 to 2^31 - 1 values, got {n}')
+    low, high, low_weight, high_weight = _quantile_weights(n, q)
+    fn, scratch_bytes, error_string = _select_kernel()
+    scratch = torch.empty(scratch_bytes(n), dtype=torch.uint8, device=device)
+    out = torch.empty(1, dtype=out_dtype, device=device)
+    a, b = values[0], values[1] if len(values) > 1 else None
+    with torch.cuda.device(device):
+        err = fn(a.data_ptr(), sizes[0], 0 if b is None else b.data_ptr(),
+                 0 if b is None else sizes[1], int(dtype == torch.bfloat16),
+                 -1 if clamp_mode is None else _CLAMP_MODES[clamp_mode], float(sp_beta), low,
+                 high, float(low_weight), float(high_weight), out.data_ptr(),
+                 int(out_dtype == torch.bfloat16), scratch.data_ptr(),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'cut_threshold launch failed: {error_string(err).decode()}')
+    cut_threshold.launches += 1
+    if keys_out:
+        keys = scratch[scratch_bytes(0):].view(torch.int32).to(torch.int64) & 0xffffffff
+        return out, keys
+    return out
+
+
+def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """`jnp.quantile(x, q)` over all of x, as a one-element tensor of x's
+    dtype on x's device: on CUDA tensors (float32 or bf16) by the select
+    kernel (counted in `cut_threshold.launches`), on CPU tensors by the sort,
+    `quantile_plain`, which gives the same bits (a zero may differ in sign)."""
+    if x.device.type == 'cpu':
+        return quantile_plain(x, q)
+    return _select((x,), q, None, 1.0, x.dtype)
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -103,28 +244,34 @@ def clamp_densities(densities: torch.Tensor, clamp_mode: str = 'softplus',
     raise NotImplementedError(f'Unknown clamp mode: {clamp_mode}')
 
 
-def cut_below_quantile(clamped: torch.Tensor, q: float) -> torch.Tensor:
+def cut_below_quantile(clamped: torch.Tensor, q: float, quantile_fn=None) -> torch.Tensor:
     """Clamped densities below their q-quantile set to 0
-    (`tdgp/rendering/renderer.py:54 _apply_cut_quantile`); q <= 0 cuts nothing."""
+    (`tdgp/rendering/renderer.py:54 _apply_cut_quantile`); q <= 0 cuts nothing.
+    The threshold by `quantile_fn` (x, q): the sort, `quantile_plain`, unless
+    the caller passes `quantile`, which launches the select on CUDA tensors."""
     if q <= 0.0:
         return clamped
-    return torch.where(clamped < quantile(clamped, q), torch.zeros_like(clamped), clamped)
+    threshold = (quantile_fn or quantile_plain)(clamped, q)
+    return torch.where(clamped < threshold, torch.zeros_like(clamped), clamped)
 
 
 def classical_ray_march_plain(colors: torch.Tensor, densities: torch.Tensor,
                               depths: torch.Tensor, clamp_mode: str = 'softplus',
                               sp_beta: float = 1.0, use_inf_depth: bool = True,
-                              last_back: bool = False, cut_quantile: float = 0.0):
+                              last_back: bool = False, cut_quantile: float = 0.0,
+                              quantile_fn=None):
     """The classical marcher of `tdgp/rendering/renderer.py:62-105`, the
     densities below their `cut_quantile`-quantile over the whole tensor
-    zeroed after the clamp.
+    zeroed after the clamp (the threshold by `cut_below_quantile`, with
+    `quantile_fn`).
 
     colors [B,R,S,C], densities [B,R,S], depths [B,R,S]
     -> (rgb [B,R,C], depth [B,R], weights [B,R,S], final_transmittance [B,R]).
     """
     deltas = depths[..., 1:] - depths[..., :-1]
     deltas = torch.cat([deltas, torch.full_like(depths[..., :1], _last_delta(use_inf_depth))], -1)
-    densities = cut_below_quantile(clamp_densities(densities, clamp_mode, sp_beta), cut_quantile)
+    densities = cut_below_quantile(clamp_densities(densities, clamp_mode, sp_beta), cut_quantile,
+                                   quantile_fn)
     alphas = 1.0 - torch.exp(-deltas * densities)
     trans = torch.cumprod(1.0 - alphas + 1e-10, dim=-1)
     final_transmittance = trans[..., -1]
@@ -487,13 +634,36 @@ def ray_march_merged_bf16(depths1: torch.Tensor, colors1: torch.Tensor, densitie
     return out
 
 
+def cut_threshold_keys(densities1: torch.Tensor, densities2: torch.Tensor,
+                       clamp_mode: str = 'softplus', sp_beta: float = 1.0) -> torch.Tensor:
+    """The keys of the clamped densities that the select's first pass writes
+    on the card (int64, both sets in order; `key_values` turns them back
+    into the clamped values): the clamp inside the kernel, to be held
+    against `clamp_densities`."""
+    return _select((densities1, densities2), 0.5, clamp_mode, sp_beta, torch.float32,
+                   keys_out=True)[1]
+
+
+def cut_threshold_plain(densities1: torch.Tensor, densities2: torch.Tensor,
+                        cut_quantile: float, clamp_mode: str = 'softplus',
+                        sp_beta: float = 1.0) -> torch.Tensor:
+    """`cut_threshold` by a sort: both sets clamped (bf16 widened first),
+    concatenated and taken by `quantile_plain`."""
+    return quantile_plain(torch.cat([clamp_densities(widen(x), clamp_mode, sp_beta).reshape(-1)
+                                     for x in (densities1, densities2)]), cut_quantile)
+
+
 def cut_threshold(densities1: torch.Tensor, densities2: torch.Tensor, cut_quantile: float,
                   clamp_mode: str = 'softplus', sp_beta: float = 1.0) -> torch.Tensor:
     """The `cut_quantile`-quantile of the clamped densities of both sample
-    sets together (one-element tensor on their device): the threshold of
-    the merged march, which a quantile takes in any order."""
-    return quantile(torch.cat([clamp_densities(widen(x), clamp_mode, sp_beta).reshape(-1)
-                               for x in (densities1, densities2)]), cut_quantile)
+    sets together (one-element float32 tensor on their device): the
+    threshold of the merged march, which a quantile takes in any order. On
+    CUDA tensors one select (`csrc/quantile.cu`) reads the raw densities
+    (float32 or bf16) and clamps them as the march does, without a
+    concatenation or a clamped copy; `cut_threshold_plain` on CPU tensors."""
+    if densities1.device.type == 'cpu':
+        return cut_threshold_plain(densities1, densities2, cut_quantile, clamp_mode, sp_beta)
+    return _select((densities1, densities2), cut_quantile, clamp_mode, sp_beta, torch.float32)
 
 
 def ray_march_merged_cut_plain(depths1, colors1, densities1, depths2, colors2, densities2,
@@ -565,3 +735,4 @@ ray_march_merged.launches = 0
 ray_march_merged_cut.launches = 0
 ray_march_merged_bf16.launches = 0
 ray_march_merged_cut_bf16.launches = 0
+cut_threshold.launches = 0

@@ -25,8 +25,9 @@ with `torch.bfloat16`), each product summed in float32 and rounded once to
 bf16, the bias add, the leaky ReLU and its sqrt(2) gain each rounded to
 bf16 as K5's bf16 instantiation rounds them, then the second product
 rounded, its bias added and rounded: `triplane_mlp_plain_bf16`. The kernel
-runs the first product on the tensor cores in bf16 (`csrc/triplane_mlp.cu`);
-its launches count in `triplane_mlp_bf16.launches`.
+runs both products on the tensor cores in bf16 and the rounding chain in
+bf16 pairs (`csrc/triplane_mlp.cu`); its launches count in
+`triplane_mlp_bf16.launches`.
 """
 from __future__ import annotations
 

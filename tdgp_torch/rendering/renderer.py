@@ -7,7 +7,9 @@ samples come from the deterministic inverse CDF (`det=True`). In training
 samples come from a stratified random u, and Gaussian noise of the given
 std is added to the densities, all drawn from `draws`. The coarse pass
 needs every per-sample weight for the importance sampler and marches in
-plain PyTorch without gradients (the JAX package stops them there); the
+plain PyTorch without gradients (the JAX package stops them there; with a
+quantile cut its threshold comes from `quantile`, the select kernel on the
+card, handed to the plain march); the
 final pass needs only the per-ray sums and goes through kernel K3
 (`tdgp_torch/ops/ray_march.py`, `march_merged`): where autograd does not
 record, the merge of the coarse and fine samples and the march are one
@@ -30,7 +32,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from tdgp_torch.ops.ray_march import (classical_ray_march_plain, ray_march_merged,
+from tdgp_torch.ops.ray_march import (classical_ray_march_plain, quantile, ray_march_merged,
                                       ray_march_merged_cut, ray_march_reduced,
                                       unify_samples_sorted)
 from tdgp_torch.utils.draws import Draws
@@ -64,7 +66,7 @@ def classical_ray_march(colors: torch.Tensor, densities: torch.Tensor, depths: t
     """-> (rgb [B,R,C], depth [B,R], weights [B,R,S], final_transmittance [B,R])."""
     return classical_ray_march_plain(colors, densities, depths, opts.clamp_mode,
                                      opts.sp_beta, opts.use_inf_depth, opts.last_back,
-                                     opts.cut_quantile)
+                                     opts.cut_quantile, quantile)
 
 
 def _check_march_impl(opts: RenderOptions, device: torch.device) -> None:
