@@ -67,9 +67,13 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   depth adaptor's parameters alone (DEPTH_ADAPTOR), whose
                   gradients the step itself does not fix to 1e-3, may instead
                   reach 2x their float32 floor, capped at RAISED_LIMIT_CAP:
-                  the floor is the difference the plain path shows when the
-                  rendered patch is changed by one float32 ulp
-                  (x (1 + 2^-24 n), n ~ N(0, 1)), measured in the same run.
+                  the floor is the difference the plain path shows when K3's
+                  outputs, the rendered patch and the depth, are changed by one
+                  float32 ulp (x (1 + 2^-24 n), n ~ N(0, 1)), measured in the
+                  same run.
+                  With bf16 blocks the floor is also at least K3's own float32
+                  spread: the plain path with K3's plain version summed in
+                  float64 and rounded once.
                   cuDNN runs its deterministic algorithms here, and the
                   StyleGAN2 noise is off: the gradient of a noise strength is
                   a sum of ~1e8 terms of random sign, which any other float32
@@ -244,6 +248,33 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   metrics phase (10) renders one nfs256 batch under render_bf16 (K3's cut
                   entry with bf16 loads vs plain). The inference phase (7) holds the
                   density grid at the flagship's own precision too (`density_grid_own_precision`).
+ 13. settings:    the settings the JAX package trains and earlier slices refused
+                  (`settings_*_phase`, after 10, on the loop's folder). The satellite
+                  step with SETTINGS (loss.r1_remat, G's grad_clip at SETTINGS_CLIP,
+                  D's camera_cond, the Fourier camera encoding, discrete_uniform
+                  patches of four scales, two of them masked, hybrid origin angles with
+                  the force-mean regularizer off): the train check (5) with the
+                  preset's bf16 blocks and at the float32 cut; SETTINGS_STEPS
+                  steps at batch 16 at its own precision, the last with R1: each
+                  step's clip factor (one at least below 1), losses finite, K1 2,
+                  K3 and its backward 1 per step, K5 once per bias_act
+                  call that autograd does not record, no other launch; one R1 step
+                  with and without r1_remat from the same weights, batch and draws,
+                  cuDNN deterministic: R1's gradients within GRAD_LIMIT (relative L2
+                  per parameter) and the peak memory of each R1 phase. Then the
+                  flagship's width (256^2, tri-planes 3 x 512^2 x 32, batch 4) with
+                  random weights from a seed at the float32 cut: a 3-layer MLP (as its
+                  layers; K3 merged 4 per request, K4 0) and the mip marcher (marched
+                  in PyTorch: K3 0; K4 8, the MipNeRF clamp after it), each through the
+                  kernels vs plain (<= 1e-4, cuDNN deterministic) and card vs CPU at
+                  64^2 (<= 1e-3). Then one tick of four steps of `scripts.train
+                  --preset synth256` with 'custom' origin angles from the folder
+                  (training.learn_camera_dist=false): the angles reach every step.
+                  The train check's one-ulp floor (5, 13) is, per parameter, the
+                  largest over the perturbations FLOOR_SEEDS, each of the rendered
+                  patch and of K3's depth where it enters the depth adaptor; the
+                  distance is also printed against the limits of the first seed's
+                  perturbation of the patch alone.
 Serving (2) also counts K4 (8 per request) and K5 launches per request, by dtype.
 K5's launches are counted by dtype everywhere: 'bias_act' (float32) and
 'bias_act_bf16' (bfloat16), each held to the `bias_act` calls of that dtype.
@@ -276,6 +307,7 @@ RAISED_LIMIT_CAP = 4e-3     # ... up to 2x their one-ulp floor, and never above 
 K5_NAMES = {torch.float32: 'bias_act', torch.bfloat16: 'bias_act_bf16'}  # K5's launches by dtype
 CROSS_BF16_OF_FLOOR = 0.6   # card vs CPU at bf16: relative L2 over the bf16 floor
 BF16_FLOOR_FACTOR = 3       # the train check with bf16 blocks: limit = this x the one-ulp floor
+FLOOR_SEEDS = (9, 10, 11, 12)  # the train check's one-ulp floor: the max over these perturbations
 
 
 @contextlib.contextmanager
@@ -833,26 +865,45 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
     versions, at full width and batch 4, with the config `overrides`: at
     float32 held to GRAD_LIMIT (the depth adaptor: see the module's
     docstring); with bf16 blocks every parameter to max(GRAD_LIMIT,
-    BF16_FLOOR_FACTOR x its one-ulp floor), since a float32 ulp of the
-    rendered patch can flip a bf16 rounding in the decoder's backward.
-    Through the gmain_render_bf16 view the floor is the larger of that and
-    K3's own float32 spread (its plain version summed exactly, in float64:
-    K3's sums in another order reach the bf16 MLP's backward and flip its
-    roundings, which the coordinate gradient then spreads), and K1's bf16
-    entry alone is held to the one-ulp floor."""
+    BF16_FLOOR_FACTOR x its floor), since a float32 ulp of the rendered
+    patch can flip a bf16 rounding in D's and the decoder's backward. With
+    bf16 blocks the floor is the larger of the one-ulp floor and K3's own
+    float32 spread (its plain version summed exactly, in float64): K3's
+    sums in another order move its outputs by more than an ulp, which
+    reach D's bf16 blocks through the patch and the depth adaptor and,
+    through the gmain_render_bf16 view, the bf16 MLP's backward, whose
+    flipped roundings the coordinate gradient then spreads. Through the
+    view K1's bf16 entry alone is held to the one-ulp floor. K1 and K3
+    alone against plain are printed. The one-ulp floor of each
+    parameter is the largest of FLOOR_SEEDS' perturbations of both of K3's
+    outputs that G reads: the rendered patch and the depth that enters the
+    depth adaptor (a single perturbation is one sample of a heavy-tailed
+    statistic, and a perturbation of the patch reaches the depth adaptor
+    only after it). The distance is also set against the limits of the
+    single perturbation of the patch alone (seed FLOOR_SEEDS[0]; through
+    the view with K3's spread, as before), printed. Returns the distances,
+    both floors' medians and maxima, and K3's spread."""
+    from tdgp_torch.models import epigraf
     from tdgp_torch.training import losses
-    g_forward = losses.g_forward
+    g_forward, importance_render = losses.g_forward, epigraf.importance_render
 
-    def one_ulp(*args, **kwargs):  # the rendered patch, changed by about one ulp
-        out, pp = g_forward(*args, **kwargs)
-        g = torch.Generator(device=device).manual_seed(9)
-        img = out.img * (1 + 2.0 ** -24 * torch.randn(out.img.shape, device=device, generator=g))
-        return type(out)(img=img, depth=out.depth), pp
+    def ulp(t, seed):  # t changed by about one float32 ulp: x (1 + 2^-24 n), n ~ N(0, 1)
+        g = torch.Generator(device=device).manual_seed(seed)
+        return t * (1 + 2.0 ** -24 * torch.randn(t.shape, device=device, generator=g))
+
+    def one_ulp(seed, depth):  # -> the forward and the render, perturbed
+        def render(*args, **kwargs):
+            out, pp = g_forward(*args, **kwargs)
+            return type(out)(img=ulp(out.img, seed), depth=out.depth, angles=out.angles), pp
+
+        def march(*args, **kwargs):
+            rgb, d, *rest = importance_render(*args, **kwargs)
+            return (rgb, ulp(d, seed + 1000), *rest)
+        return render, march if depth else importance_render
 
     bf16 = not train_config(overrides).generator.fp32_only
-    label = 'bf16 blocks' if bf16 else 'float32'
-
     view = train_config(overrides).training.gmain_render_bf16
+    label = ('bf16 blocks' if bf16 else 'float32') + (', the render_bf16 view' if view else '')
     from tdgp_torch.ops import ray_march
     k3_plain_fns = ray_march.ray_march_reduced_plain, ray_march.ray_march_reduced_bwd_plain
 
@@ -862,10 +913,12 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
             return tuple(t.float() for t in fn(*args, **kwargs))
         return run
 
-    def gmain_grads(k1_plain, k3_plain, perturb=False, k3_exact=False):
+    def gmain_grads(k1_plain, k3_plain, perturb=None, k3_exact=False):
+        """`perturb`: None or (seed, whether the depth too)."""
         cfg = train_config(list(overrides) + ['generator.use_noise=false'])
         trainer = Trainer(cfg, device, seed=0)
-        losses.g_forward = one_ulp if perturb else g_forward
+        if perturb is not None:
+            losses.g_forward, epigraf.importance_render = one_ulp(*perturb)
         if k3_exact:
             (ray_march.ray_march_reduced_plain,
              ray_march.ray_march_reduced_bwd_plain) = map(in_float64, k3_plain_fns)
@@ -875,7 +928,7 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
                                      Draws(torch.Generator(device=device).manual_seed(3)),
                                      return_grads=True)
         finally:
-            losses.g_forward = g_forward
+            losses.g_forward, epigraf.importance_render = g_forward, importance_render
             ray_march.ray_march_reduced_plain, ray_march.ray_march_reduced_bwd_plain = k3_plain_fns
         return stats['_grads']['g']
 
@@ -887,46 +940,70 @@ def train_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides
     try:
         ref = gmain_grads(True, True)
         rel = rel_l2(gmain_grads(False, False), ref)
-        floor = rel_l2(gmain_grads(True, True, perturb=True), ref)
-        if view:
+        floor_single = rel_l2(gmain_grads(True, True, perturb=(FLOOR_SEEDS[0], False)), ref)
+        floors = [rel_l2(gmain_grads(True, True, perturb=(seed, True)), ref)
+                  for seed in FLOOR_SEEDS]
+        floor = {n: max(f[n] for f in floors) for n in ref}
+        k1_alone = rel_l2(gmain_grads(False, True), ref)
+        k3_alone = rel_l2(gmain_grads(True, False), ref)
+        if bf16:
             # K3's own float32 spread: its plain version exact (float64, rounded once)
             floor_k3 = rel_l2(gmain_grads(True, True, k3_exact=True), ref)
-            k1_alone = rel_l2(gmain_grads(False, True), ref)
-            for what, r in (('K1 alone', k1_alone), ('K3 alone', rel_l2(gmain_grads(True, False), ref)),
+            for what, r in (('K1 alone', k1_alone), ('K3 alone', k3_alone),
                             ("K3's plain version exact", floor_k3)):
                 worst = max(r, key=r.get)
-                print(f'Gmain gradient through the render_bf16 view, {what} vs plain: median '
+                print(f'Gmain gradient ({label}), {what} vs plain: median '
                       f'{float(np.median(list(r.values()))):.3g}, max {r[worst]:.3g} ({worst})')
-            check(all(k1_alone[n] <= max(GRAD_LIMIT, BF16_FLOOR_FACTOR * floor[n])
-                      for n in k1_alone),
-                  'the Gmain gradient through K1 bf16 alone disagrees with the plain path')
+            if view:
+                check(all(k1_alone[n] <= max(GRAD_LIMIT, BF16_FLOOR_FACTOR * floor[n])
+                          for n in k1_alone),
+                      'the Gmain gradient through K1 bf16 alone disagrees with the plain path')
+                floor_single = {n: max(floor_single[n], floor_k3[n]) for n in floor}
             floor = {n: max(floor[n], floor_k3[n]) for n in floor}
-        if not bf16:
-            k1_alone = rel_l2(gmain_grads(False, True), ref)
-            k3_alone = rel_l2(gmain_grads(True, False), ref)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    if bf16:
-        limit = {n: max(GRAD_LIMIT, BF16_FLOOR_FACTOR * floor[n]) for n in rel}
-    else:
+    def limits(fl):
+        if bf16:
+            return {n: max(GRAD_LIMIT, BF16_FLOOR_FACTOR * fl[n]) for n in rel}
+        return {n: min(RAISED_LIMIT_CAP, max(GRAD_LIMIT, 2 * fl[n]))
+                if n.startswith(DEPTH_ADAPTOR) else GRAD_LIMIT for n in rel}
+
+    if not bf16:
         for what, r in (('K1 alone', k1_alone), ('K3 alone', k3_alone)):
             worst = max(r, key=r.get)
             print(f'Gmain gradient, {what} vs plain: median relative L2 difference '
                   f'{float(np.median(list(r.values()))):.3g}, max {r[worst]:.3g} ({worst})')
         check(max(k1_alone.values()) <= GRAD_LIMIT,
               'the Gmain gradient through K1 alone disagrees with the plain path')
-        limit = {n: min(RAISED_LIMIT_CAP, max(GRAD_LIMIT, 2 * floor[n]))
-                 if n.startswith(DEPTH_ADAPTOR) else GRAD_LIMIT for n in rel}
+    limit, limit_single = limits(floor), limits(floor_single)
+    worst_single = max(rel, key=lambda n: rel[n] / limit_single[n])
+    print(f'Gmain gradient ({label}), one-ulp floor: the single perturbation of the patch '
+          f'(seed {FLOOR_SEEDS[0]}) median {float(np.median(list(floor_single.values()))):.3g}, '
+          f'max {max(floor_single.values()):.3g}; the per-parameter max over {len(FLOOR_SEEDS)} '
+          f'perturbations of the patch and the depth (seeds {list(FLOOR_SEEDS)}) median '
+          f'{float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g}; '
+          f'kernels vs plain against the single floor\'s limits: worst {rel[worst_single]:.3g} '
+          f'({worst_single}; limit {limit_single[worst_single]:.3g}), '
+          f'{"within" if all(rel[n] <= limit_single[n] for n in rel) else "beyond"} them')
     name = max(rel, key=lambda n: rel[n] / limit[n])
     over = {n: f'{rel[n]:.3g} (limit {limit[n]:.3g}, floor {floor[n]:.3g})'
             for n in sorted(rel) if rel[n] > GRAD_LIMIT}
     print(f'Gmain gradient ({label}), kernels vs plain versions: {len(rel)} parameters, median '
           f'relative L2 difference {float(np.median(list(rel.values()))):.3g}, worst against its '
-          f'limit {rel[name]:.3g} ({name}; limit {limit[name]:.3g}); one-ulp floor of the step: '
+          f'limit {rel[name]:.3g} ({name}; limit {limit[name]:.3g}); floor of the step: '
           f'median {float(np.median(list(floor.values()))):.3g}, max {max(floor.values()):.3g} '
           f'({max(floor, key=floor.get)}); above {GRAD_LIMIT:g}: {over}')
     check(all(rel[n] <= limit[n] for n in rel),
           f'the Gmain gradient ({label}) through the kernels disagrees with the plain path')
+    worst_single_limit = max(rel[n] / limit_single[n] for n in rel)
+    return dict(median=float(np.median(list(rel.values()))), worst=rel[name], worst_param=name,
+                worst_of_limit=rel[name] / limit[name], worst_of_single_limit=worst_single_limit,
+                floor_single_median=float(np.median(list(floor_single.values()))),
+                floor_single_max=max(floor_single.values()),
+                floor_median=float(np.median(list(floor.values()))),
+                floor_max=max(floor.values()),
+                k3_spread_max=max(floor_k3.values()) if bf16 else None,
+                within_single=all(rel[n] <= limit_single[n] for n in rel))
 
 
 FRESH = ['training.dmain_reuse_fakes=false']  # Dmain renders fresh fakes, without gradients
@@ -2034,6 +2111,229 @@ def loop_phase(tmp_dir, counters, train_images_per_s):
     return launches, readings
 
 
+# the settings phase: the satellite step with the settings the JAX package trains and earlier
+# slices of the port refused; hybrid cameras need the force-mean regularizer off (the JAX
+# package's mean helper has no value for 'hybrid'), and the patch anneal is cut so that the
+# support's smaller scales are masked and two remain
+SETTINGS_CLIP = 1e-3  # G's gradient clip: below G's gradient norm at this width, so it clips
+SETTINGS = ['loss.r1_remat=true', f'training.g_optim.grad_clip={SETTINGS_CLIP}',
+            'discriminator.camera_cond=true', 'generator.camera_cond=true',
+            'generator.camera_cond_raw=false', 'generator.patch.distribution=discrete_uniform',
+            'generator.patch.discrete_support=[0.25,0.5,0.75,1.0]',
+            'generator.patch.anneal_kimg=1000', 'camera.origin.angles.dist=hybrid',
+            'camera.origin.angles.yaw.mean=0.0', 'camera.origin.angles.yaw.std=0.3',
+            'camera.origin.angles.pitch.mean=1.5707963', 'camera.origin.angles.pitch.std=0.15',
+            'generator.camera_adaptor.force_mean_weight=0.0']
+SETTINGS_STEPS = 3  # the settings' satellite steps: two plain, then one with R1
+# the flagship-width renders of the settings phase, random weights, the float32 cut
+SETTINGS_RENDERS = {'three_layers': ['generator.tri_plane.mlp.n_layers=3'],
+                    'mip': ['generator.ray_marcher_type=mip']}
+
+
+def settings_train_phase(Trainer, Draws, sched, train_config, make_batch, counters, card,
+                         device='cuda'):
+    """The satellite step with SETTINGS (r1_remat, G's clip, D's camera_cond, the
+    Fourier camera encoding, discrete_uniform patches, hybrid cameras): the train
+    check's Gmain gradient through the kernels vs plain at batch 4, with the
+    preset's bf16 blocks and at the float32 cut; at its own precision
+    SETTINGS_STEPS steps at batch 16, the last
+    with R1, each step's clip factor, losses finite, launches of K1 (2 per step),
+    K3 and its backward (1 per step), K5 (the bias_act calls autograd does not
+    record) and no other; then one R1 step with and without r1_remat from the same
+    weights, batch and draws, cuDNN deterministic: R1's gradients per parameter
+    (relative L2) and the peak memory of the R1 phase of each."""
+    from tdgp_torch.profile_training import FP32
+    cfg = train_config(SETTINGS)
+    check_readings = {label: train_check_phase(Trainer, Draws, sched, train_config, make_batch,
+                                               overrides, device)
+                      for label, overrides in (('bf16', SETTINGS), ('float32', SETTINGS + FP32))}
+    trainer = Trainer(cfg, device, seed=0)
+    batch = make_batch(cfg, 16, 0, device)
+    draws = Draws(torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    step_ms, factors, history = [], [], []
+    with BiasActCalls() as bias_calls:
+        for i in range(SETTINGS_STEPS):
+            t0 = time.perf_counter()
+            stats = trainer.step(batch, sched, i == SETTINGS_STEPS - 1, draws)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            factors.append([float(f) for f in stats.pop('_g_clip')])
+            history.append(stats)
+    launches = launch_counts(counters)
+    check('Loss/D/r1_penalty' in history[-1], 'the last settings step ran no R1')
+    check(all(np.isfinite(float(v)) for st in history for v in st.values()),
+          'non-finite losses in the settings steps')
+    check(any(f < 1.0 for fs in factors for f in fs), f'the clip never acted: {factors}')
+    expected = {**{k: 0 for k in launches},
+                'triplane_splat': 2 * SETTINGS_STEPS, 'ray_march_reduced': SETTINGS_STEPS,
+                'ray_march_reduced_bwd': SETTINGS_STEPS,
+                **{n: bias_calls.unrecorded[n] for n in K5_NAMES.values()}}
+    print(f'settings steps ({card}): ms {[round(t, 1) for t in step_ms]} (the first the warm-up, '
+          f'the last with R1); G clip factor per step {factors}; launches {launches} (expected '
+          f'{expected})')
+    check(launches == expected, 'kernel launch counts of the settings steps')
+
+    def r1_step(remat):
+        c = train_config(SETTINGS + [f'loss.r1_remat={str(remat).lower()}'])
+        tr = Trainer(c, device, seed=0)
+        r1, inner = {}, tr._r1
+
+        def measured(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            r1.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                      added_gib=(torch.cuda.max_memory_allocated() - start) / 2 ** 30)
+
+        tr._r1 = measured
+        stats = tr.step(make_batch(c, 16, 0, device), sched, True,
+                        Draws(torch.Generator(device=device).manual_seed(1)), return_grads=True)
+        del tr._r1  # the closure holds the trainer: free both before the next one
+        return stats['_grads']['r1'], r1
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        del trainer
+        grads_remat, mem_remat = r1_step(True)
+        torch.cuda.empty_cache()
+        grads_plain, mem_plain = r1_step(False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = {n: float((grads_remat[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in grads_plain.items()}
+    worst = max(rel, key=rel.get)
+    median = float(np.median(list(rel.values())))
+    print(f'R1 with and without loss.r1_remat ({card}), cuDNN deterministic: R1 gradient '
+          f'relative L2 max {rel[worst]:.3g} ({worst}), median {median:.3g}; '
+          f'R1 phase peak memory {mem_remat["peak_gib"]:.2f} GiB with remat '
+          f'(+{mem_remat["added_gib"]:.2f} over its start), {mem_plain["peak_gib"]:.2f} GiB '
+          f'without (+{mem_plain["added_gib"]:.2f})')
+    check(rel[worst] <= GRAD_LIMIT, 'R1 with r1_remat disagrees with R1 without it')
+    return launches, dict(check=check_readings, step_ms=step_ms, clip_factors=factors,
+                          r1_remat_rel_max=rel[worst], r1_memory_remat=mem_remat,
+                          r1_memory_plain=mem_plain)
+
+
+def settings_render_phase(counters, card, device='cuda'):
+    """The flagship's width (256^2, tri-planes 3 x 512^2 x 32) with random weights
+    from a seed at the float32 cut, served at batch 4 for each of SETTINGS_RENDERS:
+    a 3-layer MLP (as its layers: K3 merged 4 per request, K4 never) and the mip
+    marcher (marched in PyTorch: K3 never; the 2-layer MLP in K4, 8 per request,
+    the MipNeRF clamp after it); K5 once per bias_act call. Each image through the
+    kernels against their plain versions (cuDNN deterministic, <= 1e-4 max abs)
+    and the card against the CPU at a 64^2 output (<= 1e-3)."""
+    import copy
+    from tdgp_torch.config import load_config
+    from tdgp_torch.models.epigraf import Generator
+    from tdgp_torch.models.layers import init_weights
+    from tdgp_torch.profile_serving import FP32, OVERRIDES, PSI, RUN_DIR, request
+    from tdgp_torch.serving import make_serving_fn
+    readings, launches = {}, {}
+    for label, overrides in SETTINGS_RENDERS.items():
+        cfg = load_config(os.path.join(RUN_DIR, 'experiment_config.yaml'),
+                          OVERRIDES + FP32 + overrides)
+        G_cpu = init_weights(Generator(cfg.generator), torch.Generator().manual_seed(0)).eval()
+        G = copy.deepcopy(G_cpu).to(device).eval()
+        gc = G.cfg
+        chunks = gc.img_resolution ** 2 // gc.max_batch_res ** 2
+        req = request(0, gc, device)
+        serve = make_serving_fn(G, truncation_psi=PSI)
+        serve(*req)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        with BiasActCalls() as calls:
+            t0 = time.perf_counter()
+            serve(*req)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        got = launch_counts(counters)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            img = serve(*req)
+            with plain_versions(k1=False, k3=True, k4=True, k5=True):
+                plain = serve(*req)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        mip, layers = gc.ray_marcher_type == 'mip', gc.tri_plane.mlp.n_layers
+        expected = {**{k: 0 for k in got}, 'ray_march_merged': 0 if mip else chunks,
+                    'triplane_mlp': 2 * chunks if layers == 2 else 0,
+                    **{n: calls.count[n] for n in K5_NAMES.values()}}
+        print(f'settings render {label} ({card}): {ms:.1f} ms per request of 4 at 256^2; '
+              f'launches {got} (expected {expected})')
+        check(got == expected, f'kernel launch counts of the {label} render')
+        check(img.shape == (4, 256, 256, 3) and bool(torch.isfinite(img).all())
+              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+              f'the {label} render: shape {tuple(img.shape)}, values outside [0, 1]')
+        diff = float((img - plain).abs().max())
+        card_img = make_serving_fn(G, truncation_psi=PSI, resolution=64)(*req).cpu()
+        cpu_img = make_serving_fn(G_cpu, truncation_psi=PSI, resolution=64)(
+            *[t.cpu() for t in req])
+        cpu_diff = float((card_img - cpu_img).abs().max())
+        print(f'settings render {label}: kernels vs plain max abs image diff {diff:.3g}; card vs '
+              f'CPU at 64x64 {cpu_diff:.3g}')
+        check(diff <= 1e-4, f'the {label} render through the kernels disagrees with plain')
+        check(cpu_diff <= 1e-3, f'the {label} render on the card disagrees with the CPU')
+        readings[label] = dict(ms=ms, kernels_vs_plain=diff, card_vs_cpu=cpu_diff)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        del G, G_cpu
+    return launches, readings
+
+
+def settings_loop_phase(tmp_dir, counters, card):
+    """One tick of four steps of `scripts.train --preset synth256` on the loop's
+    folder with `camera.origin.angles.dist=custom`: every G batch takes the
+    angles of random dataset items (`training.learn_camera_dist=false`: the camera
+    regularizers draw prior cameras, which 'custom' has not, in the JAX package
+    too). Checks the angles reached the step and are the folder's (their pitch: the
+    loader mirrors the yaw of flipped items), the losses are finite, and K1 2, K3
+    and its backward 1 per step."""
+    import importlib.util
+    from tdgp_torch.scripts import train as train_script
+    from tdgp_torch.training import train_step
+    data_dir = os.path.join(tmp_dir, 'data')
+    with open(os.path.join(data_dir, 'dataset.json')) as f:
+        pitches = {np.float32(a[1]) for _, a in json.load(f)['camera_angles']}
+    tensorboard = importlib.util.find_spec('tensorboard') is not None
+    seen, step = [], train_step.Trainer.step
+
+    def recorded(self, batch, *args, **kwargs):
+        seen.append(batch['gen_camera_angles_g'].cpu().numpy())
+        return step(self, batch, *args, **kwargs)
+
+    steps = 4
+    train_step.Trainer.step = recorded
+    reset_counts(counters)
+    try:
+        t0 = time.perf_counter()
+        result = train_script.main(
+            ['--preset', LOOP_PRESET, '--run-root', os.path.join(tmp_dir, 'custom'),
+             '--max-kimg', str(16 * steps / 1e3), f'dataset.path={data_dir}',
+             f'training.tick_kimg={16 * steps / 1e3}', 'camera.origin.angles.dist=custom',
+             'training.learn_camera_dist=false', 'training.metrics=[]', 'training.snap=100',
+             'training.image_snap=100', f'training.tensorboard={str(tensorboard).lower()}'])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    finally:
+        train_step.Trainer.step = step
+    got = launch_counts(counters)
+    lines = read_jsonl(os.path.join(result.run_dir, 'stats.jsonl'))
+    print(f'custom angles, one tick of {steps} steps ({card}): {loop_s:.1f} s; launches {got}')
+    check(len(seen) == steps and all(np.float32(a[1]) in pitches for b in seen for a in b),
+          "the custom angles are not the folder's (the pitch: the yaw is mirrored with xflip)")
+    check(len(lines) == 1 and all(np.isfinite(v['mean']) for k, v in lines[0].items()
+                                  if k.startswith('Loss/')), 'the custom tick')
+    check(got['triplane_splat'] == 2 * steps and got['ray_march_reduced'] == steps
+          and got['ray_march_reduced_bwd'] == steps, 'kernel launch counts of the custom tick')
+    return got, dict(loop_s=loop_s)
+
+
 SG2_BATCH = 16  # the stylegan2 preset's batch 64, cut to 16 as the satellite step's
 
 
@@ -2903,7 +3203,8 @@ def main():
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    print(f'card: {smi.stdout.strip()}')
+    card = smi.stdout.strip()
+    print(f'card: {card}')
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}')
 
@@ -2958,9 +3259,11 @@ def main():
     cfg = profile_training.train_config()
     sched = compute_schedules(cfg, profile_training.CUR_NIMG)
     with phase('train check', seconds):
-        for overrides in (profile_training.FP32, (), GMAIN_BF16):
-            train_check_phase(Trainer, Draws, sched, profile_training.train_config,
-                              profile_training.make_batch, overrides)
+        train_checks = {label: train_check_phase(Trainer, Draws, sched,
+                                                 profile_training.train_config,
+                                                 profile_training.make_batch, overrides)
+                        for label, overrides in (('float32', profile_training.FP32),
+                                                 ('bf16', ()), ('gmain_render_bf16', GMAIN_BF16))}
         fresh_image_diff = {}
         for label, overrides in (('float32', profile_training.FP32), ('bf16', ()),
                                  ('dmain_fake_bf16', FAKE_BF16)):
@@ -3029,10 +3332,18 @@ def main():
                             triplane_mlp.triplane_mlp, triplane_mlp.triplane_mlp_bf16,
                             bias_act.bias_act],
                 os.path.join(tmp_dir, 'data'))
+        with phase('settings', seconds):
+            settings_launches, settings_train = settings_train_phase(
+                Trainer, Draws, sched, profile_training.train_config, profile_training.make_batch,
+                train_counters, card)
+            settings_render_launches, settings_render = settings_render_phase(served, card)
+            custom_launches, custom_loop = settings_loop_phase(
+                tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
+                          ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
+                          triplane_mlp.triplane_mlp, bias_act.bias_act], card)
     sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
                     ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                     triplane_mlp.triplane_mlp, bias_act.bias_act]
-    card = smi.stdout.strip()
     with phase('stylegan2', seconds), tempfile.TemporaryDirectory() as tmp_dir:
         sg2_config = functools.partial(profile_training.train_config, preset='stylegan2')
         sg2_sched = compute_schedules(sg2_config(), profile_training.CUR_NIMG)
@@ -3053,7 +3364,9 @@ def main():
                'train_float32': train_fp32_launches, 'train_fresh_fakes': train_fresh_launches,
                'train_gmain_render_bf16': train_gmain16_launches,
                'train_dmain_fake_bf16': train_fake16_launches,
-               'loop': loop_launches, 'stylegan2': sg2_launches,
+               'loop': loop_launches, 'settings_train': settings_launches,
+               'settings_render': settings_render_launches,
+               'settings_custom_loop': custom_launches, 'stylegan2': sg2_launches,
                'stylegan2_float32': sg2_fp32_launches, 'stylegan2_loop': sg2_loop_launches,
                'metrics': metrics_launches}
     k5['bound_ms_per_request'] = serve_fp32['k5_bound_ms']
@@ -3070,6 +3383,9 @@ def main():
     print(f'phases (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, '
           f'total {time.perf_counter() - t_start:.1f} s')
     print(f'loop: {json.dumps(loop_readings)}')
+    print(f'train check: {json.dumps({"card": card, **train_checks})}')
+    print(f'settings: ' + json.dumps({'card': card, 'train': settings_train,
+                                      'render': settings_render, 'custom_loop': custom_loop}))
     train_readings = {'reused_fakes': train_own, 'fresh_fakes': train_fresh,
                       'reused_fakes_float32': train_fp32, 'fresh_fake_image_diff': fresh_image_diff,
                       'gmain_render_bf16': train_gmain16, 'dmain_fake_bf16': train_fake16}

@@ -28,6 +28,7 @@ from torch import nn
 from tdgp_torch.config import DiscriminatorConfig
 from tdgp_torch.models.layers import Conv2dLayer, FullyConnected, MappingNetwork, ScalarEncoder1d
 from tdgp_torch.models.stylegan2 import fp16_resolution, sg2_channel_dict
+from tdgp_torch.utils.draws import Draws
 
 HYPER_DIM = 512  # width of the hypernetwork's output
 
@@ -120,8 +121,6 @@ class DiscriminatorEpilogue(nn.Module):
 class Discriminator(nn.Module):
     def __init__(self, cfg: DiscriminatorConfig):
         super().__init__()
-        if cfg.camera_cond:
-            raise NotImplementedError('discriminator.camera_cond is not ported')
         self.cfg = cfg
         img_resolution = cfg.input_resolution * 2 ** cfg.num_additional_start_blocks
         res_log2 = int(np.log2(img_resolution))
@@ -133,7 +132,7 @@ class Discriminator(nn.Module):
         if self.use_patch_cond:
             self.scalar_enc = ScalarEncoder1d(3, 1000.0, 256)
             cond_dim += self.scalar_enc.out_dim
-        cmap_dim = channels[4] if (cfg.c_dim > 0 or self.use_patch_cond) else 0
+        cmap_dim = channels[4] if (cfg.c_dim > 0 or self.use_patch_cond or cfg.camera_cond) else 0
         if cfg.hyper_mod:
             if not self.use_patch_cond:
                 raise ValueError('hyper_mod needs patch conditioning')
@@ -150,7 +149,9 @@ class Discriminator(nn.Module):
                 dtype=torch.bfloat16 if res >= bf16_from and not cfg.fp32_only else None))
         self.head_mapping = (MappingNetwork(z_dim=0, c_dim=cond_dim, w_dim=cmap_dim,
                                             num_ws=None, w_avg_beta=None,
-                                            num_layers=cfg.map_depth)
+                                            num_layers=cfg.map_depth,
+                                            camera_cond=cfg.camera_cond,
+                                            camera_cond_drop_p=cfg.camera_cond_drop_p)
                              if cmap_dim > 0 else None)
         self.b4 = DiscriminatorEpilogue(
             channels[4], cmap_dim=cmap_dim, mbstd_group_size=cfg.mbstd_group_size,
@@ -159,9 +160,15 @@ class Discriminator(nn.Module):
 
     def forward(self, img: torch.Tensor, c: Optional[torch.Tensor],
                 patch_params: Optional[Dict[str, torch.Tensor]] = None,
-                predict_feat: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """img [N, H, W, C_img] patches in [-1, 1] -> (logits [N], KD features or None)."""
+                predict_feat: bool = False, camera_angles: Optional[torch.Tensor] = None,
+                draws: Optional[Draws] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """img [N, H, W, C_img] patches in [-1, 1] -> (logits [N], KD features
+        or None); `camera_angles` [N, 3] with `camera_cond`."""
         cfg = self.cfg
+        if cfg.camera_cond and cfg.camera_cond_drop_p > 0 and draws is None:
+            raise ValueError("discriminator.camera_cond_drop_p needs the draw 'cond_drop', "
+                             'which the training step does not give D, as the JAX step '
+                             'gives it no dropout key')
         hyper_c = None
         if self.use_patch_cond:
             if patch_params is None:
@@ -174,6 +181,7 @@ class Discriminator(nn.Module):
         x = None
         for i, res in enumerate(self.block_resolutions):
             x = getattr(self, f'b{res}')(x, img if i == 0 else None, c=hyper_c)
-        cmap = self.head_mapping(None, c) if self.head_mapping is not None else None
+        cmap = (self.head_mapping(None, c, camera_angles=camera_angles, draws=draws)
+                if self.head_mapping is not None else None)
         logits, feats = self.b4(x, cmap, predict_feat=predict_feat)
         return logits[:, 0], feats

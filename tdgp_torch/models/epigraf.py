@@ -47,6 +47,7 @@ from tdgp_torch.models.camera_adaptor import CameraAdaptor
 from tdgp_torch.models.depth_adaptor import DepthAdaptor
 from tdgp_torch.models.layers import FullyConnected, MappingNetwork
 from tdgp_torch.models.stylegan2 import SynthesisBlocksSequence, sg2_num_ws
+from tdgp_torch.ops.bias_act import round_to
 from tdgp_torch.ops.splat import tri_plane_sample, triplane_sample, triplane_sample_pair
 from tdgp_torch.ops.triplane_mlp import fold_fully_connected, triplane_mlp
 from tdgp_torch.rendering.camera import compute_cam2world_matrix
@@ -84,11 +85,14 @@ def resolve_sample_impl(impl: str) -> str:
 class TriPlaneMLP(nn.Module):
     """Plane features [N, P, F] -> (rgb [N, P, out_dim], sigma [N, P]).
 
-    Where autograd records the call (training), it runs as its
-    `FullyConnected` layers. Otherwise (serving, inference, geometry) the
-    2-layer MLP runs in kernel K4 (`ops/triplane_mlp.py`) on the card, and
-    in K4's plain version on the CPU; on the card another `n_layers` is
-    refused, and on the CPU it runs as its layers.
+    Where autograd records the call (training), and for any `n_layers` but
+    2, it runs as its `FullyConnected` layers, as the JAX package does at
+    every depth: on the card their products in cuBLAS and, where autograd
+    does not record, each bias + activation in K5. Otherwise (serving,
+    inference, geometry) the 2-layer MLP runs in kernel K4
+    (`ops/triplane_mlp.py`) on the card, and in K4's plain version on the
+    CPU. Under the mip marcher the colour is the MipNeRF clamp of the last
+    layer's, sigmoid(x) x (1 + 2e-3) - 1e-3 (`tdgp/models/epigraf.py:125`).
     """
 
     def __init__(self, cfg: GeneratorConfig, out_dim: int):
@@ -96,8 +100,9 @@ class TriPlaneMLP(nn.Module):
         mlp = cfg.tri_plane.mlp
         if mlp.n_layers < 2:
             raise ValueError('the tri-plane MLP needs >= 2 layers')
-        if cfg.ray_marcher_type != 'classical':
-            raise NotImplementedError(f'ray marcher {cfg.ray_marcher_type!r} is not ported')
+        if cfg.ray_marcher_type not in ('classical', 'mip'):
+            raise NotImplementedError(cfg.ray_marcher_type)
+        self.mip = cfg.ray_marcher_type == 'mip'
         dims = [cfg.tri_plane.feat_dim] + [mlp.hid_dim] * (mlp.n_layers - 1) + [out_dim + 1]
         self.n_layers = mlp.n_layers
         for i in range(mlp.n_layers):
@@ -109,17 +114,18 @@ class TriPlaneMLP(nn.Module):
         bf16 entry compute in bf16, as the JAX layers do on bf16 input)."""
         records = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        if records or (x.device.type == 'cpu' and self.n_layers != 2):
+        if records or self.n_layers != 2:
             for i in range(self.n_layers):
                 x = getattr(self, f'fc{i}')(x)
-            return x[..., :-1], x[..., -1]
-        if self.n_layers != 2:
-            raise NotImplementedError(f'kernel K4 runs the 2-layer tri-plane MLP; n_layers '
-                                      f'{self.n_layers} runs only where gradients are recorded '
-                                      f'or on the CPU')
-        dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-        return triplane_mlp(x, *fold_fully_connected(self.fc0, dtype),
-                            *fold_fully_connected(self.fc1, dtype))
+            rgb, sigma = x[..., :-1], x[..., -1]
+        else:
+            dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+            rgb, sigma = triplane_mlp(x, *fold_fully_connected(self.fc0, dtype),
+                                      *fold_fully_connected(self.fc1, dtype))
+        if self.mip:  # the constants weakly typed, in rgb's dtype
+            rgb = torch.sigmoid(rgb) * round_to(1 + 2 * 0.001, rgb.dtype) \
+                - round_to(0.001, rgb.dtype)
+        return rgb, sigma
 
 
 class SynthesisNetwork(nn.Module):
@@ -127,8 +133,6 @@ class SynthesisNetwork(nn.Module):
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
-        if cfg.architecture != 'skip':
-            raise NotImplementedError(f'architecture {cfg.architecture!r} is not ported')
         self.cfg = cfg
         self.sample_impl = resolve_sample_impl(cfg.plane_sample_impl)
         self.num_ws = sg2_num_ws(0, cfg.tri_plane.res)
@@ -151,7 +155,8 @@ class SynthesisNetwork(nn.Module):
             ray_start=c.camera.ray.start, ray_end=c.camera.ray.end,
             clamp_mode=c.clamp_mode, use_inf_depth=c.use_inf_depth,
             last_back=c.last_back, cut_quantile=cut_quantile,
-            march_impl=resolve_march_impl(c.ray_march_impl))
+            ray_marcher_type=c.ray_marcher_type, white_back=c.white_back,
+            density_bias=c.density_bias, march_impl=resolve_march_impl(c.ray_march_impl))
 
     def decode_planes(self, ws: torch.Tensor,
                       noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None) -> torch.Tensor:

@@ -132,11 +132,13 @@ class ScalarEncoder1d(nn.Module):
 class MappingNetwork(nn.Module):
     """z, c and camera angles -> w, or ws [N, num_ws, w_dim] when num_ws is set.
 
-    Camera conditioning takes yaw and pitch wrapped into [-1, 1] as raw
-    scalars (`camera_cond_raw`), dropped out with probability
-    `camera_cond_drop_p` in training. `w_avg` is the EMA of w that the JAX
-    package keeps in its 'ema' collection: `update_emas` moves it toward the
-    batch mean, and truncation pulls w toward it.
+    Camera conditioning takes yaw and pitch wrapped into [-1, 1], as raw
+    scalars (`camera_raw_scalars`) or encoded by `ScalarEncoder1d(2, 64, 0)`
+    (6 Fourier frequencies, sin then cos, 24 features), dropped out with
+    probability `camera_cond_drop_p` where `draws` are given (training).
+    `w_avg` is the EMA of w that the JAX package keeps in its 'ema'
+    collection: `update_emas` moves it toward the batch mean, and truncation
+    pulls w toward it.
     """
 
     def __init__(self, z_dim: int, c_dim: int, w_dim: int, num_ws: Optional[int],
@@ -144,13 +146,14 @@ class MappingNetwork(nn.Module):
                  w_avg_beta: Optional[float] = 0.998, camera_cond: bool = False,
                  camera_cond_drop_p: float = 0.0, camera_raw_scalars: bool = True):
         super().__init__()
-        if camera_cond and not camera_raw_scalars:
-            raise NotImplementedError('Fourier camera encoding is not ported: '
-                                      'set generator.camera_cond_raw=true')
         self.z_dim, self.w_dim, self.num_ws = z_dim, w_dim, num_ws
         self.camera_cond, self.camera_cond_drop_p = camera_cond, camera_cond_drop_p
         self.w_avg_beta = w_avg_beta
-        embed_in = c_dim + (2 if camera_cond else 0)
+        self.camera_scalar_enc = None
+        if camera_cond:
+            self.camera_scalar_enc = (ScalarEncoder1d(2, 0.0, 0, use_raw=True)
+                                      if camera_raw_scalars else ScalarEncoder1d(2, 64.0, 0))
+        embed_in = c_dim + (self.camera_scalar_enc.out_dim if camera_cond else 0)
         self.embed = FullyConnected(embed_in, w_dim) if embed_in > 0 else None
         in_dim = z_dim + (w_dim if embed_in > 0 else 0)
         for idx in range(num_layers):
@@ -170,7 +173,8 @@ class MappingNetwork(nn.Module):
             if camera_angles is None:
                 raise ValueError('camera-conditioned mapping needs camera angles')
             ang = camera_angles[:, :2]
-            embs = torch.sign(ang) * (torch.remainder(ang.abs(), 2.0 * math.pi) / (2.0 * math.pi))
+            ang = torch.sign(ang) * (torch.remainder(ang.abs(), 2.0 * math.pi) / (2.0 * math.pi))
+            embs = self.camera_scalar_enc(ang)
             if draws is not None and self.camera_cond_drop_p > 0:
                 keep = 1.0 - self.camera_cond_drop_p
                 mask = draws.uniform('cond_drop', embs.shape) < keep

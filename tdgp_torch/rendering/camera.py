@@ -41,8 +41,14 @@ def _uniform(draws: Draws, name: str, lo: float, hi: float, n: int) -> torch.Ten
 
 
 def sample_camera_angles(draws: Draws, cfg: AnglesDist, n: int) -> torch.Tensor:
-    """(yaw, pitch, roll) [n, 3] from the configured distribution."""
+    """(yaw, pitch, roll) [n, 3] from the configured distribution. 'hybrid'
+    draws the whole batch from a uniform of half-width 2 std about the mean
+    or from the normal, one choice per batch (the draw 'select', as
+    `tdgp/rendering/camera.py:72-80` takes it); 'custom' takes the dataset's
+    angles, which the caller passes to `sample_camera_params`."""
     y, p = cfg.yaw, cfg.pitch
+    if cfg.dist == 'custom':
+        raise ValueError("angles dist 'custom' requires dataset-provided origin_angles")
     if cfg.dist == 'uniform':
         yaw = _uniform(draws, 'yaw', y.min, y.max, n)
         pitch = _uniform(draws, 'pitch', p.min, p.max, n)
@@ -52,12 +58,20 @@ def sample_camera_angles(draws: Draws, cfg: AnglesDist, n: int) -> torch.Tensor:
     elif cfg.dist == 'truncnorm':
         yaw = sample_truncnorm(draws, 'yaw', (y.max + y.min) * 0.5, y.std, y.min, y.max, n)
         pitch = sample_truncnorm(draws, 'pitch', (p.max + p.min) * 0.5, p.std, p.min, p.max, n)
+    elif cfg.dist == 'hybrid':
+        u_yaw = (draws.uniform('yaw', (n,)) - 0.5) * 2 * y.std * 2 + y.mean
+        u_pitch = (draws.uniform('pitch', (n,)) - 0.5) * 2 * p.std * 2 + p.mean
+        n_yaw = draws.normal('normal/yaw', (n,)) * y.std + y.mean
+        n_pitch = draws.normal('normal/pitch', (n,)) * p.std + p.mean
+        take_uniform = draws.uniform('select', ()) < 0.5
+        yaw = torch.where(take_uniform, u_yaw, n_yaw)
+        pitch = torch.where(take_uniform, u_pitch, n_pitch)
     elif cfg.dist == 'spherical_uniform':
         yaw = (draws.uniform('yaw', (n,)) - 0.5) * (y.max - y.min) + 0.5 * (y.max + y.min)
         v = (draws.uniform('pitch', (n,)) - 0.5) * (p.max - p.min) + 0.5 * (p.max + p.min)
         pitch = torch.arccos(1 - 2 * (v / math.pi).clamp(1e-5, 1 - 1e-5))
     else:
-        raise NotImplementedError(f'angle distribution {cfg.dist!r} is not ported')
+        raise NotImplementedError(f'Unknown angle distribution: {cfg.dist}')
     pitch = pitch.clamp(1e-5, math.pi - 1e-5)
     return torch.stack([yaw, pitch, torch.zeros_like(yaw)], dim=1)
 

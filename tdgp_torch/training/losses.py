@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tdgp_torch.config import Config
 from tdgp_torch.models.camera_adaptor import roll_camera_params, unroll_camera_params
@@ -51,7 +52,9 @@ def mix_styles(ws: torch.Tensor, z: torch.Tensor, prob: float,
 
 def g_forward(G: Generator, z: torch.Tensor, c: torch.Tensor, camera_params: TensorGroup,
               camera_angles_cond: torch.Tensor, sched: Schedules, cfg: Config, draws: Draws):
-    """-> (TensorGroup(img, depth), patch params or None).
+    """-> (TensorGroup(img, depth, angles), patch params or None): `angles`
+    are the cameras' after the camera adaptor, which D's camera conditioning
+    takes (`tdgp/training/losses.py:38` returns them as `cam`).
 
     Draws: 'patch' (composite), 'mix/...' (style mixing), and the
     generator's 'noise/...', 'render/...', 'depth/...'."""
@@ -71,7 +74,7 @@ def g_forward(G: Generator, z: torch.Tensor, c: torch.Tensor, camera_params: Ten
     out = G.synthesis(ws, cam, patch_params, draws=draws,
                       concat_depth=cfg.training.use_depth, return_depth=True,
                       nerf_noise_std=sched.nerf_noise_std, depth_progress=sched.depth_progress)
-    return out, patch_params
+    return TensorGroup(img=out.img, depth=out.depth, angles=cam.angles), patch_params
 
 
 def g_forward_2d(G: StyleGAN2Generator, z: torch.Tensor, c: torch.Tensor, sched: Schedules,
@@ -100,9 +103,16 @@ def g_forward_2d(G: StyleGAN2Generator, z: torch.Tensor, c: torch.Tensor, sched:
 
 def d_forward(D: Discriminator, img: torch.Tensor, c: torch.Tensor, sched: Schedules,
               cfg: Config, patch_params=None, predict_feat: bool = False,
-              augment_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+              augment_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              camera_angles: Optional[torch.Tensor] = None, remat: bool = False):
     """The blur fade-in, the depth channel's own blur, the augment pipe
-    (`augment_fn`, when given), then D."""
+    (`augment_fn`, when given), then D, which takes `camera_angles` with
+    `discriminator.camera_cond`. With `remat` (R1's `loss.r1_remat`) D's
+    forward is recomputed where the backward needs its activations
+    (`torch.utils.checkpoint`, non-reentrant, which a gradient of a gradient
+    goes through); the blur and the augment pipe, which take draws, stay
+    recorded. It saves no memory: the double backward holds the recomputed
+    activations as it would hold the first ones (ROADMAP "Departures")."""
     max_blur = cfg.loss.blur_init_sigma
     img = maybe_blur(img, sched.blur_sigma, max_blur)
     if cfg.training.use_depth:
@@ -111,7 +121,12 @@ def d_forward(D: Discriminator, img: torch.Tensor, c: torch.Tensor, sched: Sched
         img = blur_depth_channel(img, sched.blur_sigma, max_blur)
     if augment_fn is not None:
         img = augment_fn(img)
-    return D(img, c, patch_params=patch_params, predict_feat=predict_feat)
+    if remat:
+        return checkpoint(D, img, c, patch_params=patch_params, predict_feat=predict_feat,
+                          camera_angles=camera_angles, use_reentrant=False,
+                          preserve_rng_state=False)
+    return D(img, c, patch_params=patch_params, predict_feat=predict_feat,
+             camera_angles=camera_angles)
 
 
 # ---------------------------------------------------------- camera regs

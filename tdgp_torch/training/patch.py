@@ -2,12 +2,16 @@
 
 Patch parameters are drawn per mbstd group and repeated over the group, so
 that minibatch-std statistics see one scale per group. The beta-distributed
-scale is X / (X + Y) of two gamma draws.
+scale is X / (X + Y) of two gamma draws. A `discrete_uniform` scale is one
+of the `discrete_support` values within [min_scale, max_scale], each as
+likely (the JAX package's masked categorical draw); with an empty support
+it is the uniform draw.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from tdgp_torch.config import PatchCfg
@@ -23,19 +27,38 @@ def sample_patch_params(draws: Draws, n: int, cfg: PatchCfg, min_scale: float,
     if n % group:
         raise ValueError(f'batch {n} is not a multiple of the mbstd group {group}')
     groups = n // group
-    if cfg.distribution == 'uniform':
+    if cfg.distribution == 'discrete_uniform' and cfg.discrete_support:
+        scales_x = _discrete_scales(draws, groups, cfg, min_scale)
+    elif cfg.distribution in ('uniform', 'discrete_uniform'):
         u = draws.uniform('scale', (groups,))
+        scales_x = u * (cfg.max_scale - min_scale) + min_scale
     elif cfg.distribution == 'beta':
         x = draws.gamma('scale_a', torch.full((groups,), float(cfg.alpha)))
         y = draws.gamma('scale_b', torch.full((groups,), float(beta)))
         u = x / (x + y).clamp_min(1e-30)
+        scales_x = u * (cfg.max_scale - min_scale) + min_scale
     else:
-        raise NotImplementedError(f'patch distribution {cfg.distribution!r} is not ported')
-    scales_x = u * (cfg.max_scale - min_scale) + min_scale
+        raise NotImplementedError(cfg.distribution)
     scales = torch.stack([scales_x, scales_x], dim=1)
     offsets = draws.uniform('offset', (groups, 2)) * (1.0 - scales)
     return {'scales': scales.repeat_interleave(group, 0),
             'offsets': offsets.repeat_interleave(group, 0)}
+
+
+def _discrete_scales(draws: Draws, groups: int, cfg: PatchCfg,
+                     min_scale: float) -> torch.Tensor:
+    """One value of the support per group, uniform over those in [min_scale,
+    max_scale] (compared in float32, as the JAX package compares its float32
+    support): the draw 'scale_index' picks the position among them. With
+    none in range every group takes the first value, where the JAX
+    package's categorical over all -inf logits lands."""
+    support = np.asarray(cfg.discrete_support, np.float32)
+    valid = np.flatnonzero((support >= np.float32(min_scale))
+                           & (support <= np.float32(cfg.max_scale)))
+    if valid.size == 0:
+        valid = np.zeros(1, np.int64)
+    values = torch.tensor(support[valid], device=draws.device)
+    return values[draws.randint('scale_index', 0, valid.size, (groups,))]
 
 
 def compute_patch_coords(patch_params: Dict[str, torch.Tensor], resolution: int) -> torch.Tensor:

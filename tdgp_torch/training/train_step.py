@@ -49,12 +49,21 @@ precision, TF32 off: G's and D's bf16 blocks (`num_fp16_res`, unless
 come back to float32 through each cast; Adam, the EMA, `w_avg` and the
 NaN/Inf scrub are float32.
 
+With `training.g_optim.grad_clip`, G's gradient (Gmain's with the camera
+regularizers', and PL's on its own) is scaled to that global norm before
+G's Adam, by optax's `clip_by_global_norm` rule (`_clip`); D's `grad_clip`
+is never read, as in the JAX package. With `discriminator.camera_cond` D
+takes each image's camera angles: a fake's, its cameras after the camera
+adaptor (Gmain's with their gradient); a real's, the batch's
+'camera_angles'. With `loss.r1_remat` R1's D forward is recomputed in its
+double backward (`torch.utils.checkpoint`, non-reentrant), the JAX
+package's `jax.checkpoint`; the numbers are the same.
+
 Not ported, and refused with a `NotImplementedError` naming the setting:
 an augment mode other than 'noaug', 'ada' and 'fixed', path-length
-regularization of the 3DGP model, R1 rematerialization, G's gradient
-clipping and training over several devices. With reused fakes
-`dmain_fake_bf16` has no effect and a warning says so, as in the JAX
-package.
+regularization of the 3DGP model and training over several devices. With
+reused fakes `dmain_fake_bf16` has no effect and a warning says so, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -102,9 +111,7 @@ def check_supported(cfg: Config) -> None:
         'loss.pl_weight (path-length regularization of the 3DGP model: its second-order '
         'gradient through the splat and ray-march kernels has no kernel)':
             l.pl_weight > 0 and not is_2d(cfg),
-        'loss.r1_remat': l.r1_remat,
         'num_devices': cfg.num_devices > 1,
-        'training.g_optim.grad_clip': t.g_optim.grad_clip is not None,
     }
     names = [name for name, bad in refused.items() if bad]
     if names:
@@ -173,6 +180,19 @@ def _set_requires_grad(module: nn.Module, flag: bool) -> None:
         p.requires_grad_(flag)
 
 
+def _clip(params: Iterable[nn.Parameter], max_norm: float) -> torch.Tensor:
+    """optax's `clip_by_global_norm(max_norm)` on the parameters' gradients:
+    below the threshold unchanged, else each g / norm x max_norm, with no
+    epsilon (`torch.nn.utils.clip_grad_norm_` divides by norm + 1e-6).
+    Returns the factor applied (1 below the threshold), a 0-d tensor."""
+    grads = [p.grad for p in params]
+    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return torch.where(keep, torch.ones_like(norm), max_norm / norm)
+
+
 def _scrub(params: Iterable[nn.Parameter]) -> None:
     """NaN/Inf scrub of the gradients; a parameter without one gets zeros,
     as JAX's gradient tree has them."""
@@ -207,6 +227,7 @@ class Trainer:
             if t.dmain_fake_bf16 and not t.dmain_reuse_fakes:
                 self.G_fake = self.G.view(render_bf16_view(cfg.generator, all_blocks=True))
         self.pl_mean = torch.zeros((), device=self.device)
+        self.g_clip_factors = []  # the clip's factor at each G update of the last step
         self.G_ema = copy.deepcopy(self.G).eval()
         _set_requires_grad(self.G_ema, False)
         self.g_opt, self.d_opt = make_optimizers(cfg, self.G, self.D)
@@ -224,14 +245,17 @@ class Trainer:
         scope = draws.scope(f'aug/{name}')
         return lambda img: self.augment_pipe(img, sched.ada_p, scope)
 
-    @staticmethod
-    def _apply(opt: torch.optim.Optimizer, module: nn.Module,
+    def _apply(self, opt: torch.optim.Optimizer, module: nn.Module,
                keep: bool) -> Optional[Dict[str, torch.Tensor]]:
-        """Scrub `module`'s gradients and take the optimizer step; returns a
-        copy of the gradients when `keep`."""
+        """Scrub `module`'s gradients, clip G's (`g_optim.grad_clip`; the
+        factor appended to `g_clip_factors`) and take the optimizer step;
+        returns a copy of the scrubbed gradients, before the clip, when `keep`."""
         _scrub(module.parameters())
         grads = ({name: p.grad.detach().clone() for name, p in module.named_parameters()}
                  if keep else None)
+        max_norm = self.cfg.training.g_optim.grad_clip
+        if opt is self.g_opt and max_norm is not None:
+            self.g_clip_factors.append(_clip(module.parameters(), max_norm).detach())
         opt.step()
         opt.zero_grad(set_to_none=True)
         return grads
@@ -254,6 +278,7 @@ class Trainer:
                            cfg.discriminator.mbstd_group_size, 'training.batch_gpu')
         stats: Dict = {}
         grads = {}
+        self.g_clip_factors = []
 
         def accumulate(name, value):
             stats[name] = stats.get(name, 0.0) + value.detach() / n_micro
@@ -269,23 +294,27 @@ class Trainer:
             grads['pl'] = self._apply(self.g_opt, G, keep)
         cg = gen_g[1]
         with record_function('dmain'):
-            real, rpp = self._dmain(batch, sched, draws, n_micro, accumulate, cg, fakes)
+            real, rpp, real_angles = self._dmain(batch, sched, draws, n_micro, accumulate, cg,
+                                                 fakes, gen_g[4])
         grads['d'] = self._apply(self.d_opt, D, keep)
         if do_r1 and cfg.loss.r1_gamma > 0:
             with record_function('r1'):
-                self._r1(batch, sched, draws, real, rpp, n_micro, stats)
+                self._r1(batch, sched, draws, real, rpp, real_angles, n_micro, stats)
             grads['r1'] = self._apply(self.d_opt, D, keep)
         with record_function('ema'):
             self._ema(sched.ema_beta)
         if keep:
             stats['_grads'] = grads
+        if self.g_clip_factors:
+            stats['_g_clip'] = self.g_clip_factors
         return stats
 
     def _gmain(self, batch, sched, draws, n_micro, accumulate):
         """Gmain's gradients into G; returns its generator inputs (z, labels,
-        cameras, conditioning angles) and, per microbatch, the detached
-        fakes with their patch parameters for Dmain (None when Dmain renders
-        fresh ones, always for the 2D model)."""
+        cameras, conditioning angles, and the angles D took: the cameras'
+        after the camera adaptor, detached) and, per microbatch, the
+        detached fakes with their patch parameters for Dmain (None when
+        Dmain renders fresh ones, always for the 2D model)."""
         cfg, G, D = self.cfg, self.G, self.D
         n = batch['img'].shape[0]
         m = n // n_micro
@@ -294,21 +323,25 @@ class Trainer:
             batch.get('gen_camera_angles_g'), batch.get('gen_z_g'), batch.get('gen_cam_g'))
         _set_requires_grad(D, False)
         fakes = [] if cfg.training.dmain_reuse_fakes and not is_2d(cfg) else None
+        d_angles = []
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
             out, pp = self._g_forward(self.G_main, zg[sl], cg[sl], camg.select(sl), condg[sl],
                                       sched, draws.scope(f'gmain/{i}'))
+            angles = camg.angles[sl] if is_2d(cfg) else out.angles
             logits, _ = losses.d_forward(D, out.img, cg[sl], sched, cfg, patch_params=pp,
-                                         augment_fn=self._augment(draws, sched, f'gmain/{i}'))
+                                         augment_fn=self._augment(draws, sched, f'gmain/{i}'),
+                                         camera_angles=angles)
             loss = losses.adv_loss_g(logits, cfg.loss.adv_loss_type).mean()
             (loss / n_micro).backward()
             accumulate('Loss/G/loss', loss)
             accumulate('Loss/scores/fake', logits.mean())
             accumulate('Loss/signs/fake', torch.sign(logits).mean())
+            d_angles.append(angles.detach())
             if fakes is not None:
                 fakes.append((out.img.detach(), pp))
         _set_requires_grad(D, True)
-        return (zg, cg, camg, condg), fakes
+        return (zg, cg, camg, condg, torch.cat(d_angles)), fakes
 
     def _g_forward(self, G, z, c, cam, cond, sched, draws):
         """The model's G forward through `G` (G or one of its views):
@@ -372,11 +405,14 @@ class Trainer:
         stats['Loss/pl_penalty'] = penalty.mean().detach()
         stats['Loss/G/reg'] = loss.detach()
 
-    def _dmain(self, batch, sched, draws, n_micro, accumulate, cg, fakes):
+    def _dmain(self, batch, sched, draws, n_micro, accumulate, cg, fakes, gen_angles=None):
         """The w_avg update, then Dmain's gradients into D on the fakes and
         real patches; returns the real patches and their parameters. With
         `fakes` None each microbatch's fakes are rendered here by the
-        updated G, without gradients, with the draws 'dmain/<i>/...'."""
+        updated G, without gradients, with the draws 'dmain/<i>/...'; reused
+        fakes are scored with Gmain's labels `cg` and D's angles `gen_angles`.
+        Returns the real patches, and functions of a batch slice that give
+        their patch parameters and camera angles."""
         cfg, G, D = self.cfg, self.G, self.D
         adv, clamp = cfg.loss.adv_loss_type, cfg.discriminator.logits_clamp_val
         do_kd = cfg.loss.kd.weight > 0
@@ -407,6 +443,9 @@ class Trainer:
         def rpp(sl):
             return None if real_pp is None else {k: v[sl] for k, v in real_pp.items()}
 
+        def real_angles(sl):
+            return batch['camera_angles'][sl] if 'camera_angles' in batch else None
+
         for i in range(n_micro):
             sl = slice(i * m, (i + 1) * m)
             if fakes is None:
@@ -414,14 +453,18 @@ class Trainer:
                     out, fake_pp = self._g_forward(self.G_fake, zd[sl], cd[sl], camd.select(sl),
                                                    condd[sl], sched, draws.scope(f'dmain/{i}'))
                 fake_img, fake_c = out.img.float(), cd[sl]
+                fake_angles = camd.angles[sl] if is_2d(cfg) else out.angles
             else:
                 (fake_img, fake_pp), fake_c = fakes[i], cg[sl]
+                fake_angles = None if gen_angles is None else gen_angles[sl]
             fake_logits, _ = losses.d_forward(
                 D, fake_img, fake_c, sched, cfg, patch_params=fake_pp,
-                augment_fn=self._augment(draws, sched, f'dmain_fake/{i}'))
+                augment_fn=self._augment(draws, sched, f'dmain_fake/{i}'),
+                camera_angles=fake_angles)
             real_logits, real_feats = losses.d_forward(
                 D, real[sl], batch['c'][sl], sched, cfg, patch_params=rpp(sl),
-                predict_feat=do_kd, augment_fn=self._augment(draws, sched, f'dmain_real/{i}'))
+                predict_feat=do_kd, augment_fn=self._augment(draws, sched, f'dmain_real/{i}'),
+                camera_angles=real_angles(sl))
             loss_fake = losses.adv_loss_d_fake(fake_logits, adv, clamp).mean()
             loss_real = losses.adv_loss_d_real(real_logits, adv, clamp).mean()
             total = loss_fake + loss_real
@@ -436,10 +479,11 @@ class Trainer:
                 accumulate('Loss/kd/D_dist', dist.mean())
                 accumulate('Loss/kd/D_loss', loss_kd)
             (total / n_micro).backward()
-        return real, rpp
+        return real, rpp, real_angles
 
-    def _r1(self, batch, sched, draws, real, rpp, n_micro, stats):
-        """The R1 penalty on real patches: a gradient of D's gradient."""
+    def _r1(self, batch, sched, draws, real, rpp, real_angles, n_micro, stats):
+        """The R1 penalty on real patches: a gradient of D's gradient; with
+        `loss.r1_remat` D's forward is recomputed in the double backward."""
         cfg, D = self.cfg, self.D
         n = real.shape[0]
         gain = float(cfg.loss.r1_interval)
@@ -450,7 +494,8 @@ class Trainer:
             sl = slice(i * m_r1, (i + 1) * m_r1)
             img = real[sl].detach().requires_grad_(True)
             logits, _ = losses.d_forward(D, img, batch['c'][sl], sched, cfg, patch_params=rpp(sl),
-                                         augment_fn=self._augment(draws, sched, f'r1/{i}'))
+                                         augment_fn=self._augment(draws, sched, f'r1/{i}'),
+                                         camera_angles=real_angles(sl), remat=cfg.loss.r1_remat)
             (r1_grads,) = torch.autograd.grad(logits.sum(), img, create_graph=True)
             penalty = r1_grads.square().sum(dim=(1, 2, 3))
             loss = penalty.mean() * (cfg.loss.r1_gamma / 2) * gain

@@ -594,9 +594,7 @@ def test_trainer_needs_a_card_unless_given_the_cpu(monkeypatch):
 @pytest.mark.parametrize('setting,override', [
     ('training.augment.mode', 'training.augment.mode=adaptive'),
     ('loss.pl_weight (path-length regularization of the 3DGP model', 'loss.pl_weight=2.0'),
-    ('loss.r1_remat', 'loss.r1_remat=true'),
-    ('num_devices', 'num_devices=4'),
-    ('training.g_optim.grad_clip', 'training.g_optim.grad_clip=1.0')])
+    ('num_devices', 'num_devices=4')])
 def test_trainer_refuses_unported_settings(setting, override):
     """`override` holds one or more overrides, space-separated."""
     cfg = pcfg.apply_overrides(fp32_d(pcfg.tiny_test_config()), override.split())

@@ -105,11 +105,13 @@ def worst(pairs):
     return max(float(np.abs(a - b).max()) for a, b in pairs) / scale
 
 
-def child_main(kimg):
-    parity = _load_parity()
-    stats, new_state, port_stats, trainer, draws = parity.run_step(int(kimg * 1000), np.float64)
-    out = {'kimg': kimg, 'dtype': str(port_stats['_grads']['g'][next(iter(
-        port_stats['_grads']['g']))].dtype), 'draws_unused': sorted(set(draws.values) - draws.used)}
+def readings(parity, steps):
+    """The dtype, the unused draws and each part's gap of one step of both
+    packages, `steps` as `run_step` returns them; `parity` is
+    tests/test_torch_train_step.py."""
+    stats, new_state, port_stats, trainer, draws = steps
+    out = {'dtype': str(port_stats['_grads']['g'][next(iter(port_stats['_grads']['g']))].dtype),
+           'draws_unused': sorted(set(draws.values) - draws.used)}
     names = [k for k in stats if not k.startswith('_')]
     out['losses'] = max(abs(float(port_stats[k]) - float(stats[k])) / max(abs(float(stats[k])),
                                                                            1e-30) for k in names)
@@ -127,7 +129,13 @@ def child_main(kimg):
         out[module] = worst([(v.numpy(), parity._to_port_layout(name, flat[parity.flat_key(name)],
                                                                  v.ndim))
                              for name, v in getattr(trainer, module).state_dict().items()])
-    print(json.dumps(out))
+    return out
+
+
+def child_main(kimg):
+    parity = _load_parity()
+    out = readings(parity, parity.run_step(int(kimg * 1000), np.float64))
+    print(json.dumps({'kimg': kimg, **out}))
 
 
 if __name__ == '__main__':

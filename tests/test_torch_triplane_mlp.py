@@ -128,15 +128,37 @@ def test_folding_gives_the_layers_weights(mlps):
     assert rgb.shape == (1, 5, 3) and sigma.shape == (1, 5)
 
 
-def test_three_layers_run_as_layers_on_the_cpu_and_are_refused_off_it():
+def test_three_layers_run_as_layers_on_the_cpu_and_are_refused_off_it(monkeypatch):
+    """Three layers run as their `FullyConnected` layers on any device, as
+    the JAX package runs every depth, recorded or not: off the CPU too (the
+    meta device stands in for the card), where K4, built for two layers, is
+    not called and each layer's bias + activation goes to K5's wrapper
+    (spied here: it would launch K5 on a CUDA tensor). (The name is older
+    than the layers off the CPU.)"""
+    from tdgp_torch.models import epigraf, layers
+    from tdgp_torch.ops.bias_act import bias_act_plain
     cfg, _ = _configs(8, 16, n_layers=3)
     mlp = TriPlaneMLP(cfg, out_dim=3).eval()
     with torch.no_grad():
         rgb, sigma = mlp(torch.randn(1, 6, 8))
     assert rgb.shape == (1, 6, 3) and sigma.shape == (1, 6)
+
+    def no_k4(*args):
+        raise AssertionError('K4 called for three layers')
+
+    k5_calls = []
+
+    def k5(x, b=None, **kwargs):
+        k5_calls.append(torch.is_grad_enabled() and x.requires_grad)
+        return bias_act_plain(x, b, **kwargs)
+
+    monkeypatch.setattr(epigraf, 'triplane_mlp', no_k4)
+    monkeypatch.setattr(layers, 'bias_act', k5)
     mlp = mlp.to('meta')  # a device other than the CPU: the dispatch a CUDA tensor meets
-    with torch.no_grad(), pytest.raises(NotImplementedError, match='n_layers 3'):
-        mlp(torch.empty(1, 6, 8, device='meta'))
+    with torch.no_grad():
+        rgb, sigma = mlp(torch.empty(1, 6, 8, device='meta'))
+    assert rgb.shape == (1, 6, 3) and sigma.shape == (1, 6) and not sigma.requires_grad
+    assert k5_calls == [False] * 3
     rgb, sigma = mlp(torch.empty(1, 6, 8, device='meta'))  # recorded: the layers
     assert sigma.requires_grad
 
