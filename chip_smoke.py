@@ -275,6 +275,31 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   patch and of K3's depth where it enters the depth adaptor; the
                   distance is also printed against the limits of the first seed's
                   perturbation of the patch alone.
+ 14. pl:          path-length regularization of the 3DGP model (after 13,
+                  `pl_*_phase`). K3's second-order entry (`ray_march_reduced_bwd_bwd`) at
+                  PL's render shape [8, 4096, 32 + 32, 3] in the four settings, with and
+                  without a depth cotangent, and K1's second-order entries
+                  (`triplane_splat_gather`, `triplane_splat_dcoords`) at planes
+                  [24, 512, 512, 32] and 8 x 64^2 x 32 points, with and without a
+                  coordinate cotangent, and at small shapes with points on texel edges,
+                  against their plain versions (autograd through the first-order plain
+                  versions): each output <= PL_KERNEL_LIMIT x its largest (K3's four
+                  per-ray totals one scale); timed beside the plain versions and their
+                  bounds. PL's G gradient (`Trainer._pl` alone, after a warm-up R1 + PL
+                  step, batch PL_CHECK_BATCH) through the kernels and through their
+                  plain versions, per parameter at the float32 cut within
+                  max(GRAD_LIMIT, 2 x its floor), with the preset's bf16 blocks within
+                  max(GRAD_LIMIT, BF16_FLOOR_FACTOR x its floor); the floor the largest
+                  of the plain path run again and FLOOR_SEEDS' perturbations of an ulp
+                  on K1's and K3's first-order outputs (`first_order_ulp`): the camera
+                  adaptor's PL gradient cancels, and the plain path against itself
+                  moves it by ~2e-2. The penalty finite, `pl_mean` moved. Then the
+                  satellite step with `loss.pl_weight=2` at batch 16 (PL at 8), at its
+                  own precision and at the float32 cut: PL_PLAIN_STEPS plain steps and
+                  one R1 + PL step, the launches held to what they imply (K3's second
+                  order 1 and K1's gather 2 per R1 + PL step; its scatter 0: PL gives no
+                  coordinate cotangent), ms per plain, R1 + PL and R1 step, and the peak
+                  memory that PL adds.
 Serving (2) also counts K4 (8 per request) and K5 launches per request, by dtype.
 K5's launches are counted by dtype everywhere: 'bias_act' (float32) and
 'bias_act_bf16' (bfloat16), each held to the `bias_act` calls of that dtype.
@@ -285,6 +310,7 @@ Exits non-zero, with no result, when a phase fails or there is no card.
 """
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -2607,6 +2633,369 @@ def stylegan2_loop_phase(tmp_dir, counters, card, device='cuda', overrides=()):
                           loop_peak_gib=peak / 2 ** 30, loop_s=loop_s, pl_mean=pl_mean)
 
 
+PL = ['loss.pl_weight=2.0']  # path-length regularization at the 2D preset's weight
+PL_PLAIN_STEPS = 2           # the pl phase's plain steps, before its R1 + PL step
+PL_KERNEL_LIMIT = 1e-5       # the second-order entries vs plain: of each output's largest
+PL_CHECK_BATCH = 8           # the PL check's batch: PL at 4, one mbstd group
+
+
+def bwd_bwd_errors(out, ref):
+    """Max abs diff of each of K3's second-order outputs from the plain
+    version's, over its largest magnitude: each per-sample output (colors,
+    densities, depths) its own; the four per-ray totals (g_rgb, g_depth,
+    g_wsum, g_ftrans) one, their largest, since g_wsum's sum cancels to
+    rounding where no light passes the ray (use_inf_depth), as in
+    tests/test_torch_pl3d.py."""
+    errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+    totals = max(float(b.abs().max()) for b in ref[3:])
+    scales = [float(b.abs().max()) for b in ref[:3]] + [totals] * 4
+    return errs, [e / max(s, 1e-30) for e, s in zip(errs, scales)]
+
+
+def pl_kernel_phase(ray_march, splat):
+    """K3's second-order entry (`ray_march_reduced_bwd_bwd`) and K1's two
+    (`triplane_splat_gather`, `triplane_splat_dcoords`) against their plain
+    versions (autograd through the first-order plain versions) at the shapes
+    of the satellite step's PL render (batch 8: [8, 4096, 32 + 32, 3]
+    marched; planes [24, 512, 512, 32], 8 x 64^2 x 32 points a pass), each
+    output within PL_KERNEL_LIMIT x its largest; timed beside the plain
+    version and the bound. The PL phase hands them no depth and no
+    coordinate cotangent (its coordinates do not depend on ws), so K3's is
+    held with and without one and the scatter, which only a coordinate
+    cotangent launches, at random ones."""
+    g = torch.Generator(device='cuda').manual_seed(4)
+    b, r, s, c = 8, 4096, 64, 3
+    colors = torch.rand(b, r, s, c, device='cuda', generator=g)
+    densities = torch.randn(b, r, s, device='cuda', generator=g) * 2
+    depths = torch.rand(b, r, s, device='cuda', generator=g).sort(-1).values * 0.5 + 0.75
+    cots = [torch.randn(b, r, c, device='cuda', generator=g)] + [
+        torch.randn(b, r, device='cuda', generator=g) for _ in range(3)]
+    us = [torch.randn(t.shape, device='cuda', generator=g) for t in (colors, densities, depths)]
+    worst = 0.0
+    for clamp_mode, inf_depth, last_back in K3_CASES:
+        for u_depths in (None, us[2]):
+            args = (colors, densities, depths, *cots, us[0], us[1], u_depths, clamp_mode, 1.0,
+                    inf_depth, last_back)
+            out = ray_march.ray_march_reduced_bwd_bwd(*args)
+            ref = ray_march.ray_march_reduced_bwd_bwd_plain(*args)
+            torch.cuda.synchronize()
+            errs, rel = bwd_bwd_errors(out, ref)
+            print(f'K3 second order {clamp_mode} inf_depth={inf_depth} last_back={last_back} '
+                  f'depth cotangent={u_depths is not None}: max abs diff / max |plain| of the '
+                  f'colours, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans cotangents '
+                  f'{[float(f"{e:.3g}") for e in rel]}')
+            check(all(e <= PL_KERNEL_LIMIT for e in rel),
+                  "K3's second-order entry disagrees with its plain version")
+            worst = max(worst, *errs)
+    args = (colors, densities, depths, *cots, us[0], us[1], None)
+    ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_bwd(*args), 200)
+    plain_ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_bwd_plain(*args), 10)
+    n = b * r
+    # inputs, the two cotangents and the seven outputs, each once
+    bytes_moved = 4 * (n * s * (c + 2) + n * (c + 3) + n * s * (c + 1) + n * s * (c + 2)
+                       + n * (c + 3))
+    flops = n * s * (8 * c + 90)  # the backward's values, then its reverse sweep
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    print(f"K3's second order at [{b},{r},{s},{c}] (no depth cotangent, as on the path): kernel "
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.1f} us '
+          f'({bytes_moved / 1e6:.1f} MB by {bound_by}), {bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
+    k3_bwd_bwd = dict(name='ray_march_reduced_bwd_bwd', route='cuda',
+                      source='tdgp_torch/csrc/ray_march.cu',
+                      replaces='tdgp/ops/pallas_kernels.py:251', max_abs_err=worst, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    del colors, densities, depths, cots, us
+
+    # K1: small shapes (F = 8, 16; texel edges and points outside), then the path's
+    g_small = torch.Generator(device='cuda').manual_seed(5)
+    for n, h, w, f, p in [(2, 40, 50, 8, 300), (3, 33, 17, 16, 777), (2, 37, 21, 32, 1000)]:
+        planes = torch.randn(3 * n, h, w, f, device='cuda', generator=g_small)
+        coords = torch.rand(n, p, 3, device='cuda', generator=g_small) * 1.2 - 0.6
+        coords[:, :8] = torch.tensor([-0.5, 0.5, 0.0], device='cuda')  # on texel edges
+        cot = torch.randn(n, p, f, device='cuda', generator=g_small)
+        u_planes = torch.randn(planes.shape, device='cuda', generator=g_small)
+        u_coords = torch.randn(coords.shape, device='cuda', generator=g_small)
+        for u_p, u_c in ((u_planes, None), (u_planes, u_coords), (None, u_coords)):
+            out = splat.triplane_sample_bwd_bwd(planes, coords, cot, u_p, u_c, 0.5)
+            ref = splat.triplane_sample_bwd_bwd_plain(planes, coords, cot, u_p, u_c, 0.5)
+            rel = [float((a - b_).abs().max() / b_.abs().max())
+                   for a, b_ in zip(out, ref) if a is not None]
+            check(all(e <= PL_KERNEL_LIMIT for e in rel),
+                  f"K1's second order at F={f}, planes {h}x{w} disagrees with its plain "
+                  f'version: {rel}')
+    print("K1's second order at F = 8, 16, 32, planes 40x50, 33x17, 37x21, points on texel "
+          'edges and outside: as its plain version (<= 1e-5 x max |plain|)')
+
+    n, h, w, f, scale = 8, 512, 512, 32, 0.5
+    p = 64 * 64 * 32
+    planes = torch.randn(3 * n, h, w, f, device='cuda', generator=g)
+    coords = torch.rand(n, p, 3, device='cuda', generator=g) * 1.1 - 0.55
+    cot = torch.randn(n, p, f, device='cuda', generator=g)
+    u_planes = torch.randn(planes.shape, device='cuda', generator=g)
+    u_coords = torch.randn(coords.shape, device='cuda', generator=g)
+    worst_gather = worst_scatter = 0.0
+    for u_p, u_c in ((u_planes, None), (u_planes, u_coords)):
+        out = splat.triplane_sample_bwd_bwd(planes, coords, cot, u_p, u_c, scale)
+        ref = splat.triplane_sample_bwd_bwd_plain(planes, coords, cot, u_p, u_c, scale)
+        torch.cuda.synchronize()
+        errs = [None if a is None else float((a - b_).abs().max()) for a, b_ in zip(out, ref)]
+        rel = [None if e is None else e / float(b_.abs().max()) for e, b_ in zip(errs, ref)]
+        print(f"K1's second order at planes [{3 * n},{h},{w},{f}], {n} x {p} points, coordinate "
+              f'cotangent={u_c is not None}: max abs diff / max |plain| of the planes\', '
+              f"coordinates' and g's cotangents {rel}")
+        check(all(e is None or e <= PL_KERNEL_LIMIT for e in rel),
+              "K1's second order disagrees with its plain version")
+        worst_gather = max(worst_gather, errs[1], errs[2])
+        if errs[0] is not None:
+            worst_scatter = max(worst_scatter, errs[0])
+        del out, ref
+    gather_ms = cuda_ms(lambda: splat.triplane_splat_gather(planes, coords, cot, u_planes, None,
+                                                            scale), 20)
+    gather_plain_ms = cuda_ms(lambda: splat.triplane_sample_bwd_bwd_plain(
+        planes, coords, cot, u_planes, None, scale), 3)
+    scatter_ms = cuda_ms(lambda: splat.triplane_splat_dcoords(coords, cot, u_coords, scale, h, w),
+                         20)
+    scatter_plain_ms = cuda_ms(lambda: splat.triplane_sample_bwd_bwd_plain(
+        planes, coords, cot, None, u_coords, scale), 3)
+    counts = corner_counts(splat, coords, scale, 3 * n, h, w)
+    texels = int((counts > 0).sum())
+    # the gather on the path: the touched texels of the planes' cotangent, g and the
+    # coordinates read, the cotangents of g and of the coordinates written
+    gather_bytes = 4 * (texels * f + n * p * (2 * f + 6))
+    gather_bound, gather_by = bound(gather_bytes, n * p * 3 * f * 14)
+    # the scatter: g, the coordinates and their cotangent read, the planes' cotangent written
+    scatter_bytes = 4 * (3 * n * h * w * f + n * p * (f + 6))
+    scatter_bound, scatter_by = bound(scatter_bytes, n * p * 3 * f * 16)
+    print(f"K1's gather entry (the path's form, no coordinate cotangent): kernel "
+          f'{gather_ms:.4f} ms, plain {gather_plain_ms:.4f} ms, bound {gather_bound:.4f} ms '
+          f'({gather_bytes / 1e9:.2f} GB by {gather_by}; {texels} of {3 * n * h * w} texels '
+          f'touched); its scatter entry: kernel {scatter_ms:.4f} ms, plain (the whole second '
+          f'order with a coordinate cotangent) {scatter_plain_ms:.4f} ms, bound '
+          f'{scatter_bound:.4f} ms ({scatter_bytes / 1e9:.2f} GB by {scatter_by})')
+    k1_gather = dict(name='triplane_splat_gather', route='cuda', source='tdgp_torch/csrc/splat.cu',
+                     replaces='tdgp/ops/splat.py:1021', max_abs_err=worst_gather, ms=gather_ms,
+                     plain_ms=gather_plain_ms, bound_ms=gather_bound, bound_by=gather_by,
+                     library_ms=None)
+    k1_dcoords = dict(name='triplane_splat_dcoords', route='cuda',
+                      source='tdgp_torch/csrc/splat.cu', replaces='tdgp/ops/splat.py:1021',
+                      max_abs_err=worst_scatter, ms=scatter_ms, plain_ms=scatter_plain_ms,
+                      bound_ms=scatter_bound, bound_by=scatter_by, library_ms=None)
+    return k3_bwd_bwd, k1_gather, k1_dcoords
+
+
+@contextlib.contextmanager
+def first_order_ulp(seed):
+    """The plain versions of K1's and K3's backward with each output changed
+    by about one float32 ulp (x (1 + 2^-24 n), n ~ N(0, 1), from `seed` and
+    the call's index): PL's one-ulp floor, since PL reads the render only
+    through those backwards (the image's value does not enter its
+    gradient)."""
+    from tdgp_torch.ops import ray_march, splat
+    saved = ray_march.ray_march_reduced_bwd_plain, splat.triplane_sample_bwd_plain
+    calls = [0]
+
+    def perturbed(fn):
+        def run(*args, **kwargs):
+            calls[0] += 1
+            out = fn(*args, **kwargs)
+            g = torch.Generator(device=out[0].device).manual_seed(seed * 1000 + calls[0])
+            return tuple(None if t is None else t * (1 + 2.0 ** -24 * torch.randn(
+                t.shape, device=t.device, generator=g)) for t in out)
+        return run
+
+    ray_march.ray_march_reduced_bwd_plain, splat.triplane_sample_bwd_plain = map(perturbed, saved)
+    try:
+        yield
+    finally:
+        ray_march.ray_march_reduced_bwd_plain, splat.triplane_sample_bwd_plain = saved
+
+
+def pl_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides, card,
+                   device='cuda'):
+    """PL's G gradient at full width, batch PL_CHECK_BATCH (PL at half), with
+    `overrides`, through the kernels and through their plain versions (K1
+    and K3 with their second orders: `plain_versions`) on the same weights,
+    Adam state and draws, after a warm-up R1 + PL step: `Trainer._pl` alone,
+    so that Gmain's Adam update does not enter. cuDNN deterministic, the
+    StyleGAN2 noise off (as the train check). Each parameter within
+    max(GRAD_LIMIT, 2 x its floor) at float32 (the rule the train check
+    gives the depth adaptor, here without its cap) and within
+    max(GRAD_LIMIT, BF16_FLOOR_FACTOR x its floor) with bf16 blocks. The
+    floor of a parameter is the largest of the plain path run again on the
+    same inputs (its own spread: the plain splat adds with atomics) and of
+    FLOOR_SEEDS' one-ulp perturbations of K1's and K3's first-order outputs
+    (`first_order_ulp`): the camera adaptor's PL gradient is a sum over
+    every sample of the render that cancels to a few percent of its terms,
+    and the plain path against itself moves it by ~2e-2 on an H100. The
+    penalty finite, `pl_mean` moved."""
+    from tdgp_torch.training.train_step import sample_gen_inputs
+    cfg = train_config(list(overrides) + PL + ['generator.use_noise=false'])
+    bf16 = not cfg.generator.fp32_only
+    label = 'bf16 blocks' if bf16 else 'float32'
+    trainer = Trainer(cfg, device, seed=0)
+    batch = make_batch(cfg, PL_CHECK_BATCH, 2, device)
+    trainer.step(batch, sched, True, Draws(torch.Generator(device=device).manual_seed(1)))
+    start = sg2_trainer_state(trainer)
+    gen = sample_gen_inputs(Draws(torch.Generator(device=device).manual_seed(5)).scope('gen_g'),
+                            PL_CHECK_BATCH, cfg, sched)
+
+    def pl_grads(plain, seed=None):
+        sg2_restore(trainer, start)
+        trainer.G.zero_grad(set_to_none=True)
+        stats = {}
+        with (plain_versions() if plain else contextlib.nullcontext()), \
+                (first_order_ulp(seed) if seed is not None else contextlib.nullcontext()):
+            trainer._pl(gen, sched, Draws(torch.Generator(device=device).manual_seed(6)), stats)
+        check(np.isfinite(float(stats['Loss/pl_penalty'])), 'non-finite PL penalty')
+        check(float(trainer.pl_mean) != float(start['pl_mean']), 'pl_mean did not move')
+        return {n: (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+                for n, p in trainer.G.named_parameters()}, stats
+
+    def rel_l2(a, b):
+        return {n: float((a[n] - r).norm() / r.norm().clamp_min(1e-30)) for n, r in b.items()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_stats = pl_grads(True)
+        got, got_stats = pl_grads(False)
+        spread = rel_l2(pl_grads(True)[0], ref)
+        floor = dict(spread)
+        for seed in FLOOR_SEEDS:
+            fl = rel_l2(pl_grads(True, seed)[0], ref)
+            floor = {n: max(floor[n], fl[n]) for n in ref}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = rel_l2(got, ref)
+    factor = BF16_FLOOR_FACTOR if bf16 else 2
+    limit = {n: max(GRAD_LIMIT, factor * floor[n]) for n in rel}
+    raised = sorted(n for n in rel if limit[n] > GRAD_LIMIT)
+    name = max(rel, key=lambda n: rel[n] / limit[n])
+    penalty = (float(got_stats['Loss/pl_penalty']), float(ref_stats['Loss/pl_penalty']))
+    print(f'PL gradient ({label}), kernels vs plain versions: {len(rel)} parameters, median '
+          f'relative L2 difference {float(np.median(list(rel.values()))):.3g}, max '
+          f'{max(rel.values()):.3g}; worst against its limit {rel[name]:.3g} ({name}; limit '
+          f'{limit[name]:.3g}); the plain path against itself median '
+          f'{float(np.median(list(spread.values()))):.3g}, max {max(spread.values()):.3g}; '
+          f'floor median {float(np.median(list(floor.values()))):.3g}, max '
+          f'{max(floor.values()):.3g}; {len(raised)} limits above {GRAD_LIMIT:g} '
+          f'({raised[:3]}{" ..." if len(raised) > 3 else ""}); penalty {penalty[0]:.6g} (plain '
+          f'{penalty[1]:.6g}) [{card}]')
+    check(all(rel[n] <= limit[n] for n in rel),
+          f'the PL gradient ({label}) through the kernels disagrees with the plain path')
+    del trainer, start
+    torch.cuda.empty_cache()
+    return dict(median=float(np.median(list(rel.values()))), max=max(rel.values()),
+                worst=rel[name], worst_param=name, worst_of_limit=rel[name] / limit[name],
+                spread_median=float(np.median(list(spread.values()))),
+                spread_max=max(spread.values()),
+                floor_median=float(np.median(list(floor.values()))), floor_max=max(floor.values()),
+                raised=len(raised), penalty=penalty[0])
+
+
+def pl_train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, label, card,
+                   device='cuda'):
+    """The satellite step with PL (`loss.pl_weight` 2) at batch BATCH, random
+    weights from a seed: a warm-up R1 + PL step, then PL_PLAIN_STEPS plain
+    steps and one R1 + PL step, counted: K1 2, K3 and its backward 1 per
+    plain step; the R1 + PL step adds PL's render (K3 1 more), its
+    gradient with respect to ws (K1 2, K3's backward 1, through the recorded
+    backwards), and the penalty's gradient: K3's second order 1 and K1's
+    gather entry 2 (one per render pass), with K1 2 more (the plane
+    features' cotangent goes back through the forward's sampler), and K1's
+    scatter entry never (no coordinate cotangent); K5 once per `bias_act`
+    call that autograd does not record; the merged K3 and K4 never. Losses
+    finite, `pl_mean` moved, every parameter of G and D moved. Then one R1
+    step without PL (`pl_weight` 0) on the same trainer: ms per plain, R1 +
+    PL and R1 step, the peak memory of the R1 + PL and the R1 step, and
+    the memory the PL and the R1 phase hold at their start and their peaks."""
+    trainer = Trainer(cfg, device, seed=0)
+    batch = make_batch(cfg, batch_size, 0, device)
+    draws = Draws(torch.Generator(device=device).manual_seed(1))
+    trainer.step(batch, sched, True, draws)
+    torch.cuda.synchronize()
+    modules = {'G': trainer.G, 'D': trainer.D}
+    before = {k: {n: p.detach().clone() for n, p in m.named_parameters()}
+              for k, m in modules.items()}
+    pl_mean = float(trainer.pl_mean)
+    phase_gib = {}  # PL's and R1's (held at the start, peak) in GiB; the step's peak is the max
+
+    def measured(fn, what):
+        def run(*args):
+            torch.cuda.synchronize()
+            before = torch.cuda.max_memory_allocated()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            phase_gib[what] = (held / 2 ** 30, torch.cuda.max_memory_allocated() / 2 ** 30)
+            phase_gib['before_' + what] = before / 2 ** 30
+            return out
+        return run
+
+    trainer._pl, trainer._r1 = measured(trainer._pl, 'pl'), measured(trainer._r1, 'r1')
+    reset_counts(counters)
+    plain_ms, history = [], []
+    with BiasActCalls() as bias_calls:
+        for _ in range(PL_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            history.append(trainer.step(batch, sched, False, draws))
+            torch.cuda.synchronize()
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history.append(trainer.step(batch, sched, True, draws))
+        torch.cuda.synchronize()
+        pl_ms = 1e3 * (time.perf_counter() - t0)
+        pl_peak = max(phase_gib['before_pl'], phase_gib['pl'][1], phase_gib['r1'][1],
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+        pl_phases = {k: phase_gib[k] for k in ('pl', 'r1')}
+    launches = launch_counts(counters)
+    steps = PL_PLAIN_STEPS + 1
+    n_micro = batch_size // (cfg.training.batch_gpu or batch_size)
+    expected = {**{c: 0 for c in launches},
+                'triplane_splat': 2 * n_micro * steps + 4,
+                'ray_march_reduced': n_micro * steps + 1,
+                'ray_march_reduced_bwd': n_micro * steps + 1, 'ray_march_reduced_bwd_bwd': 1,
+                'triplane_splat_gather': 2, 'triplane_splat_dcoords': 0,
+                **{n: bias_calls.unrecorded[n] for n in K5_NAMES.values()}}
+    print(f'PL launches over {PL_PLAIN_STEPS} plain steps and one R1 + PL step ({label}): '
+          f'{launches} (expected {expected}) [{card}]')
+    check(launches == expected, 'kernel launch counts of the PL training path')
+    losses = {k: float(v) for k, v in history[-1].items() if not k.startswith('_')}
+    print('losses of the R1 + PL step: ' + ', '.join(f'{k} {v:.4g}'
+                                                    for k, v in sorted(losses.items())))
+    check('Loss/pl_penalty' in losses and 'Loss/D/r1_penalty' in losses,
+          'the R1 step ran no PL or no R1')
+    check(all(np.isfinite(float(v)) for st in history for k, v in st.items()
+              if not k.startswith('_')), 'non-finite losses')
+    check(float(trainer.pl_mean) != pl_mean, 'pl_mean did not move')
+    for k, m in modules.items():
+        still = [n for n, p in m.named_parameters() if torch.equal(p, before[k][n])]
+        check(not still, f'parameters of {k} did not move: {still[:5]}')
+    full = trainer.cfg
+    trainer.cfg = dataclasses.replace(full, loss=dataclasses.replace(full.loss, pl_weight=0.0))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.step(batch, sched, True, draws)
+    torch.cuda.synchronize()
+    r1_ms = 1e3 * (time.perf_counter() - t0)
+    r1_peak = max(phase_gib['before_r1'], phase_gib['r1'][1],
+                  torch.cuda.max_memory_allocated() / 2 ** 30)
+    trainer.cfg = full
+    t_plain = float(np.median(plain_ms))
+    print(f'satellite step with PL, {label}, batch {batch_size}: plain ms '
+          f'{["%.1f" % t for t in plain_ms]}; R1 + PL step {pl_ms:.1f} ms, R1 step {r1_ms:.1f} '
+          f'ms (PL adds {pl_ms - r1_ms:.1f} ms); peak memory of the R1 + PL step '
+          f'{pl_peak:.2f} GiB, of the R1 step {r1_peak:.2f} GiB; the PL phase holds '
+          f'{pl_phases["pl"][0]:.2f} GiB at its start and peaks at {pl_phases["pl"][1]:.2f}, the '
+          f'R1 phase {pl_phases["r1"][0]:.2f} and {pl_phases["r1"][1]:.2f} [{card}]')
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, dict(plain_ms=t_plain, r1_pl_ms=pl_ms, r1_ms=r1_ms, peak_r1_pl_gib=pl_peak,
+                          peak_r1_gib=r1_peak, pl_phase_gib=pl_phases['pl'],
+                          r1_phase_gib=pl_phases['r1'])
+
+
 CUT_Q = 0.5                 # NFS's quantile cut
 NFS_KERNEL_LIMIT = 1e-5     # depth maps, K3's cut entry vs its plain version: of max |depth|
 NFS_CPU_LIMIT = 1e-3        # depth maps, card vs CPU at the float32 cut: abs, every pixel uncut,
@@ -3341,6 +3730,21 @@ def main():
                 tmp_dir, [splat.triplane_splat, ray_march.ray_march_reduced,
                           ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                           triplane_mlp.triplane_mlp, bias_act.bias_act], card)
+    pl_counters = [splat.triplane_splat, splat.triplane_splat_gather,
+                   splat.triplane_splat_dcoords, ray_march.ray_march_reduced,
+                   ray_march.ray_march_reduced_bwd, ray_march.ray_march_reduced_bwd_bwd,
+                   ray_march.ray_march_merged, triplane_mlp.triplane_mlp, bias_act.bias_act]
+    with phase('pl', seconds):
+        k3_bwd_bwd, k1_gather, k1_dcoords = pl_kernel_phase(ray_march, splat)
+        pl_checks = {label: pl_check_phase(Trainer, Draws, sched, profile_training.train_config,
+                                           profile_training.make_batch, overrides, card)
+                     for label, overrides in (('float32', profile_training.FP32), ('bf16', ()))}
+        pl_launches, pl_own = pl_train_phase(
+            Trainer, Draws, sched, profile_training.train_config(PL), profile_training.make_batch,
+            profile_training.BATCH, pl_counters, 'own precision (bf16 G and D)', card)
+        pl_fp32_launches, pl_fp32 = pl_train_phase(
+            Trainer, Draws, sched, profile_training.train_config(profile_training.FP32 + PL),
+            profile_training.make_batch, profile_training.BATCH, pl_counters, 'float32 cut', card)
     sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,
                     ray_march.ray_march_reduced_bwd, ray_march.ray_march_merged,
                     triplane_mlp.triplane_mlp, bias_act.bias_act]
@@ -3368,14 +3772,15 @@ def main():
                'settings_render': settings_render_launches,
                'settings_custom_loop': custom_launches, 'stylegan2': sg2_launches,
                'stylegan2_float32': sg2_fp32_launches, 'stylegan2_loop': sg2_loop_launches,
-               'metrics': metrics_launches}
+               'metrics': metrics_launches, 'pl': pl_launches, 'pl_float32': pl_fp32_launches}
     k5['bound_ms_per_request'] = serve_fp32['k5_bound_ms']
     k5_bf16['bound_ms_per_request'] = serve_own['k5_bound_ms']
     k5['launches_per_request'] = {'own precision': serve_own['k5_per_request']['bias_act'],
                                   'float32 cut': serve_fp32['k5_per_request']['bias_act']}
     k5_bf16['launches_per_request'] = {'own precision':
                                        serve_own['k5_per_request']['bias_act_bf16']}
-    new_entries = (k4_bf16, k3_merged_bf16, k3_cut_bf16, k1_bf16, threshold)
+    new_entries = (k4_bf16, k3_merged_bf16, k3_cut_bf16, k1_bf16, threshold, k3_bwd_bwd,
+                   k1_gather, k1_dcoords)
     for k in (k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16, *new_entries):
         k['launches_by_path'] = {path: got.get(k['name'], 0) for path, got in by_path.items()}
         k['launches'] = sum(k['launches_by_path'].values())
@@ -3394,6 +3799,8 @@ def main():
                     'check': sg2_check}
     print(f'stylegan2: {json.dumps(sg2_readings)}')
     print(f'metrics: {json.dumps(metrics_readings)}')
+    print(f'pl: ' + json.dumps({'card': card, 'check': pl_checks, 'own': pl_own,
+                                'float32': pl_fp32}))
     print(f'serve render_bf16: ' + json.dumps({k: v for k, v in serve_bf16.items()
                                                if k not in ('serve', 'images')}))
     print(json.dumps({'kernels': [k3, k3_merged, k3_cut, k3_bwd, k1, k4, k5, k5_bf16,

@@ -85,6 +85,23 @@
 // warp-per-ray layout serves it: the transmittance is the forward's product
 // scan, and sum_{k>i} is the ray total minus a shuffle prefix sum.
 
+// The backward's own derivative (ray_march_reduced_bwd_bwd_kernel), for a
+// gradient of a gradient through the march (the 3DGP model's path-length
+// regularization, loss.pl_weight > 0). The JAX package gets it by
+// differentiating its jnp marcher twice, or its analytic VJP
+// `_ray_march_bwd` (tdgp/ops/pallas_kernels.py:251) once. Given the
+// cotangents (U_c, U_x, U_t) of the backward's three outputs it returns
+// those of its seven inputs, the reverse sweep of the backward's own
+// computation, per ray (ops/ray_march.py `RayMarchReducedBackward` has the
+// sweep's steps). Besides the forward's scans it takes the exclusive
+// prefix sum of q_i = gf_i-bar / f_i (the derivative of the suffix sum
+// sum_{k>i} g_k w_k is a prefix sum), and the suffix sum of T_i T_i-bar for
+// the product's derivative; with last_back, one ray total more. Layout: a
+// warp per ray, sample s = 32 r + lane in round r < K = ceil(S / 32) <= 4,
+// every per-sample value of the sweep in registers; the scans carry from
+// round to round. It reads the three inputs and three cotangents and
+// writes three per-sample outputs, 2 (C + 2) + (C + 2) floats a sample.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -601,6 +618,227 @@ ray_march_reduced_bwd_kernel(const float* __restrict__ colors,     // [N, S, C]
   }
 }
 
+// Inclusive sum scan over the warp's lanes.
+__device__ __forceinline__ float inclusive_sum(float v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(kFullMask, v, off);
+    if (lane >= off) v += up;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_allsum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+// The backward's derivative (see the note at the top); u_* may be null
+// (a zero cotangent). K rounds of 32 samples, K * 32 >= n_steps.
+template <int K>
+__global__ void __launch_bounds__(32 * kRaysPerBlock)
+ray_march_reduced_bwd_bwd_kernel(const float* __restrict__ colors,     // [N, S, C]
+                                 const float* __restrict__ densities,  // [N, S]
+                                 const float* __restrict__ depths,     // [N, S]
+                                 const float* __restrict__ g_rgb,      // [N, C]
+                                 const float* __restrict__ g_depth,    // [N]
+                                 const float* __restrict__ g_wsum,     // [N]
+                                 const float* __restrict__ g_ftrans,   // [N]
+                                 const float* __restrict__ u_colors,   // [N, S, C] or null
+                                 const float* __restrict__ u_densities,  // [N, S] or null
+                                 const float* __restrict__ u_depths,   // [N, S] or null
+                                 float* __restrict__ b_colors,         // [N, S, C]
+                                 float* __restrict__ b_densities,      // [N, S]
+                                 float* __restrict__ b_depths,         // [N, S]
+                                 float* __restrict__ b_rgb,            // [N, C]
+                                 float* __restrict__ b_depth,          // [N]
+                                 float* __restrict__ b_wsum,           // [N]
+                                 float* __restrict__ b_ftrans,         // [N]
+                                 long long n_rays, int n_steps, int n_channels,
+                                 int clamp_mode, float sp_beta, float last_delta,
+                                 int last_back) {
+  const int lane = threadIdx.x & 31;
+  const long long ray = (long long)blockIdx.x * kRaysPerBlock + (threadIdx.x >> 5);
+  if (ray >= n_rays) return;  // the whole warp leaves together
+  const long long base = ray * n_steps;
+  const int last = n_steps - 1;
+
+  float grgb[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kMaxChannels; ++k)
+    if (k < n_channels) grgb[k] = g_rgb[ray * n_channels + k];
+  const float gdep = g_depth[ray], gws = g_wsum[ray], gft = g_ftrans[ray];
+  auto cot = [&](int s) {  // a_s
+    float a = depths[base + s] * gdep + gws;
+    const float* c = colors + (base + s) * n_channels;
+#pragma unroll
+    for (int k = 0; k < kMaxChannels; ++k)
+      if (k < n_channels) a += c[k] * grgb[k];
+    return a;
+  };
+  const float a_last = cot(last);
+
+  // the backward's values, sample 32 r + lane in slot r
+  float t[K], dl[K], sg[K], ds[K], d2[K], e[K], al[K], f[K], T[K], w[K], g[K], gwp[K];
+  float carry = 1.f, w_acc = 0.f, gw_before = 0.f;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int s = 32 * r + lane;
+    const bool valid = s < n_steps;
+    t[r] = dl[r] = sg[r] = ds[r] = d2[r] = al[r] = g[r] = 0.f;
+    e[r] = f[r] = 1.f;  // an empty slot: factor 1
+    if (valid) {
+      t[r] = depths[base + s];
+      dl[r] = s < last ? depths[base + s + 1] - t[r] : last_delta;
+      const float x = densities[base + s];
+      sg[r] = clamp_density(x, clamp_mode, sp_beta);
+      if (clamp_mode == 0) {
+        const float sig = 1.f / (1.f + expf(-sp_beta * x));
+        ds[r] = sig;
+        d2[r] = sp_beta * sig * (1.f - sig);
+      } else {
+        ds[r] = x > 0.f ? 1.f : 0.f;
+      }
+      e[r] = expf(-dl[r] * sg[r]);
+      al[r] = 1.f - e[r];
+      f[r] = (1.f - al[r]) + 1e-10f;
+      g[r] = cot(s);
+      if (last_back) g[r] = s == last ? 0.f : g[r] - a_last;
+    }
+    float incl;
+    const float excl = exclusive_product(f[r], lane, &incl);
+    T[r] = carry * excl;
+    w[r] = valid ? al[r] * T[r] : 0.f;
+    w_acc += w[r];
+    gwp[r] = gw_before + inclusive_sum(g[r] * w[r], lane);
+    gw_before = __shfl_sync(kFullMask, gwp[r], 31);
+    carry *= __shfl_sync(kFullMask, incl, 31);
+  }
+  const float t_s = carry, w_total = warp_allsum(w_acc), gw_total = gw_before;
+
+  // the reverse sweep, part 1: from the outputs back to the suffix sums
+  float b_sg[K], b_e[K], b_dl[K], b_ds[K], b_g[K], b_T[K], b_f[K], b_w[K];
+  float bG[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
+  float b_gdep = 0.f, b_gws = 0.f, b_ts = 0.f, b_gft = 0.f, q_before = 0.f, bwc_last = 0.f;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int s = 32 * r + lane;
+    const bool valid = s < n_steps;
+    b_sg[r] = b_e[r] = b_dl[r] = b_ds[r] = b_g[r] = b_T[r] = b_f[r] = b_w[r] = 0.f;
+    float q = 0.f;
+    if (valid) {
+      const float ux = u_densities ? u_densities[base + s] : 0.f;
+      const float ut = u_depths ? u_depths[base + s] : 0.f;
+      const float ut_next = u_depths && s < last ? u_depths[base + s + 1] : 0.f;
+      const float wc = (last_back && s == last) ? w[r] + (1.f - w_total) : w[r];
+      float bwc = ut * gdep;
+      if (u_colors) {
+        const float* uc = u_colors + (base + s) * n_channels;
+#pragma unroll
+        for (int k = 0; k < kMaxChannels; ++k)
+          if (k < n_channels) {
+            bwc += uc[k] * grgb[k];
+            bG[k] += wc * uc[k];
+          }
+      }
+      b_gdep += wc * ut;
+      if (s == last) bwc_last = bwc;
+      const float b_gd = s < last ? ut_next - ut : 0.f;
+      const float suffix = gw_total - gwp[r];
+      const float rest = suffix + gft * t_s;
+      const float gf = -g[r] * T[r] + rest / f[r];
+      const float b_gf = b_gd * (-sg[r] * e[r]) + ux * (-dl[r] * e[r] * ds[r]);
+      b_sg[r] = b_gd * gf * (-e[r]);
+      b_e[r] = b_gd * gf * (-sg[r]) + ux * gf * (-dl[r] * ds[r]);
+      b_dl[r] = ux * gf * (-e[r] * ds[r]);
+      b_ds[r] = ux * gf * (-dl[r] * e[r]);
+      q = b_gf / f[r];
+      b_g[r] = -b_gf * T[r];
+      b_T[r] = -b_gf * g[r];
+      b_gft += q * t_s;
+      b_ts += q * gft;
+      b_f[r] = -q * rest / f[r];
+      b_w[r] = bwc;
+    }
+    const float q_incl = inclusive_sum(q, lane);
+    const float p = q_before + q_incl - q;  // sum_{i < s} q_i
+    b_g[r] += p * w[r];
+    b_w[r] += p * g[r];
+    q_before += __shfl_sync(kFullMask, q_incl, 31);
+  }
+  b_ts = warp_allsum(b_ts);
+  const float b_wsum_all = last_back ? -__shfl_sync(kFullMask, bwc_last, last & 31) : 0.f;
+
+  // part 2: the weights' cotangent complete, its share of the transmittance
+  float bg_rest = 0.f, btt_acc = 0.f;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int s = 32 * r + lane;
+    if (s < n_steps) {
+      b_w[r] += b_wsum_all;
+      if (s < last) bg_rest += b_g[r];
+      b_T[r] += b_w[r] * al[r];
+      btt_acc += b_T[r] * T[r];
+    }
+  }
+  bg_rest = warp_allsum(bg_rest);
+  const float btt_total = warp_allsum(btt_acc);
+
+  // part 3: through a, the product and the clamp to the inputs
+  float btt_before = 0.f, bdl_prev = 0.f;  // the delta cotangent of the round before's last
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int s = 32 * r + lane;
+    const bool valid = s < n_steps;
+    float bdl = 0.f;
+    const float btt = valid ? b_T[r] * T[r] : 0.f;
+    const float btt_incl = inclusive_sum(btt, lane);
+    if (valid) {
+      const float ba = last_back ? (s < last ? b_g[r] : -bg_rest) : b_g[r];
+      const float* c = colors + (base + s) * n_channels;
+      float* bc = b_colors + (base + s) * n_channels;
+#pragma unroll
+      for (int k = 0; k < kMaxChannels; ++k)
+        if (k < n_channels) {
+          bc[k] = ba * grgb[k];
+          bG[k] += ba * c[k];
+        }
+      b_gdep += ba * t[r];
+      b_gws += ba;
+      const float suffix_tt = btt_total - (btt_before + btt_incl);  // sum_{i > s}
+      const float bf = b_f[r] + (suffix_tt + b_ts * t_s) / f[r];
+      const float balpha = b_w[r] * T[r] - bf;
+      const float be = b_e[r] - balpha;
+      bdl = b_dl[r] + be * (-sg[r] * e[r]);
+      const float bsg = b_sg[r] + be * (-dl[r] * e[r]);
+      b_densities[base + s] = bsg * ds[r] + b_ds[r] * d2[r];
+      if (s == last) bdl = 0.f;  // the last delta is a constant
+    }
+    float bdl_left = __shfl_up_sync(kFullMask, bdl, 1);
+    if (lane == 0) bdl_left = bdl_prev;
+    if (valid) {
+      const float ba = last_back ? (s < last ? b_g[r] : -bg_rest) : b_g[r];
+      b_depths[base + s] = ba * gdep - bdl + (s > 0 ? bdl_left : 0.f);
+    }
+    btt_before += __shfl_sync(kFullMask, btt_incl, 31);
+    bdl_prev = __shfl_sync(kFullMask, bdl, 31);
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxChannels; ++k) bG[k] = warp_allsum(bG[k]);
+  b_gdep = warp_allsum(b_gdep);
+  b_gws = warp_allsum(b_gws);
+  b_gft = warp_allsum(b_gft);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kMaxChannels; ++k)
+      if (k < n_channels) b_rgb[ray * n_channels + k] = bG[k];
+    b_depth[ray] = b_gdep;
+    b_wsum[ray] = b_gws;
+    b_ftrans[ray] = b_gft;
+  }
+}
+
 template <bool Cut, typename TC = float, typename TX = float>
 int launch_merged(const float* t1, const TC* c1, const TX* x1, const float* t2,
                   const TC* c2, const TX* x2, const float* thresh, float* rgb,
@@ -735,6 +973,37 @@ int tdgp_ray_march_reduced_bwd(const float* colors, const float* densities,
       g_densities, g_depths, n_rays, n_steps, n_channels, clamp_mode, sp_beta,
       last_delta, last_back);
   return (int)cudaGetLastError();
+}
+
+// The backward's derivative: the cotangents u_colors, u_densities, u_depths
+// (any may be null, for zero) of the backward's outputs -> those of its
+// inputs. Requires 1 <= n_channels <= 4 and 1 <= n_steps <= 128.
+int tdgp_ray_march_reduced_bwd_bwd(const float* colors, const float* densities,
+                                   const float* depths, const float* g_rgb, const float* g_depth,
+                                   const float* g_wsum, const float* g_ftrans,
+                                   const float* u_colors, const float* u_densities,
+                                   const float* u_depths, float* b_colors, float* b_densities,
+                                   float* b_depths, float* b_rgb, float* b_depth, float* b_wsum,
+                                   float* b_ftrans, long long n_rays, int n_steps,
+                                   int n_channels, int clamp_mode, float sp_beta,
+                                   float last_delta, int last_back, void* stream) {
+  if (n_channels < 1 || n_channels > kMaxChannels || n_steps < 1 || n_steps > 128 || n_rays < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
+  auto launch = [&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    ray_march_reduced_bwd_bwd_kernel<K><<<(unsigned)blocks, 32 * kRaysPerBlock, 0,
+                                          (cudaStream_t)stream>>>(
+        colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans, u_colors, u_densities,
+        u_depths, b_colors, b_densities, b_depths, b_rgb, b_depth, b_wsum, b_ftrans, n_rays,
+        n_steps, n_channels, clamp_mode, sp_beta, last_delta, last_back);
+    return (int)cudaGetLastError();
+  };
+  const int rounds = (n_steps + 31) / 32;
+  if (rounds == 1) return launch(Int<1>{});
+  if (rounds == 2) return launch(Int<2>{});
+  if (rounds == 3) return launch(Int<3>{});
+  return launch(Int<4>{});
 }
 
 const char* tdgp_cuda_error_string(int code) {

@@ -78,6 +78,37 @@
 // and the touched texels in 2 bytes, the float32 addend read and g_planes
 // written in 2 bytes (ops/splat.py and chip_smoke.py count it).
 
+// Second order (a gradient of a gradient through the sampler: the 3DGP
+// model's path-length regularization, loss.pl_weight > 0). The JAX package
+// differentiates its sampler's backward again by autodiff; here the
+// backward (g_planes, g_coords) = B(planes, coords, g) is differentiated by
+// two entries, given the cotangents U_planes [3N, H, W, F] and U_coords
+// [N, P, 3] of its outputs. With w_c the bilinear weights of an entry, m_c
+// its corner masks, and (du, dv) = (U_coords on the plane's two axes) x
+// (sx, sy):
+//  - tdgp_triplane_splat_gather: per point, d/dg = 1/3 sum over the planes
+//    of sum_c m_c (w_c U_planes[c] + (du dw_c/dtx + dv dw_c/dty) planes[c])
+//    (a bilinear gather of U_planes, and one of the planes with the weights'
+//    derivatives), and d/dcoords from d/dtx = <g/3, sum_c m_c dw_c/dtx
+//    U_planes[c]> + dv X and d/dty = <g/3, sum_c m_c dw_c/dty U_planes[c]>
+//    + du X, X = <g/3, v00 - v01 - v10 + v11> the weights' cross term
+//    d^2/dtx dty (the terms in tx^2 and ty^2 are zero, the masks and floor
+//    have no derivative). A warp per point, lane f on feature f, the three
+//    planes in turn; without U_coords nothing of `planes` is read.
+//  - tdgp_triplane_splat_dcoords: d/dplanes = the scatter of g/3 with the
+//    derivative weights du dw_c/dtx + dv dw_c/dty: K1's strip kernel on the
+//    same bins, with those weights in place of w_c, float32 out (plane
+//    gradients accumulate in float32). It is zero where U_coords is (as in
+//    the path-length phase, whose coordinates do not depend on ws), and
+//    then not launched.
+// Both are bound by device memory, as K1 is: at PL's points (8 x 64^2 x 32 a
+// pass, planes 24 x 512^2 x 32) the gather must read the touched texels of
+// U_planes, g and the coordinates and write g's and the coordinates'
+// cotangents (0.95 GB, 0.28 ms at 3.35 TB/s); the scatter writes the whole
+// plane gradient once (0.96 GB). The gather reads each of its 12 corner rows
+// per point through the L1 (neighbouring samples of a ray share texels);
+// the scatter inherits K1's strips, which write each texel once.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -295,7 +326,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
 }
 
 // TP: the planes' and the cotangent's type (float or bf16); TO: g_planes'.
-template <int F, typename TP = float, typename TO = float>
+// Deriv: the second-order scatter, each entry's weights the derivative ones
+// of its point's u_coords (scaled by sx, sy) in place of the bilinear ones.
+template <int F, typename TP = float, typename TO = float, bool Deriv = false>
 __global__ void __launch_bounds__(32 * kWarps)
 splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
                    const TP* __restrict__ g,           // [N, P, F]
@@ -305,7 +338,9 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
                    const float* __restrict__ addend,   // [3N, H, W, F] float32 or null
                    TO* __restrict__ g_planes,          // [3N, H, W, F]
                    float2* __restrict__ d_plane,       // [3N, P] (dtx, dty) or null
-                   Geometry geo, int n_bins) {
+                   Geometry geo, int n_bins,
+                   const float* __restrict__ u_coords = nullptr,  // [N, P, 3], with Deriv
+                   float sx = 0.f, float sy = 0.f) {
   static_assert(F % 4 == 0 && F <= 32, "a lane per feature");
   constexpr int kF4 = F / 4, kTexels = kStripH * kStripW;
   __shared__ __align__(16) float s_acc[kWarps][kTexels * F];
@@ -328,13 +363,18 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
     reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   int next_e = 0;
-  float next_u = 0.f, next_v = 0.f;
+  float next_u = 0.f, next_v = 0.f, next_du = 0.f, next_dv = 0.f;
   auto fetch = [&](int base) {
     if (base + lane < last) {
       next_e = entries[base + lane];
       const float* c = coords + (batch_row + next_e) * 3;
       next_u = c[iu];
       next_v = c[iv];
+      if constexpr (Deriv) {
+        const float* u = u_coords + (batch_row + next_e) * 3;
+        next_du = u[iu] * sx;
+        next_dv = u[iv] * sy;
+      }
     }
   };
   int run = -1;  // the corners (pack_entry & 0xffff) of the run being summed
@@ -357,6 +397,7 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
     const int count = min(32, last - base);
     // entry base + lane: its corners
     const int my_e = next_e;
+    const float my_du = next_du, my_dv = next_dv;
     const float2 q = pixel_xy(next_u, next_v, geo);
     fetch(base + 32);
     const float fx0 = floorf(q.x), fy0 = floorf(q.y);
@@ -383,6 +424,11 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
         const int pos = j + u < count ? __shfl_sync(kFullMask, my_pos, src) : 0;
         const float tx = __shfl_sync(kFullMask, my_tx, src);
         const float ty = __shfl_sync(kFullMask, my_ty, src);
+        float du = 0.f, dv = 0.f;
+        if constexpr (Deriv) {
+          du = __shfl_sync(kFullMask, my_du, src);
+          dv = __shfl_sync(kFullMask, my_dv, src);
+        }
         const bool home = pos >> 16 & 1;  // the same for the whole warp
         if (j + u < count) {
           if ((pos & 0xffff) != run) {  // a new run: flush the last, read the corners
@@ -398,10 +444,17 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
               v11 = active && (pos >> 15 & 1) ? widen(__ldg(pv + (long long)(width + 1) * F)) : 0.f;
             }
           }
-          r00 += (1.f - tx) * (1.f - ty) * gv[u];
-          r01 += tx * (1.f - ty) * gv[u];
-          r10 += (1.f - tx) * ty * gv[u];
-          r11 += tx * ty * gv[u];
+          if constexpr (Deriv) {  // du dw/dtx + dv dw/dty of each corner
+            r00 += (-du * (1.f - ty) - dv * (1.f - tx)) * gv[u];
+            r01 += (du * (1.f - ty) - dv * tx) * gv[u];
+            r10 += (-du * ty + dv * (1.f - tx)) * gv[u];
+            r11 += (du * ty + dv * tx) * gv[u];
+          } else {
+            r00 += (1.f - tx) * (1.f - ty) * gv[u];
+            r01 += tx * (1.f - ty) * gv[u];
+            r10 += (1.f - tx) * ty * gv[u];
+            r11 += tx * ty * gv[u];
+          }
         }
         any_home |= home;
         v[2 * u] = home ? gv[u] * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10)) : 0.f;
@@ -447,6 +500,85 @@ __global__ void coords_grad_kernel(const float2* __restrict__ d_plane, float* __
   g_coords[i * 3] = dxy.x * sx + dxz.x * sx;
   g_coords[i * 3 + 1] = dxy.y * sy + dyz.x * sx;
   g_coords[i * 3 + 2] = dxz.y * sy + dyz.y * sy;
+}
+
+// The second order's gather entry (see the note at the top): a warp per
+// point (n, p), lane f on feature f. u_planes, u_coords and planes may be
+// null: a zero cotangent, or (planes) not read; planes is needed with
+// u_coords.
+template <int F>
+__global__ void __launch_bounds__(256)
+splat_gather_kernel(const float* __restrict__ planes,    // [3N, H, W, F] or null
+                    const float* __restrict__ coords,    // [N, P, 3]
+                    const float* __restrict__ g,         // [N, P, F]
+                    const float* __restrict__ u_planes,  // [3N, H, W, F] or null
+                    const float* __restrict__ u_coords,  // [N, P, 3] or null
+                    float* __restrict__ b_g,             // [N, P, F]
+                    float* __restrict__ b_coords,        // [N, P, 3]
+                    long long n_points, Geometry geo, float sx, float sy) {
+  const int lane = threadIdx.x & 31;
+  const long long point = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (point >= n_points) return;  // the whole warp
+  const bool active = lane < F;
+  const int height = geo.height, width = geo.width;
+  const long long n = point / geo.points_per_batch;
+  const float gp = active ? g[point * F + lane] * (1.f / 3.f) : 0.f;
+  float bg = 0.f, bc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int iu = k == 2 ? 1 : 0, iv = k == 0 ? 1 : 2;
+    const float2 q = plane_xy(coords, point, k, geo);
+    const float fx0 = floorf(q.x), fy0 = floorf(q.y);
+    const int x0 = (int)fx0, y0 = (int)fy0;
+    const float tx = q.x - fx0, ty = q.y - fy0;
+    const bool in[4] = {y0 >= 0 && y0 < height && x0 >= 0 && x0 < width,
+                        y0 >= 0 && y0 < height && x0 + 1 >= 0 && x0 + 1 < width,
+                        y0 + 1 >= 0 && y0 + 1 < height && x0 >= 0 && x0 < width,
+                        y0 + 1 >= 0 && y0 + 1 < height && x0 + 1 >= 0 && x0 + 1 < width};
+    const long long plane_row = (3 * n + k) * (long long)height * width;
+    const long long at[4] = {plane_row + (long long)y0 * width + x0,
+                             plane_row + (long long)y0 * width + x0 + 1,
+                             plane_row + (long long)(y0 + 1) * width + x0,
+                             plane_row + (long long)(y0 + 1) * width + x0 + 1};
+    const float w[4] = {(1.f - tx) * (1.f - ty), tx * (1.f - ty), (1.f - tx) * ty, tx * ty};
+    const float dwx[4] = {-(1.f - ty), 1.f - ty, -ty, ty};  // d w_c / d tx
+    const float dwy[4] = {-(1.f - tx), -tx, 1.f - tx, tx};  // d w_c / d ty
+    float du = 0.f, dv = 0.f;
+    if (u_coords != nullptr) {
+      du = u_coords[point * 3 + iu] * sx;
+      dv = u_coords[point * 3 + iv] * sy;
+    }
+    float ux = 0.f, uy = 0.f, cross = 0.f;  // per lane: d/dtx and d/dty of <g/3, U gather>, X
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!(active && in[c])) continue;
+      if (u_planes != nullptr) {
+        const float u = __ldg(u_planes + at[c] * F + lane);
+        bg += w[c] * u;
+        ux += dwx[c] * u;
+        uy += dwy[c] * u;
+      }
+      if (u_coords != nullptr) {
+        const float v = __ldg(planes + at[c] * F + lane);
+        bg += (du * dwx[c] + dv * dwy[c]) * v;
+        cross += (c == 0 || c == 3 ? v : -v);
+      }
+    }
+    float btx = gp * ux + dv * gp * cross, bty = gp * uy + du * gp * cross;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      btx += __shfl_xor_sync(kFullMask, btx, off);
+      bty += __shfl_xor_sync(kFullMask, bty, off);
+    }
+    bc[iu] += btx * sx;
+    bc[iv] += bty * sy;
+  }
+  if (active) b_g[point * F + lane] = bg * (1.f / 3.f);
+  if (lane == 0) {
+    b_coords[point * 3] = bc[0];
+    b_coords[point * 3 + 1] = bc[1];
+    b_coords[point * 3 + 2] = bc[2];
+  }
 }
 
 template <int F, typename TP, typename TO>
@@ -563,6 +695,59 @@ int tdgp_triplane_splat_bf16(const __nv_bfloat16* planes, const __nv_bfloat16* g
   return splat(planes, g, coords, entries, offsets, addend, static_cast<float*>(g_planes),
                d_scratch, g_coords, n_batch, points_per_batch, height, width, feats, inv_scale, sx,
                sy, (cudaStream_t)stream);
+}
+
+// The second order's gather entry: b_g [N, P, F] and b_coords [N, P, 3]
+// from planes (read only with u_coords), coords [N, P, 3], g [N, P, F] and
+// the cotangents u_planes [3N, H, W, F] and u_coords [N, P, 3] (either may be
+// null, for zero). sx, sy as tdgp_triplane_splat's. F is 8, 16 or 32.
+int tdgp_triplane_splat_gather(const float* planes, const float* coords, const float* g,
+                               const float* u_planes, const float* u_coords, float* b_g,
+                               float* b_coords, long long n_batch, long long points_per_batch,
+                               int height, int width, int feats, float inv_scale, float sx,
+                               float sy, void* stream) {
+  Geometry geo;
+  long long n_bins;
+  if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins) ||
+      (u_coords != nullptr && planes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long n_points = n_batch * points_per_batch;
+  const unsigned blocks = (unsigned)((n_points + 7) / 8);
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(planes, coords, g, u_planes, u_coords, b_g,
+                                                     b_coords, n_points, geo, sx, sy);
+    return (int)cudaGetLastError();
+  };
+  if (feats == 32) return launch(splat_gather_kernel<32>);
+  if (feats == 16) return launch(splat_gather_kernel<16>);
+  if (feats == 8) return launch(splat_gather_kernel<8>);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The second order's scatter entry over the bins of tdgp_splat_bin_entries:
+// g_planes [3N, H, W, F] (float32, needs no zeroing) = the scatter of g / 3
+// with the derivative weights of u_coords [N, P, 3]. F is 8, 16 or 32.
+int tdgp_triplane_splat_dcoords(const float* g, const float* coords, const float* u_coords,
+                                const int* entries, const int* offsets, float* g_planes,
+                                long long n_batch, long long points_per_batch, int height,
+                                int width, int feats, float inv_scale, float sx, float sy,
+                                void* stream) {
+  Geometry geo;
+  long long n_bins;
+  if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins) ||
+      u_coords == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n_bins + kWarps - 1) / kWarps);
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+        nullptr, g, coords, entries, offsets, nullptr, g_planes, nullptr, geo, (int)n_bins,
+        u_coords, sx, sy);
+    return (int)cudaGetLastError();
+  };
+  if (feats == 32) return launch(splat_strip_kernel<32, float, float, true>);
+  if (feats == 16) return launch(splat_strip_kernel<16, float, float, true>);
+  if (feats == 8) return launch(splat_strip_kernel<8, float, float, true>);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* tdgp_splat_error_string(int code) {

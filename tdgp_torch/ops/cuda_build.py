@@ -20,8 +20,10 @@ from typing import Dict, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, 'build')
+# -split-compile=0: the device optimizer on every core; ray_march.cu's 145 kernels built in
+# 45 s instead of 107 s on the H100's host (nvcc 12.9)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-split-compile=0', '-shared', '-Xcompiler', '-fPIC')
 
 
 def sources() -> Dict[str, str]:

@@ -7,14 +7,19 @@ Port of `tdgp/ops/pallas_kernels.py:ray_march_fused`: the forward replaces
 final march when `generator.ray_march_impl` is 'fused'. The kernels are in
 `csrc/ray_march.cu`; its source notes give the bounds and the design.
 
-`ray_march_reduced` is differentiable (`RayMarchReduced`, which saves only
-the three inputs, as the JAX VJP does). For CUDA tensors its forward
-launches the forward kernel and counts the launch in
-`ray_march_reduced.launches`, and its backward launches the backward kernel
-and counts it in `ray_march_reduced_bwd.launches`. For CPU tensors, and
-only for them, it computes `ray_march_reduced_plain` and
-`ray_march_reduced_bwd_plain`, the same functions in plain PyTorch, which
-the tests and the on-card comparison use as the reference.
+`ray_march_reduced` is differentiable twice (`RayMarchReduced`, which
+saves only the three inputs, as the JAX VJP does, and whose backward is
+itself a recorded function, `RayMarchReducedBackward`). For CUDA tensors
+its forward launches the forward kernel and counts the launch in
+`ray_march_reduced.launches`, its backward launches the backward kernel and
+counts it in `ray_march_reduced_bwd.launches`, and the backward's own
+backward (a gradient of a gradient: the 3DGP model's path-length
+regularization) launches the second-order kernel, counted in
+`ray_march_reduced_bwd_bwd.launches`. For CPU tensors, and only for them,
+it computes `ray_march_reduced_plain`, `ray_march_reduced_bwd_plain` and
+`ray_march_reduced_bwd_bwd_plain` (autograd through the backward's plain
+version), the same functions in plain PyTorch, which the tests and the
+on-card comparison use as the reference.
 
 `ray_march_merged` takes the two per-ray sorted sample sets of the render
 (coarse and fine) as the model evaluated them and computes what
@@ -392,6 +397,9 @@ def _kernels():
     bwd = lib.tdgp_ray_march_reduced_bwd
     bwd.argtypes = [ctypes.c_void_p] * 10 + scalars
     bwd.restype = ctypes.c_int
+    bwd_bwd = lib.tdgp_ray_march_reduced_bwd_bwd
+    bwd_bwd.argtypes = [ctypes.c_void_p] * 17 + scalars
+    bwd_bwd.restype = ctypes.c_int
     merged = lib.tdgp_ray_march_merged
     merged.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -407,7 +415,7 @@ def _kernels():
     cut_bf16.restype = ctypes.c_int
     lib.tdgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_cuda_error_string.restype = ctypes.c_char_p
-    return types.SimpleNamespace(fwd=fwd, bwd=bwd, merged=merged, cut=cut,
+    return types.SimpleNamespace(fwd=fwd, bwd=bwd, bwd_bwd=bwd_bwd, merged=merged, cut=cut,
                                  merged_bf16=merged_bf16, cut_bf16=cut_bf16,
                                  error_string=lib.tdgp_cuda_error_string)
 
@@ -485,9 +493,97 @@ def ray_march_reduced_bwd(colors, densities, depths, g_rgb, g_depth, g_wsum, g_f
     return g_colors, g_densities, g_depths
 
 
+MAX_STEPS_BWD_BWD = 128  # samples a ray that the second-order kernel takes (csrc/ray_march.cu)
+
+
+def ray_march_reduced_bwd_bwd_plain(colors, densities, depths, g_rgb, g_depth, g_wsum,
+                                    g_ftrans, u_colors, u_densities, u_depths,
+                                    clamp_mode: str = 'softplus', sp_beta: float = 1.0,
+                                    use_inf_depth: bool = True, last_back: bool = False):
+    """The derivative of `ray_march_reduced_bwd_plain`: autograd through it,
+    from the cotangents (u_colors, u_densities, u_depths; None for zero) of
+    its three outputs -> those of its seven inputs (colors, densities,
+    depths, g_rgb, g_depth, g_wsum, g_ftrans)."""
+    inputs = [t.detach().requires_grad_(True)
+              for t in (colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans)]
+    with torch.enable_grad():
+        outs = ray_march_reduced_bwd_plain(*inputs, clamp_mode, sp_beta, use_inf_depth,
+                                           last_back)
+    pairs = [(o, u) for o, u in zip(outs, (u_colors, u_densities, u_depths)) if u is not None]
+    if not pairs:
+        return tuple(torch.zeros_like(t) for t in inputs)
+    grads = torch.autograd.grad([o for o, _ in pairs], inputs, [u for _, u in pairs],
+                                allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, inputs))
+
+
+def ray_march_reduced_bwd_bwd(colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans,
+                              u_colors, u_densities, u_depths, clamp_mode: str = 'softplus',
+                              sp_beta: float = 1.0, use_inf_depth: bool = True,
+                              last_back: bool = False):
+    """The second-order kernel for CUDA tensors (counted in
+    `ray_march_reduced_bwd_bwd.launches`), `ray_march_reduced_bwd_bwd_plain`
+    for CPU tensors -> the cotangents of (colors, densities, depths, g_rgb,
+    g_depth, g_wsum, g_ftrans). A cotangent u_* of None is zero."""
+    _check(colors, densities, depths, clamp_mode)
+    device = colors.device
+    if device.type == 'cpu':
+        return ray_march_reduced_bwd_bwd_plain(colors, densities, depths, g_rgb, g_depth, g_wsum,
+                                               g_ftrans, u_colors, u_densities, u_depths,
+                                               clamp_mode, sp_beta, use_inf_depth, last_back)
+    if device.type != 'cuda':
+        raise ValueError(f'ray_march_reduced_bwd_bwd runs on CUDA or CPU tensors, not {device}')
+    b, r, s, c = colors.shape
+    if s > MAX_STEPS_BWD_BWD:
+        raise NotImplementedError(f'the second-order kernel takes up to {MAX_STEPS_BWD_BWD} '
+                                  f'samples a ray, not {s}')
+    grads = [g.to(torch.float32).contiguous() for g in (g_rgb, g_depth, g_wsum, g_ftrans)]
+    us = [None if u is None else u.to(torch.float32).contiguous()
+          for u in (u_colors, u_densities, u_depths)]
+    outs = [torch.empty_like(t) for t in (colors, densities, depths, *grads)]
+    for t in (colors, densities, depths, *grads, *[u for u in us if u is not None]):
+        if not t.is_contiguous():
+            raise ValueError('ray_march_reduced_bwd_bwd takes contiguous tensors')
+    k = _kernels()
+    with torch.cuda.device(device):
+        err = k.bwd_bwd(*[t.data_ptr() for t in (colors, densities, depths, *grads)],
+                        *[None if u is None else u.data_ptr() for u in us],
+                        *[t.data_ptr() for t in outs], b * r, s, c, _CLAMP_MODES[clamp_mode],
+                        float(sp_beta), _last_delta(use_inf_depth), int(last_back),
+                        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'ray_march_reduced_bwd_bwd launch failed: '
+                           f'{k.error_string(err).decode()}')
+    ray_march_reduced_bwd_bwd.launches += 1
+    return tuple(outs)
+
+
+class RayMarchReducedBackward(torch.autograd.Function):
+    """K3's backward as a recorded function of its seven inputs: the backward
+    kernel (or with `plain` its plain version on any device) forward, the
+    second-order kernel (or autograd through the plain version) backward."""
+
+    @staticmethod
+    def forward(ctx, colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans, opts, plain):
+        ctx.save_for_backward(colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans)
+        ctx.opts, ctx.plain = opts, plain
+        ctx.set_materialize_grads(False)  # an unused output's cotangent stays None
+        bwd = ray_march_reduced_bwd_plain if plain else ray_march_reduced_bwd
+        return bwd(colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans, *opts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, u_colors, u_densities, u_depths):
+        bwd_bwd = ray_march_reduced_bwd_bwd_plain if ctx.plain else ray_march_reduced_bwd_bwd
+        return (*bwd_bwd(*ctx.saved_tensors, u_colors, u_densities, u_depths, *ctx.opts),
+                None, None)
+
+
 class RayMarchReduced(torch.autograd.Function):
     """K3 forward and backward, or with `plain` their plain versions on any
-    device; the context keeps only the three inputs."""
+    device; the context keeps only the three inputs. The backward is
+    `RayMarchReducedBackward`, which autograd records where a gradient of
+    the gradient is asked for (`create_graph=True`)."""
 
     @staticmethod
     def forward(ctx, colors, densities, depths, clamp_mode, sp_beta, use_inf_depth, last_back,
@@ -499,14 +595,13 @@ class RayMarchReduced(torch.autograd.Function):
         return fwd(colors, densities, depths, clamp_mode, sp_beta, use_inf_depth, last_back)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g_rgb, g_depth, g_wsum, g_ftrans):
         colors, densities, depths = ctx.saved_tensors
         grads = [torch.zeros_like(ref) if g is None else g
                  for g, ref in ((g_rgb, colors[..., 0, :]), (g_depth, depths[..., 0]),
                                 (g_wsum, depths[..., 0]), (g_ftrans, depths[..., 0]))]
-        bwd = ray_march_reduced_bwd_plain if ctx.plain else ray_march_reduced_bwd
-        return (*bwd(colors, densities, depths, *grads, *ctx.opts),
+        return (*RayMarchReducedBackward.apply(colors, densities, depths, *grads, ctx.opts,
+                                               ctx.plain),
                 None, None, None, None, None)
 
 
@@ -516,7 +611,7 @@ def ray_march_reduced(colors: torch.Tensor, densities: torch.Tensor, depths: tor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """colors [B,R,S,C], densities [B,R,S], depths [B,R,S], float32
     -> (rgb [B,R,C], depth [B,R], weights_sum [B,R], final_transmittance [B,R]).
-    Differentiable in all three inputs (first order)."""
+    Differentiable in all three inputs, twice."""
     _check(colors, densities, depths, clamp_mode)
     return RayMarchReduced.apply(colors, densities, depths, clamp_mode, sp_beta,
                                  use_inf_depth, last_back, False)
@@ -731,6 +826,7 @@ def ray_march_merged_cut_bf16(depths1: torch.Tensor, colors1: torch.Tensor,
 
 ray_march_reduced.launches = 0
 ray_march_reduced_bwd.launches = 0
+ray_march_reduced_bwd_bwd.launches = 0
 ray_march_merged.launches = 0
 ray_march_merged_cut.launches = 0
 ray_march_merged_bf16.launches = 0

@@ -26,6 +26,20 @@ For CUDA tensors the backward launches the kernel and counts it in
 coordinate gradient in plain PyTorch. `triplane_splat_binned_plain` walks
 the kernel's bins in plain PyTorch, for the tests.
 
+The float32 backward is itself a recorded function
+(`TriplaneSampleBackward`), so that a gradient of the gradient (the 3DGP
+model's path-length regularization, `create_graph=True`) passes through it.
+Its own backward, given the cotangents of (g_planes, g_coords), is
+`triplane_sample_bwd_bwd`: for CUDA tensors K1's two second-order entries,
+`triplane_splat_gather` (the cotangents of g and of the coordinates, a warp
+per point gathering the planes' cotangent and, with a coordinate
+cotangent, the planes) and `triplane_splat_dcoords` (the planes' cotangent,
+a scatter of g with the bilinear weights' derivatives over K1's strip bins,
+launched only with a coordinate cotangent: the path-length phase has none,
+since its coordinates do not depend on ws), each counted in its own
+`launches`; for CPU tensors `triplane_sample_bwd_bwd_plain`, autograd
+through `triplane_sample_bwd_plain`.
+
 bf16 planes (the bf16 render views, `generator.render_bf16`): the forward
 sums each plane's four corners in float32 from the bf16 texels and rounds
 once to bf16, then takes the mean of the three planes in float32 and rounds
@@ -309,8 +323,13 @@ def _library():
     lib.tdgp_triplane_splat_bf16.argtypes = [ctypes.c_void_p] * 9 + geometry[:4] + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
+    lib.tdgp_triplane_splat_gather.argtypes = [ctypes.c_void_p] * 7 + geometry[:4] + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.tdgp_triplane_splat_dcoords.argtypes = [ctypes.c_void_p] * 6 + geometry[:4] + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     for fn in (lib.tdgp_splat_bin_counts, lib.tdgp_splat_bin_entries, lib.tdgp_triplane_splat,
-               lib.tdgp_triplane_splat_bf16):
+               lib.tdgp_triplane_splat_bf16, lib.tdgp_triplane_splat_gather,
+               lib.tdgp_triplane_splat_dcoords):
         fn.restype = ctypes.c_int
     lib.tdgp_splat_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_splat_error_string.restype = ctypes.c_char_p
@@ -454,7 +473,119 @@ def _splat(planes, coords, g, scale, coords_grad, what, addend=None, round_out=F
     return g_planes, g_coords
 
 
+def triplane_sample_bwd_bwd_plain(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                                  u_planes: Optional[torch.Tensor],
+                                  u_coords: Optional[torch.Tensor], scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The derivative of `triplane_sample_bwd_plain`: autograd through it,
+    from the cotangents u_planes [N*3, H, W, F] and u_coords [N, P, 3] (None
+    for zero) of its outputs -> those of (planes, coords, g)."""
+    inputs = [t.detach().requires_grad_(True) for t in (planes, coords, g)]
+    with torch.enable_grad():
+        outs = triplane_sample_bwd_plain(*inputs, scale, coords_grad=u_coords is not None)
+    pairs = [(o, u) for o, u in zip(outs, (u_planes, u_coords)) if u is not None]
+    if not pairs:
+        return tuple(torch.zeros_like(t) for t in inputs)
+    grads = torch.autograd.grad([o for o, _ in pairs], inputs, [u for _, u in pairs],
+                                allow_unused=True)
+    return tuple(torch.zeros_like(t) if d is None else d for d, t in zip(grads, inputs))
+
+
+def _check_second(planes, coords, g, u_planes, u_coords):
+    want = {'g': (g, (coords.shape[0], coords.shape[1], planes.shape[3])),
+            'u_planes': (u_planes, tuple(planes.shape)), 'u_coords': (u_coords, tuple(coords.shape))}
+    for name, (t, shape) in want.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+                              or t.device != planes.device):
+            raise ValueError(f'{name} must be float32 {shape} on {planes.device}, got '
+                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+    if planes.dtype != torch.float32:
+        raise TypeError(f'the second order of triplane_sample takes float32 planes, '
+                        f'got {planes.dtype}')
+
+
+def triplane_splat_gather(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                          u_planes: Optional[torch.Tensor], u_coords: Optional[torch.Tensor],
+                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's second-order gather entry on CUDA tensors: the cotangents
+    (b_g [N, P, F], b_coords [N, P, 3]) of `triplane_splat`'s g and coords
+    from those of its outputs (u_planes, u_coords; None for zero), in one
+    launch (csrc/splat.cu), counted in `triplane_splat_gather.launches`."""
+    _check(planes, coords)
+    _check_second(planes, coords, g, u_planes, u_coords)
+    if planes.device.type != 'cuda':
+        raise ValueError(f'triplane_splat_gather runs on CUDA tensors, not {planes.device}')
+    _, h, w, f = planes.shape
+    if f not in KERNEL_FEATS:
+        raise NotImplementedError(f'kernel K1 is built for F in {KERNEL_FEATS}, not {f}')
+    n, p = coords.shape[0], coords.shape[1]
+    planes, coords, g = planes.contiguous(), coords.contiguous(), g.contiguous()
+    u_planes = None if u_planes is None else u_planes.contiguous()
+    u_coords = None if u_coords is None else u_coords.contiguous()
+    b_g = torch.empty_like(g)
+    b_coords = torch.empty_like(coords)
+    device = planes.device
+    with torch.cuda.device(device):
+        _launched(_library().tdgp_triplane_splat_gather(
+            planes.data_ptr(), coords.data_ptr(), g.data_ptr(),
+            None if u_planes is None else u_planes.data_ptr(),
+            None if u_coords is None else u_coords.data_ptr(), b_g.data_ptr(),
+            b_coords.data_ptr(), n, p, h, w, f, _inv_scale(scale), 0.5 * (w - 1) / scale,
+            0.5 * (h - 1) / scale, torch.cuda.current_stream(device).cuda_stream),
+            'triplane_splat_gather')
+    triplane_splat_gather.launches += 1
+    return b_g, b_coords
+
+
+def triplane_splat_dcoords(coords: torch.Tensor, g: torch.Tensor, u_coords: torch.Tensor,
+                           scale: float, h: int, w: int) -> torch.Tensor:
+    """K1's second-order scatter entry on CUDA tensors: the cotangent of the
+    planes [N*3, H, W, F] float32, the scatter of g / 3 with the bilinear
+    weights' derivatives along u_coords [N, P, 3], over K1's strip bins
+    (csrc/splat.cu), counted in `triplane_splat_dcoords.launches`."""
+    device = coords.device
+    if device.type != 'cuda':
+        raise ValueError(f'triplane_splat_dcoords runs on CUDA tensors, not {device}')
+    n, p, f = g.shape
+    if f not in KERNEL_FEATS:
+        raise NotImplementedError(f'kernel K1 is built for F in {KERNEL_FEATS}, not {f}')
+    coords, g, u_coords = coords.contiguous(), g.contiguous(), u_coords.contiguous()
+    entries, offsets = triplane_splat_bins(coords, h, w, scale)
+    g_planes = torch.empty((3 * n, h, w, f), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        _launched(_library().tdgp_triplane_splat_dcoords(
+            g.data_ptr(), coords.data_ptr(), u_coords.data_ptr(), entries.data_ptr(),
+            offsets.data_ptr(), g_planes.data_ptr(), n, p, h, w, f, _inv_scale(scale),
+            0.5 * (w - 1) / scale, 0.5 * (h - 1) / scale,
+            torch.cuda.current_stream(device).cuda_stream), 'triplane_splat_dcoords')
+    triplane_splat_dcoords.launches += 1
+    return g_planes
+
+
+def triplane_sample_bwd_bwd(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                            u_planes: Optional[torch.Tensor], u_coords: Optional[torch.Tensor],
+                            scale: float
+                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The derivative of `triplane_splat` (float32): the cotangents of
+    (planes, coords, g) from those of (g_planes, g_coords), None for zero.
+    For CUDA tensors K1's gather entry and, with u_coords, its scatter entry
+    (the planes' cotangent is None without it); for CPU tensors
+    `triplane_sample_bwd_bwd_plain`."""
+    _check(planes, coords)
+    _check_second(planes, coords, g, u_planes, u_coords)
+    if planes.device.type == 'cpu':
+        return triplane_sample_bwd_bwd_plain(planes, coords, g, u_planes, u_coords, scale)
+    b_g, b_coords = triplane_splat_gather(planes, coords, g, u_planes, u_coords, scale)
+    b_planes = None
+    if u_coords is not None:
+        b_planes = triplane_splat_dcoords(coords, g, u_coords, scale, planes.shape[1],
+                                          planes.shape[2])
+    return b_planes, b_coords, b_g
+
+
 triplane_splat.launches = 0
+triplane_splat_gather.launches = 0
+triplane_splat_dcoords.launches = 0
 triplane_splat_bf16.launches = 0
 
 
@@ -462,6 +593,26 @@ def _bwd(plain, bf16):
     if bf16:
         return triplane_sample_bwd_plain_bf16 if plain else triplane_splat_bf16
     return triplane_sample_bwd_plain if plain else triplane_splat
+
+
+class TriplaneSampleBackward(torch.autograd.Function):
+    """K1 (or with `plain` its plain version on any device) as a recorded
+    function of (planes, coords, g) -> (g_planes, g_coords or None); its
+    backward is `triplane_sample_bwd_bwd` (or its plain version)."""
+
+    @staticmethod
+    def forward(ctx, planes, coords, g, scale, plain, coords_grad):
+        ctx.save_for_backward(planes, coords, g)
+        ctx.scale, ctx.plain = scale, plain
+        ctx.set_materialize_grads(False)  # an unused output's cotangent stays None: no work
+        return _bwd(plain, False)(planes, coords, g, scale, coords_grad=coords_grad)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, u_planes, u_coords):
+        bwd_bwd = triplane_sample_bwd_bwd_plain if ctx.plain else triplane_sample_bwd_bwd
+        b_planes, b_coords, b_g = bwd_bwd(*ctx.saved_tensors, u_planes, u_coords, ctx.scale)
+        return b_planes, b_coords, b_g, None, None, None
 
 
 class TriplaneSample(torch.autograd.Function):
@@ -472,12 +623,18 @@ class TriplaneSample(torch.autograd.Function):
         return tri_plane_sample(planes, coords, scale)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         planes, coords = ctx.saved_tensors
-        bwd = _bwd(ctx.plain, planes.dtype == torch.bfloat16)
-        g_planes, g_coords = bwd(planes, coords, g, ctx.scale,
-                                 coords_grad=ctx.needs_input_grad[1])
+        coords_grad = ctx.needs_input_grad[1]
+        if planes.dtype == torch.bfloat16:
+            if torch.is_grad_enabled():
+                raise NotImplementedError('the second order of sampling bf16 planes is not '
+                                          'ported (K1 has no bf16 second-order entry)')
+            g_planes, g_coords = _bwd(ctx.plain, True)(planes, coords, g, ctx.scale,
+                                                       coords_grad=coords_grad)
+        else:
+            g_planes, g_coords = TriplaneSampleBackward.apply(planes, coords, g, ctx.scale,
+                                                              ctx.plain, coords_grad)
         return (g_planes if ctx.needs_input_grad[0] else None), g_coords, None, None
 
 

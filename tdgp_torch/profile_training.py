@@ -19,7 +19,8 @@ torch.profiler and prints the device time by phase (Gmain, camera
 regularizers, PL, Dmain, R1, EMA, per run of each), by operation and by
 kernel (per step, averaged over the traced steps), the port's own kernels
 (K1, K3, K3's backward, K3's merged entry and K4 where fresh fakes are
-rendered, K5; each with its bf16 entries) by name, the device's busy share of the wall time and the
+rendered, K5; each with its bf16 entries; with `loss.pl_weight > 0` K3's
+second-order entry and K1's gather entry) by name, the device's busy share of the wall time and the
 peak memory. The last line is a JSON object
 of these numbers, with the card's name and power limit. Needs a CUDA device.
 """
@@ -49,6 +50,8 @@ OWN_KERNELS = {'K1 triplane_splat': ('bin_count_kernel', 'bin_scatter_kernel',
                                      'splat_strip_kernel', 'coords_grad_kernel'),
                'K3 ray_march_reduced': ('ray_march_reduced_kernel',),
                'K3 ray_march_reduced_bwd': ('ray_march_reduced_bwd_kernel',),
+               'K3 ray_march_reduced_bwd_bwd': ('ray_march_reduced_bwd_bwd_kernel',),
+               'K1 triplane_splat_gather': ('splat_gather_kernel',),
                'K3 ray_march_merged': ('ray_march_merged_kernel',),
                'K4 triplane_mlp': ('triplane_mlp_kernel', 'triplane_mlp_bf16_kernel'),
                'K5 bias_act': ('bias_act_',)}

@@ -23,10 +23,14 @@ the same phases on its own forward (`losses.g_forward_2d`: the full image,
 then patches cropped from it): no camera regularizers, the `w_avg` pass
 without camera angles, real images without depth, and Dmain always on fresh
 fakes, whatever `dmain_reuse_fakes` says, as in the JAX package. On R1
-steps with `loss.pl_weight > 0` it adds the path-length phase (PL, between
-Gmain and Dmain, `_pl`): the gradient of the image times a normal draw with
-respect to ws, taken with `create_graph=True`, its lengths pulled toward
-their running mean `pl_mean`, and a second Adam update of G. Style mixing
+steps with `loss.pl_weight > 0` both models add the path-length phase (PL,
+between Gmain and Dmain, `_pl`): the gradient of the image times a normal
+draw with respect to ws, taken with `create_graph=True`, its lengths pulled
+toward their running mean `pl_mean`, and a second Adam update of G. For
+the 3DGP model the image is the patch that G renders from Gmain's prior
+cameras after the camera adaptor, so the penalty's gradient runs back
+through the backward of the render: K3's backward and K1, whose own
+derivatives are CUDA kernels too (`ops/ray_march.py`, `ops/splat.py`). Style mixing
 (`loss.style_mixing_prob`) runs in both models' G forwards
 (`losses.mix_styles`).
 
@@ -61,7 +65,9 @@ package's `jax.checkpoint`; the numbers are the same.
 
 Not ported, and refused with a `NotImplementedError` naming the setting:
 an augment mode other than 'noaug', 'ada' and 'fixed', path-length
-regularization of the 3DGP model and training over several devices. With
+regularization of the 3DGP model through `training.gmain_render_bf16` (its
+bf16 sampler's backward has no second-order entry) and training over
+several devices. With
 reused fakes `dmain_fake_bf16` has no effect and a warning says so, as in
 the JAX package.
 """
@@ -108,9 +114,9 @@ def check_supported(cfg: Config) -> None:
                       'training.dmain_reuse_fakes=false to use it.', stacklevel=3)
     refused = {
         'training.augment.mode': t.augment.mode not in ('noaug', 'ada', 'fixed'),
-        'loss.pl_weight (path-length regularization of the 3DGP model: its second-order '
-        'gradient through the splat and ray-march kernels has no kernel)':
-            l.pl_weight > 0 and not is_2d(cfg),
+        'loss.pl_weight with training.gmain_render_bf16 (path-length regularization through '
+        "the bf16 render view: the second order of K1's bf16 entry is not ported)":
+            l.pl_weight > 0 and not is_2d(cfg) and t.gmain_render_bf16,
         'num_devices': cfg.num_devices > 1,
     }
     names = [name for name, bad in refused.items() if bad]
@@ -373,26 +379,43 @@ class Trainer:
 
     def _pl(self, gen_g, sched, draws, stats):
         """The path-length penalty (`tdgp/training/train_step.py:398-460`) on
-        the first n // pl_batch_shrink of Gmain's z and labels, in one batch,
-        at G after Gmain's update: the gradient of sum(img x noise / sqrt(h
-        w)) with respect to ws (`create_graph=True`), its per-sample length,
-        `pl_mean` moved toward their mean by `pl_decay`, and (length -
-        pl_mean)^2 x pl_weight x r1_interval, whose gradient goes into G.
-        Draws, all under 'pl/': 'patch', 'noise/...' and 'pl_noise'. The 3DGP
-        model's PL is refused (`check_supported`)."""
-        cfg, G = self.cfg, self.G
+        the first n // pl_batch_shrink of Gmain's z, labels, prior cameras
+        and conditioning angles, in one batch, at G after Gmain's update: the
+        gradient of sum(img x noise / sqrt(h w)) with respect to ws
+        (`create_graph=True`), its per-sample length, `pl_mean` moved toward
+        their mean by `pl_decay`, and (length - pl_mean)^2 x pl_weight x
+        r1_interval, whose gradient goes into G. The 3DGP model renders a
+        patch (`train=True`) from the cameras after the camera adaptor,
+        applied outside the gradient's function so that its own gradient
+        flows, with fresh patch parameters. Draws, all under 'pl/': 'patch',
+        'noise/...', 'render/...' (the 3DGP render) and 'pl_noise'."""
+        cfg, G = self.cfg, self.G_main
         l, patch = cfg.loss, cfg.generator.patch
-        zg, cg = gen_g[0], gen_g[1]
+        zg, cg, camg, condg = gen_g[:4]
         n_pl = max(zg.shape[0] // max(l.pl_batch_shrink, 1), 1)
+        zp, cp = zg[:n_pl], cg[:n_pl]
         pl_draws = draws.scope('pl')
-        ws = G.mapping(zg[:n_pl], cg[:n_pl])
-        pp = None
-        if patch.enabled:
-            pp = pl_draws.draw('patch', lambda d: sample_patch_params(
+
+        def draw_patch():
+            if not patch.enabled:
+                return None
+            return pl_draws.draw('patch', lambda d: sample_patch_params(
                 d, n_pl, patch, min_scale=sched.patch_min_scale, beta=sched.patch_beta))
-        img = G.synthesis(ws, G.synthesis.draw_noise(pl_draws.scope('noise'), n_pl))
-        if pp is not None:
-            img = extract_patches(img, pp, patch.resolution)
+
+        if is_2d(cfg):
+            ws = G.mapping(zp, cp)
+            pp = draw_patch()
+            img = G.synthesis(ws, G.synthesis.draw_noise(pl_draws.scope('noise'), n_pl))
+            if pp is not None:
+                img = extract_patches(img, pp, patch.resolution)
+        else:
+            ws = G.mapping(zp, cp, camera_angles=condg[:n_pl], draws=pl_draws.scope('mapping'))
+            cam = camg.select(slice(0, n_pl))
+            if cfg.training.learn_camera_dist:
+                cam = G.synthesis.apply_camera_adaptor(cam, zp, cp)
+            img = G.synthesis(ws, cam, draw_patch(), draws=pl_draws,
+                              nerf_noise_std=sched.nerf_noise_std,
+                              depth_progress=sched.depth_progress)
         noise = pl_draws.normal('pl_noise', tuple(img.shape)) / math.sqrt(img.shape[1]
                                                                          * img.shape[2])
         (pl_grads,) = torch.autograd.grad((img * noise).sum(), ws, create_graph=True)

@@ -13,7 +13,7 @@ patches), float32 (`fp32_only`) unless a test says otherwise:
   mixing, at 1e-4; style mixing with a per-sample cutoff (a mutation) misses;
 - the refusals and what replaces them: the 2D model, its path-length
   regularization and style mixing on both models train; PL on the 3DGP
-  model is refused;
+  model builds a trainer, and is refused through `gmain_render_bf16` only;
 - snapshots carry `pl_mean`; `fid2k_full` raises on a 2D G, naming the JAX
   package's gap; the camera-posterior panel is None;
 - `scripts.train --preset stylegan2 --device cpu` shrunk to the tiny widths
@@ -251,9 +251,14 @@ def test_the_2d_model_pl_and_style_mixing_train():
     Trainer(cfg, 'cpu')
 
 
-def test_pl_on_the_3dgp_model_is_refused():
+def test_pl_on_the_3dgp_model_builds_a_trainer_but_not_through_the_bf16_view():
+    """PL on the 3DGP model trains (its step against JAX's is
+    tests/test_torch_pl3d.py); through `training.gmain_render_bf16`, whose
+    bf16 sampler has no second-order entry, it is refused."""
     cfg = pc.apply_overrides(pc.tiny_test_config(), ['loss.pl_weight=2.0'])
-    with pytest.raises(NotImplementedError, match='path-length regularization of the 3DGP'):
+    assert float(Trainer(cfg, 'cpu').pl_mean) == 0.0
+    cfg = pc.apply_overrides(cfg, ['training.gmain_render_bf16=true'])
+    with pytest.raises(NotImplementedError, match='loss.pl_weight with training.gmain_render'):
         Trainer(cfg, 'cpu')
 
 

@@ -593,7 +593,8 @@ def test_trainer_needs_a_card_unless_given_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize('setting,override', [
     ('training.augment.mode', 'training.augment.mode=adaptive'),
-    ('loss.pl_weight (path-length regularization of the 3DGP model', 'loss.pl_weight=2.0'),
+    ('loss.pl_weight with training.gmain_render_bf16',
+     'loss.pl_weight=2.0 training.gmain_render_bf16=true'),
     ('num_devices', 'num_devices=4')])
 def test_trainer_refuses_unported_settings(setting, override):
     """`override` holds one or more overrides, space-separated."""

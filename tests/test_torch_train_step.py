@@ -284,12 +284,23 @@ def port_step(s: Setup):
     return port_stats, trainer, draws
 
 
+_JAX_STEPS = {}
+
+
+def jax_step(s: Setup):
+    """JAX's controlled step with R1 for `s`'s config and models, jitted once
+    per process for each (a step of another batch or key reuses it)."""
+    key = (s.jcfg, id(s.G), id(s.D))
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = jax.jit(lambda st, b, r, sc: jts.make_train_step(
+            s.jcfg, s.G, s.D, controlled=True)(st, b, r, sc, do_r1=True))
+    return _JAX_STEPS[key]
+
+
 def run_setup(s: Setup):
     """Both packages' step of `s` -> (JAX stats, JAX new state, port stats,
     port trainer, the draws)."""
-    step = jax.jit(lambda st, b, r, sc: jts.make_train_step(s.jcfg, s.G, s.D, controlled=True)(
-        st, b, r, sc, do_r1=True))
-    new_state, stats = jax.device_get(step(s.state, s.jb, s.rng, s.jsched))
+    new_state, stats = jax.device_get(jax_step(s)(s.state, s.jb, s.rng, s.jsched))
     return (stats, new_state) + port_step(s)
 
 
@@ -666,27 +677,76 @@ def test_bf16_fresh_fakes_step_losses(bf16_fresh_steps, fresh_steps):
     assert worst <= LOSS_OF_FLOOR * floor, (worst, floor)
 
 
+# the steps the fresh-fakes bf16 statistic is read over: the batch as it is and four
+# seeded moves of every real image value by one float32 ulp, up or down
+PERTURBATIONS = (None, 1, 2, 3, 4)
+
+
+def perturbed(s: Setup, seed) -> Setup:
+    """`s` with every value of the real images moved one float32 ulp up or
+    down, each direction drawn from numpy seed `seed` (None: `s` as it is);
+    JAX and the port get the same images."""
+    if seed is None:
+        return s
+    img = np.asarray(s.jb['img'])
+    toward = np.where(np.random.RandomState(seed).rand(*img.shape) < 0.5, -np.inf, np.inf)
+    moved = np.nextafter(img, toward.astype(img.dtype))
+    return dataclasses.replace(s, jb={**s.jb, 'img': jnp.asarray(moved)},
+                               pb={**s.pb, 'img': T(moved)})
+
+
+def perturbed_steps(s: Setup, first):
+    """The step of `s` under each of PERTURBATIONS, `first` (run_setup(s))
+    for the batch as it is; JAX's compiled step is reused (`jax_step`)."""
+    return [first] + [run_setup(perturbed(s, seed)) for seed in PERTURBATIONS[1:]]
+
+
+@pytest.fixture(scope='module')
+def bf16_fresh_perturbed(bf16_fresh_steps, fresh_steps, fresh_setup):
+    """(JAX and the port at bf16, JAX and the port at float32) for each of
+    PERTURBATIONS, fresh fakes."""
+    bf16 = perturbed_steps(setup_step(CUR_NIMG, overrides=BF16 + FRESH), bf16_fresh_steps)
+    f32 = perturbed_steps(fresh_setup, fresh_steps)
+    return list(zip(bf16, f32))
+
+
+def median_over_perturbations(runs, phase, port):
+    """The median over the perturbed steps of the bf16 conv weights' median
+    ratio (`floor_ratios`), `port` 'bf16' (the port's bf16 step) or 'f32'
+    (its float32 step, the witness)."""
+    medians = []
+    for b, f in runs:
+        grads = (b if port == 'bf16' else f)[2]['_grads'][phase]
+        medians.append(float(np.median(list(floor_ratios(b, f, phase, grads)[1].values()))))
+    return float(np.median(medians)), medians
+
+
 @pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
-def test_bf16_fresh_fakes_step_gradients(bf16_fresh_steps, fresh_steps, phase):
+def test_bf16_fresh_fakes_step_gradients(bf16_fresh_steps, fresh_steps, bf16_fresh_perturbed,
+                                         phase):
     """Each phase's gradients with fresh fakes at bf16, held as the reused
     fakes' above: the phase within GRAD_OF_FLOOR x its floor, the bf16
-    blocks' conv weights' median within CONV_MEDIAN_OF_FLOOR and their
-    largest within FRESH_CONV_MAX_OF_FLOOR: Dmain's fakes now pass G's
-    bf16 blocks before D's, so D's gradient carries the flips of both
-    (witness: whole 0.95 / 0.85 / 0.64, median 0.40 / 0.73 / 0.72, largest
-    0.57 / 1.01 / 0.88)."""
+    blocks' conv weights' largest within FRESH_CONV_MAX_OF_FLOOR (Dmain's
+    fakes now pass G's bf16 blocks before D's, so D's gradient carries the
+    flips of both), and their median, taken over the five steps of
+    PERTURBATIONS (the median of each step's median), within
+    CONV_MEDIAN_OF_FLOOR (witness: whole 0.95 / 0.85 / 0.64, largest 0.57 /
+    1.01 / 0.88, median 0.40 / 0.73 / 0.72, the same to 1e-5 in every
+    perturbed step: a one-ulp move of the real images flips no bf16
+    rounding that the statistic sees)."""
     whole, convs = floor_ratios(bf16_fresh_steps, fresh_steps, phase,
                                 bf16_fresh_steps[2]['_grads'][phase])
     assert whole <= GRAD_OF_FLOOR, whole
-    assert float(np.median(list(convs.values()))) <= CONV_MEDIAN_OF_FLOOR, convs
     assert max(convs.values()) <= FRESH_CONV_MAX_OF_FLOOR, convs
+    median, medians = median_over_perturbations(bf16_fresh_perturbed, phase, 'bf16')
+    assert len(medians) == len(PERTURBATIONS)
+    assert median <= CONV_MEDIAN_OF_FLOOR, medians
 
 
 @pytest.mark.parametrize('phase', ['g', 'd', 'r1'])
-def test_bf16_fresh_fakes_gradients_at_float32_miss_the_limit(bf16_fresh_steps, fresh_steps,
-                                                              phase):
+def test_bf16_fresh_fakes_gradients_at_float32_miss_the_limit(bf16_fresh_perturbed, phase):
     """Mutation witness: the port's fresh-fakes step at float32 misses the
-    conv weights' median limit against JAX's bf16 step (1.007 / 1.005 /
-    0.998)."""
-    _, convs = floor_ratios(bf16_fresh_steps, fresh_steps, phase, fresh_steps[2]['_grads'][phase])
-    assert float(np.median(list(convs.values()))) > CONV_MEDIAN_OF_FLOOR, convs
+    conv weights' median limit against JAX's bf16 step, under the same
+    statistic over PERTURBATIONS (1.007 / 1.005 / 0.998)."""
+    median, medians = median_over_perturbations(bf16_fresh_perturbed, phase, 'f32')
+    assert median > CONV_MEDIAN_OF_FLOOR, medians
