@@ -1745,11 +1745,102 @@ def step_points_phase(calls):
     return readings
 
 
+def step_points_bf16_phase(calls):
+    """K1's bf16 entry on the arguments of its two calls in a
+    `gmain_render_bf16` step (`profile_training.capture_splat_bf16_calls`:
+    the fine pass keeping its float32 sum, the coarse pass adding it and
+    rounding once): its float32 sums and g_coords against its plain version
+    (<= 1e-5 x max |plain|), the coarse call's stored bf16 gradient within
+    one bf16 ulp of the texel plus 1e-5 x max |plain|; its time warm and
+    cold beside its bound (the touched texels and the cotangent in 2 bytes,
+    the addend read in 4, g_planes written in 2 or, kept in float32, 4)."""
+    from tdgp_torch.ops import splat
+    readings = {}
+    for label, args in calls:
+        args = {k: v.detach() if torch.is_tensor(v) else v for k, v in args.items()}
+        planes, coords, scale, addend = args['planes'], args['coords'], args['scale'], args['addend']
+        n3, h, w, f = planes.shape
+        n, p = coords.shape[0], coords.shape[1]
+        sums, g_coords = splat.triplane_splat_bf16(**{**args, 'round_out': False})
+        ref_sums, ref_coords = splat.triplane_sample_bwd_plain_bf16(**{**args, 'round_out': False})
+        torch.cuda.synchronize()
+        err = float((sums - ref_sums).abs().max())
+        rel = [err / float(ref_sums.abs().max())]
+        if ref_coords is not None:
+            rel.append(float((g_coords - ref_coords).abs().max() / ref_coords.abs().max()))
+        del sums, g_coords, ref_sums, ref_coords
+        beyond = 0
+        if args['round_out']:
+            got, _ = splat.triplane_splat_bf16(**args)
+            ref, _ = splat.triplane_sample_bwd_plain_bf16(**args)
+            limit = ref.float().abs() * 2.0 ** -7 + 1e-5 * float(ref.float().abs().max())
+            beyond = int(((got.float() - ref.float()).abs() > limit).sum())
+            del got, ref
+        check(all(e <= 1e-5 for e in rel) and beyond == 0,
+              f'K1 bf16 disagrees with its plain version on the {label} pass: {rel}, {beyond} '
+              f'stored texels beyond one ulp')
+        fn = lambda: splat.triplane_splat_bf16(**args)  # noqa: E731
+        ms, cold = cuda_ms(fn, 20), cold_ms(fn, repeats=10)
+        _, flops, texels, most = k1_work(splat, planes, coords, scale, args['coords_grad'])
+        bytes_moved = (2 * ((texels * f if args['coords_grad'] else 0) + n * p * f)
+                       + (2 if args['round_out'] else 4) * n3 * h * w * f
+                       + (4 * n3 * h * w * f if addend is not None else 0)
+                       + 4 * n * p * (6 if args['coords_grad'] else 3))
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        print(f"K1 bf16 on the gmain_render_bf16 step's {label} points (planes "
+              f'{list(planes.shape)}, coords {list(coords.shape)}, addend {addend is not None}, '
+              f'stored in {"bf16" if args["round_out"] else "float32"}): max abs diff / max '
+              f'|plain| {rel}; kernel {ms:.4f} ms warm, {cold:.4f} ms cold; bound {bound_ms:.4f} '
+              f'ms ({bytes_moved / 1e9:.3f} GB by {bound_by}; {bin_summary(splat, coords, h, w, scale)})')
+        readings.update({f'ms_step_{label}': ms, f'cold_ms_step_{label}': cold,
+                         f'bound_ms_step_{label}': bound_ms, f'max_abs_err_step_{label}': err,
+                         f'max_corners_per_texel_step_{label}': most})
+    return readings
+
+
+def gather_points_phase(calls):
+    """K1's second-order gather entry on the arguments of its two calls in
+    an R1 + PL step (`profile_training.capture_gather_calls`): against the
+    plain second order (<= PL_KERNEL_LIMIT x each output's largest), its
+    time warm and cold beside its bound."""
+    from tdgp_torch.ops import splat
+    readings = {}
+    for label, args in calls:
+        args = {k: v.detach() if torch.is_tensor(v) else v for k, v in args.items()}
+        planes, coords, u_coords = args['planes'], args['coords'], args['u_coords']
+        n3, h, w, f = planes.shape
+        n, p = coords.shape[0], coords.shape[1]
+        b_g, b_coords = splat.triplane_splat_gather(**args)
+        _, ref_coords, ref_g = splat.triplane_sample_bwd_bwd_plain(**args)
+        torch.cuda.synchronize()
+        errs = [float((b_g - ref_g).abs().max()), float((b_coords - ref_coords).abs().max())]
+        rel = [errs[0] / float(ref_g.abs().max()), errs[1] / float(ref_coords.abs().max())]
+        del b_g, b_coords, ref_g, ref_coords
+        check(all(e <= PL_KERNEL_LIMIT for e in rel),
+              f"K1's gather disagrees with its plain version on PL's {label} pass: {rel}")
+        fn = lambda: splat.triplane_splat_gather(**args)  # noqa: E731
+        ms, cold = cuda_ms(fn, 20), cold_ms(fn, repeats=10)
+        texels = int((corner_counts(splat, coords, args['scale'], n3, h, w) > 0).sum())
+        bytes_moved = 4 * (texels * f * (2 if u_coords is not None else 1)
+                           + n * p * (2 * f + (9 if u_coords is not None else 6)))
+        bound_ms, bound_by = bound(bytes_moved, n * p * 3 * f * 14)
+        print(f"K1's gather on the R1 + PL step's {label} pass (planes {list(planes.shape)}, "
+              f'coords {list(coords.shape)}, coordinate cotangent {u_coords is not None}): max '
+              f'abs diff / max |plain| of g\'s and the coordinates\' cotangents {rel}; kernel '
+              f'{ms:.4f} ms warm, {cold:.4f} ms cold; bound {bound_ms:.4f} ms '
+              f'({bytes_moved / 1e9:.3f} GB by {bound_by}; {texels} texels touched)')
+        readings.update({f'ms_step_{label}': ms, f'cold_ms_step_{label}': cold,
+                         f'bound_ms_step_{label}': bound_ms,
+                         f'max_abs_err_step_{label}': max(errs)})
+    return readings
+
+
 def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, batch_size,
-                counters, label, device='cuda'):
+                counters, label, device='cuda', step_points=step_points_phase):
     """The satellite step at full width: a warm-up step, whose K1 calls are
-    held and timed by `step_points_phase` (unless `capture_splat_calls` is
-    None), then plain steps and one R1 step. Every kernel's launches are
+    held and timed by `step_points` (`step_points_phase`, or for the bf16
+    entry `step_points_bf16_phase`; unless `capture_splat_calls` is None),
+    then plain steps and one R1 step. Every kernel's launches are
     held to what the step implies: K1 2, K3 and its backward 1 per Gmain
     microbatch; with fresh Dmain fakes K3's merged entry 1 and K4 2 (coarse
     and fine pass) per Dmain microbatch, else none; K5 once per `bias_act`
@@ -1768,7 +1859,7 @@ def train_phase(Trainer, Draws, sched, cfg, make_batch, capture_splat_calls, bat
     else:
         calls = capture_splat_calls(trainer, batch, sched, draws)  # the warm-up step
         torch.cuda.synchronize()
-        k1_step = step_points_phase(calls)
+        k1_step = step_points(calls)
         del calls
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
@@ -2893,7 +2984,7 @@ def pl_check_phase(Trainer, Draws, sched, train_config, make_batch, overrides, c
 
 
 def pl_train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters, label, card,
-                   device='cuda'):
+                   device='cuda', capture_gather_calls=None):
     """The satellite step with PL (`loss.pl_weight` 2) at batch BATCH, random
     weights from a seed: a warm-up R1 + PL step, then PL_PLAIN_STEPS plain
     steps and one R1 + PL step, counted: K1 2, K3 and its backward 1 per
@@ -2907,11 +2998,21 @@ def pl_train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters,
     finite, `pl_mean` moved, every parameter of G and D moved. Then one R1
     step without PL (`pl_weight` 0) on the same trainer: ms per plain, R1 +
     PL and R1 step, the peak memory of the R1 + PL and the R1 step, and
-    the memory the PL and the R1 phase hold at their start and their peaks."""
+    the memory the PL and the R1 phase hold at their start and their peaks.
+    With `capture_gather_calls`, the warm-up step's calls of K1's gather
+    are held and timed (`gather_points_phase`); returns their readings
+    third."""
     trainer = Trainer(cfg, device, seed=0)
     batch = make_batch(cfg, batch_size, 0, device)
     draws = Draws(torch.Generator(device=device).manual_seed(1))
-    trainer.step(batch, sched, True, draws)
+    gather_step = {}
+    if capture_gather_calls is None:
+        trainer.step(batch, sched, True, draws)
+    else:
+        calls = capture_gather_calls(trainer, batch, sched, draws)
+        torch.cuda.synchronize()
+        gather_step = gather_points_phase(calls)
+        del calls
     torch.cuda.synchronize()
     modules = {'G': trainer.G, 'D': trainer.D}
     before = {k: {n: p.detach().clone() for n, p in m.named_parameters()}
@@ -2993,7 +3094,7 @@ def pl_train_phase(Trainer, Draws, sched, cfg, make_batch, batch_size, counters,
     torch.cuda.empty_cache()
     return launches, dict(plain_ms=t_plain, r1_pl_ms=pl_ms, r1_ms=r1_ms, peak_r1_pl_gib=pl_peak,
                           peak_r1_gib=r1_peak, pl_phase_gib=pl_phases['pl'],
-                          r1_phase_gib=pl_phases['r1'])
+                          r1_phase_gib=pl_phases['r1']), gather_step
 
 
 CUT_Q = 0.5                 # NFS's quantile cut
@@ -3688,10 +3789,11 @@ def main():
             Trainer, Draws, sched, profile_training.train_config(FRESH),
             profile_training.make_batch, None, profile_training.BATCH, train_counters,
             'own precision, fresh Dmain fakes (training.dmain_reuse_fakes=false)')
-        train_gmain16_launches, _, train_gmain16 = train_phase(
+        train_gmain16_launches, k1_bf16_step, train_gmain16 = train_phase(
             Trainer, Draws, sched, profile_training.train_config(GMAIN_BF16),
-            profile_training.make_batch, None, profile_training.BATCH, train_counters,
-            'own precision, training.gmain_render_bf16=true')
+            profile_training.make_batch, profile_training.capture_splat_bf16_calls,
+            profile_training.BATCH, train_counters,
+            'own precision, training.gmain_render_bf16=true', step_points=step_points_bf16_phase)
         train_fake16_launches, _, train_fake16 = train_phase(
             Trainer, Draws, sched, profile_training.train_config(FRESH + FAKE_BF16),
             profile_training.make_batch, None, profile_training.BATCH, train_counters,
@@ -3705,6 +3807,7 @@ def main():
                   f'peak memory {r["peak_gib"]:.2f} GiB')
     train_images_per_s = train_own['images_per_s']
     k1.update(k1_step)
+    k1_bf16.update(k1_bf16_step)
 
     with tempfile.TemporaryDirectory() as tmp_dir:
         with phase('loop', seconds):
@@ -3739,10 +3842,12 @@ def main():
         pl_checks = {label: pl_check_phase(Trainer, Draws, sched, profile_training.train_config,
                                            profile_training.make_batch, overrides, card)
                      for label, overrides in (('float32', profile_training.FP32), ('bf16', ()))}
-        pl_launches, pl_own = pl_train_phase(
+        pl_launches, pl_own, gather_step = pl_train_phase(
             Trainer, Draws, sched, profile_training.train_config(PL), profile_training.make_batch,
-            profile_training.BATCH, pl_counters, 'own precision (bf16 G and D)', card)
-        pl_fp32_launches, pl_fp32 = pl_train_phase(
+            profile_training.BATCH, pl_counters, 'own precision (bf16 G and D)', card,
+            capture_gather_calls=profile_training.capture_gather_calls)
+        k1_gather.update(gather_step)
+        pl_fp32_launches, pl_fp32, _ = pl_train_phase(
             Trainer, Draws, sched, profile_training.train_config(profile_training.FP32 + PL),
             profile_training.make_batch, profile_training.BATCH, pl_counters, 'float32 cut', card)
     sg2_counters = [splat.triplane_splat, ray_march.ray_march_reduced,

@@ -5,19 +5,30 @@
 DIR is a checkout of an earlier commit. Each kernel whose source
 (`tdgp_torch/csrc/<name>.cu`) differs there is compared; the others are
 skipped as unchanged. The earlier kernels are called through these C
-interfaces: K1 as `tdgp_triplane_splat(planes, coords, g, g_planes,
-g_coords, n, p, h, w, f, scale, stream)` into a zeroed g_planes (the
-interface before the binned splat), K4's `tdgp_triplane_mlp` and K3's
+interfaces: K1's entries through this tree's wrappers in `ops/splat.py`
+with the earlier `splat.cu` bound in place of this tree's (`splat_library`:
+its bins, float32, bf16 and second-order gather entries, the interfaces of
+the binned splat), K4's `tdgp_triplane_mlp` and K3's
 `tdgp_ray_march_reduced` as now. They are built here with this tree's nvcc
 flags. On the same inputs, this tree's wrapper and the earlier kernel (with
 the zero fill its wrapper made) are timed in the order earlier, this, this,
-earlier (`chip_smoke.cuda_ms` each; K3 with `chip_smoke.timed`: warm, warm
+earlier (`chip_smoke.cuda_ms` each; K1's entries warm and cold,
+`chip_smoke.cold_ms`; K3 with `chip_smoke.timed`: warm, warm
 with the calls enqueued ahead, cold after a write that evicts the L2, cold
 with a clean L2, and the host's time per call), and their results are held
 against each other (<= 1e-5 x max |earlier|; K3 <= 1e-5 absolute):
   - K1 on the uniform points of `chip_smoke.py` (batch 16, 64^2 x 32 points,
     planes 48 x 512^2 x 32), and on the coarse and the fine pass of one
     warm-up step of the satellite 256^2 `Trainer` (batch 16);
+  - K1's bf16 entry at the uniform points alone and with a float32 addend,
+    and on the fine and the coarse call of one `gmain_render_bf16` step (the
+    fine pass keeping its float32 sum, the coarse pass adding it): the
+    float32 sums and g_coords as above, the stored bf16 gradient within one
+    bf16 ulp of the texel plus 1e-5 x max;
+  - K1's second-order gather on the two calls of one R1 + PL step
+    (`loss.pl_weight=2`) and at the uniform points of batch 8, with the
+    planes' cotangent alone and with a coordinate cotangent too, and its
+    second-order scatter there;
   - K4 at the served shape, [4, 524288, 32] -> 64 -> 4;
   - K3 at the served chunk [4, 16384, 64, 3] and at the training shape
     [16, 4096, 64, 3]; and the earlier two-step final march of a served
@@ -45,6 +56,7 @@ object of the times as its last line. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import importlib.util
 import json
@@ -67,24 +79,52 @@ def build_earlier(parent: str, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(out)
 
 
-def earlier_splat(lib):
-    fn = lib.tdgp_triplane_splat
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def two_pass_bins(lib, coords, h, w, scale):
+    """K1's bins by the interface of the earlier `splat.cu`s that lack
+    `tdgp_splat_bin_ranks`: a histogram, the offsets summed in torch, a
+    scatter through cursors that start at them."""
+    geometry = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    lib.tdgp_splat_bin_counts.argtypes = [ctypes.c_void_p] * 2 + geometry + [ctypes.c_void_p]
+    lib.tdgp_splat_bin_entries.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_void_p]
+    n, p = coords.shape[0], coords.shape[1]
+    strips_y, strips_x = splat._strips(h, w)
+    geometry = (n, p, h, w, splat._inv_scale(scale))
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = torch.empty(3 * n * strips_y * strips_x, dtype=torch.int32, device=coords.device)
+    if lib.tdgp_splat_bin_counts(coords.data_ptr(), counts.data_ptr(), *geometry, stream):
+        raise RuntimeError('the earlier bin counts failed to launch')
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=coords.device),
+                         counts.cumsum(0, dtype=torch.int32)])
+    cursor = offsets[:-1].clone()
+    entries = torch.empty(4 * 3 * n * p, dtype=torch.int32, device=coords.device)
+    if lib.tdgp_splat_bin_entries(coords.data_ptr(), cursor.data_ptr(), entries.data_ptr(),
+                                  *geometry, stream):
+        raise RuntimeError('the earlier bin scatter failed to launch')
+    return entries, offsets
 
-    def run(planes, coords, g, scale, coords_grad=True):
-        n3, h, w, f = planes.shape
-        n, p = coords.shape[0], coords.shape[1]
-        g_planes = torch.zeros_like(planes)
-        g_coords = torch.empty((n, p, 3), device=planes.device) if coords_grad else None
-        err = fn(planes.data_ptr() if coords_grad else None, coords.data_ptr(), g.data_ptr(),
-                 g_planes.data_ptr(), g_coords.data_ptr() if coords_grad else None, n, p, h, w,
-                 f, float(scale), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f'the earlier K1 failed to launch: {err}')
-        return g_planes, g_coords
+
+@contextlib.contextmanager
+def splat_library(lib):
+    """`ops/splat.py`'s wrappers (bins and entries alike) on the built
+    `splat.cu` `lib` (`splat.bind`) in place of this tree's: the earlier
+    kernels called as this tree calls its own, its bins by
+    `two_pass_bins` where it has no `tdgp_splat_bin_ranks`."""
+    saved = splat._library, splat.triplane_splat_bins
+    splat._library = lambda: lib
+    if getattr(lib, 'tdgp_splat_bin_ranks', None) is None:
+        splat.triplane_splat_bins = lambda coords, h, w, scale: two_pass_bins(lib, coords, h, w,
+                                                                              scale)
+    try:
+        yield
+    finally:
+        splat._library, splat.triplane_splat_bins = saved
+
+
+def on_library(lib, fn):
+    """`fn` run with `splat_library(lib)`."""
+    def run():
+        with splat_library(lib):
+            return fn()
     return run
 
 
@@ -250,9 +290,14 @@ def main() -> int:
     cuda_build.build(['splat', 'triplane_mlp', 'ray_march', 'quantile'])
     result = {}
     gen = torch.Generator(device='cuda').manual_seed(0)
-    for name, compare in (('splat', k1_phase), ('triplane_mlp', k4_phase),
-                          ('triplane_mlp', k4_bf16_phase), ('ray_march', k3_phase),
-                          ('quantile', cut_phase)):
+    if changed(args.parent, 'splat'):
+        old = k1_phase(args.parent, chip_smoke, result, gen)
+        k1_bf16_phase(args.parent, chip_smoke, result, gen, old)
+        gather_phase(args.parent, chip_smoke, result, gen, old)
+    else:
+        print('splat.cu: unchanged, not compared')
+    for name, compare in (('triplane_mlp', k4_phase), ('triplane_mlp', k4_bf16_phase),
+                          ('ray_march', k3_phase), ('quantile', cut_phase)):
         if changed(args.parent, name):
             compare(args.parent, chip_smoke, result, gen)
         else:
@@ -261,45 +306,153 @@ def main() -> int:
     return 0
 
 
-def k1_phase(parent, chip_smoke, result, gen):
+def training_trainer(overrides=()):
     from tdgp_torch import profile_training
     from tdgp_torch.training.schedules import compute_schedules
     from tdgp_torch.training.train_step import Trainer
     from tdgp_torch.utils.draws import Draws
-    old_splat = earlier_splat(build_earlier(parent, 'splat'))
+    cfg = profile_training.train_config(list(overrides))
+    trainer = Trainer(cfg, 'cuda', seed=0)
+    return (trainer, profile_training.make_batch(cfg, profile_training.BATCH, 0, 'cuda'),
+            compute_schedules(cfg, profile_training.CUR_NIMG),
+            Draws(torch.Generator(device='cuda').manual_seed(1)))
+
+
+def uniform_points(gen, n=16, dtype=torch.float32):
+    """`chip_smoke.py`'s uniform points: planes [3n, 512, 512, 32], n x 64^2 x 32
+    points (some on the planes' last texel and first row), a cotangent."""
+    h, w, f, scale = 512, 512, 32, 0.5
+    p = 64 * 64 * 32
+    planes = torch.randn(3 * n, h, w, f, device='cuda', generator=gen).to(dtype)
+    coords = torch.rand(n, p, 3, device='cuda', generator=gen) * 1.1 - 0.55
+    coords[:, :64, 0] = scale
+    coords[:, 64:128, 1] = -scale
+    return planes, coords, torch.randn(n, p, f, device='cuda', generator=gen).to(dtype), scale
+
+
+def turns_warm_cold(chip_smoke, earlier, this, iters):
+    """{'warm': {'earlier_ms', 'this_ms'}, 'cold': ...} in turns (earlier, this, this, earlier)."""
+    out = {}
+    for key, measure in (('warm', lambda fn, _: chip_smoke.cuda_ms(fn, iters)),
+                         ('cold', lambda fn, _: chip_smoke.cold_ms(fn, repeats=10))):
+        first, mine = in_turns(measure, earlier, this, iters)
+        out[key] = {'earlier_ms': first, 'this_ms': mine}
+    return out
+
+
+def print_turns(label, times, note=''):
+    print(f'{label}: ' + '; '.join(
+        f'{key} earlier {t["earlier_ms"][0]:.4f} / {t["earlier_ms"][1]:.4f} ms, this '
+        f'{t["this_ms"][0]:.4f} / {t["this_ms"][1]:.4f} ms' for key, t in times.items())
+        + f' (turns: earlier, this, this, earlier){note}')
+
+
+def k1_phase(parent, chip_smoke, result, gen):
+    from tdgp_torch import profile_training
+    old = splat.bind(build_earlier(parent, 'splat'))
 
     def k1(label, planes, coords, g, scale, coords_grad=True):
-        rel = agree(splat.triplane_splat(planes, coords, g, scale, coords_grad),
-                    old_splat(planes, coords, g, scale, coords_grad), f'K1 {label}')
-        earlier, this = in_turns(
-            chip_smoke.cuda_ms, lambda: old_splat(planes, coords, g, scale, coords_grad),
-            lambda: splat.triplane_splat(planes, coords, g, scale, coords_grad), 20)
-        print(f'K1 {label}: earlier {earlier[0]:.4f} / {earlier[1]:.4f} ms, this '
-              f'{this[0]:.4f} / {this[1]:.4f} ms (turns: earlier, this, this, earlier); '
-              f'agree to {rel}')
-        result[f'k1_{label}'] = {'earlier_ms': earlier, 'this_ms': this}
+        this = lambda: splat.triplane_splat(planes, coords, g, scale, coords_grad)  # noqa: E731
+        earlier = on_library(old, this)
+        rel = agree(this(), earlier(), f'K1 {label}')
+        times = turns_warm_cold(chip_smoke, earlier, this, 20)
+        print_turns(f'K1 {label}', times, f'; agree to {rel}')
+        result[f'k1_{label}'] = times
 
-    cfg = profile_training.train_config()
-    trainer = Trainer(cfg, 'cuda', seed=0)
-    calls = profile_training.capture_splat_calls(
-        trainer, profile_training.make_batch(cfg, profile_training.BATCH, 0, 'cuda'),
-        compute_schedules(cfg, profile_training.CUR_NIMG),
-        Draws(torch.Generator(device='cuda').manual_seed(1)))
-    del trainer
+    trainer, *step = training_trainer()
+    calls = profile_training.capture_splat_calls(trainer, *step)
+    del trainer, step
     for label, (planes, coords, g, scale, coords_grad) in calls:
         k1(f'step_{label}', planes.detach(), coords.detach(), g.detach().contiguous(), scale,
            coords_grad)
     del calls, planes, coords, g
     torch.cuda.empty_cache()
+    k1('uniform', *uniform_points(gen))
+    torch.cuda.empty_cache()
+    return old
 
-    n, h, w, f, scale = 16, 512, 512, 32, 0.5  # chip_smoke's uniform points
-    p = 64 * 64 * 32
-    planes = torch.randn(3 * n, h, w, f, device='cuda', generator=gen)
-    coords = torch.rand(n, p, 3, device='cuda', generator=gen) * 1.1 - 0.55
-    coords[:, :64, 0] = scale
-    coords[:, 64:128, 1] = -scale
-    k1('uniform', planes, coords, torch.randn(n, p, f, device='cuda', generator=gen), scale)
-    del planes, coords
+
+def k1_bf16_phase(parent, chip_smoke, result, gen, old):
+    """K1's bf16 entry: at the uniform points alone and with the other pass's
+    float32 addend, and on the two calls of one `gmain_render_bf16` step
+    (the fine pass keeping its float32 sum, the coarse pass adding it): the
+    float32 sums and g_coords <= 1e-5 x max |earlier|, the stored bf16
+    gradient within one bf16 ulp of the texel plus 1e-5 x max."""
+    from tdgp_torch import profile_training
+
+    def k1_bf16(label, planes, coords, g, scale, coords_grad=True, addend=None, round_out=True):
+        def this():
+            return splat.triplane_splat_bf16(planes, coords, g, scale, coords_grad, addend,
+                                             round_out)
+        earlier = on_library(old, this)
+        sums = lambda: splat.triplane_splat_bf16(planes, coords, g, scale, coords_grad,  # noqa: E731
+                                                 addend, False)
+        rel = agree(sums(), on_library(old, sums)(), f'K1 bf16 {label}')
+        got, ref = this()[0].float(), earlier()[0].float()
+        limit = ref.abs() * 2.0 ** -7 + 1e-5 * float(ref.abs().max())
+        beyond = int(((got - ref).abs() > limit).sum())
+        if beyond:
+            raise AssertionError(f'K1 bf16 {label}: {beyond} stored texels beyond one ulp')
+        times = turns_warm_cold(chip_smoke, earlier, this, 20)
+        print_turns(f'K1 bf16 {label}', times, f'; float32 sums and g_coords agree to {rel}, the '
+                                              f'store within one ulp')
+        result[f'k1_bf16_{label}'] = times
+
+    trainer, *step = training_trainer(['training.gmain_render_bf16=true'])
+    calls = profile_training.capture_splat_bf16_calls(trainer, *step)
+    del trainer, step
+    for label, args in calls:
+        args = {k: v.detach() if torch.is_tensor(v) else v for k, v in args.items()}
+        k1_bf16(f'step_{label}', **args)
+    del calls, args
+    torch.cuda.empty_cache()
+    planes, coords, g, scale = uniform_points(gen, dtype=torch.bfloat16)
+    k1_bf16('uniform', planes, coords, g, scale)
+    addend = torch.randn(planes.shape, device='cuda', generator=gen)
+    k1_bf16('uniform_addend', planes, coords, g, scale, addend=addend)
+    del planes, coords, g, addend
+    torch.cuda.empty_cache()
+
+
+def gather_phase(parent, chip_smoke, result, gen, old):
+    """K1's second-order gather entry on the two calls of one R1 + PL step
+    of the satellite trainer (`loss.pl_weight=2`, PL at batch 8) and at the
+    `pl` phase's random inputs (planes [24, 512, 512, 32], 8 x 64^2 x 32
+    points), each with the planes' cotangent alone (the path's form) and
+    with a coordinate cotangent too; its scatter entry at those inputs with
+    the random coordinate cotangent: <= 1e-5 x max |earlier|."""
+    from tdgp_torch import profile_training
+
+    def gather(label, planes, coords, g, u_planes, u_coords, scale):
+        this = lambda: splat.triplane_splat_gather(planes, coords, g, u_planes,  # noqa: E731
+                                                   u_coords, scale)
+        earlier = on_library(old, this)
+        rel = agree(this(), earlier(), f'K1 gather {label}')
+        times = turns_warm_cold(chip_smoke, earlier, this, 20)
+        print_turns(f'K1 gather {label}', times, f'; agree to {rel}')
+        result[f'k1_gather_{label}'] = times
+
+    trainer, *step = training_trainer(['loss.pl_weight=2.0'])
+    calls = profile_training.capture_gather_calls(trainer, *step)
+    del trainer, step
+    for label, args in calls:
+        gather(f'pl_{label}', **{k: v.detach() if torch.is_tensor(v) else v
+                                 for k, v in args.items()})
+    del calls, args
+    torch.cuda.empty_cache()
+    planes, coords, g, scale = uniform_points(gen, n=8)
+    u_planes = torch.randn(planes.shape, device='cuda', generator=gen)
+    u_coords = torch.randn(coords.shape, device='cuda', generator=gen)
+    gather('uniform', planes, coords, g, u_planes, None, scale)
+    gather('uniform_coords_cotangent', planes, coords, g, u_planes, u_coords, scale)
+    h, w = planes.shape[1], planes.shape[2]
+    this = lambda: splat.triplane_splat_dcoords(coords, g, u_coords, scale, h, w)  # noqa: E731
+    earlier = on_library(old, this)
+    rel = agree((this(),), (earlier(),), 'K1 scatter')
+    times = turns_warm_cold(chip_smoke, earlier, this, 20)
+    print_turns('K1 scatter (second order) uniform', times, f'; agree to {rel}')
+    result['k1_scatter_uniform'] = times
+    del planes, coords, g, u_planes, u_coords
     torch.cuda.empty_cache()
 
 

@@ -30,12 +30,14 @@
 // in its own shared memory and writes it to g_planes once, with 16-byte
 // stores, empty strips included (they read nothing and write zeros). No
 // zero fill, no global atomic into g_planes, and no texel written twice.
-//  - Bins: a histogram kernel counts the entries of each strip, torch sums
-//    the counts into offsets, and a scatter kernel writes the entries to
-//    their strips (`ops/splat.py` `_bins` is the same arithmetic in torch).
-//    Both gather a block's entries by strip in a shared-memory table first,
-//    so that the samples of neighbouring rays, which fall on the same
-//    strips, cost one global atomic per strip and block.
+//  - Bins: a histogram kernel counts the entries of each strip and gives
+//    each (entry, strip) its index in the strip, torch sums the counts into
+//    offsets, and a light pass places the entries (`ops/splat.py` `_bins` is
+//    the same arithmetic in torch). The histogram gathers a block's entries
+//    by strip in a shared-memory table first, so that the samples of
+//    neighbouring rays, which fall on the same strips, cost one global
+//    atomic per strip and block, whose old value is the block's first index
+//    in the strip.
 //    An entry goes to the strip of its base corner (its home) and, where
 //    its 2x2 footprint reaches into them, to the strips on the right, below
 //    and diagonally below, so that every warp walks its own bin only (the
@@ -52,26 +54,30 @@
 //    strips of other shapes (2 x 16, 4 x 16, 8 x 8).
 //  - The warp streams its bin 32 entries at a time, lane l computing entry
 //    l's corners while the next 32 entries and their coordinates load; then
-//    4 entries at a time, their cotangent rows in flight, lane f on feature
-//    f, it sums a run of entries with the same corners (the samples of a ray
-//    that fall on one texel, which the bins keep together) in registers and
-//    adds the run to the strip once. For the entries whose home the strip is
-//    it forms (dtx, dty) from the run's corner texels, read once per run,
-//    and reduces the 4 entries' 8 sums over the warp at once; a second,
-//    small kernel combines each point's three (dtx, dty) into g_coords.
-//    Without the coordinate gradient nothing of `planes` is read.
+//    it walks them 8 at a time (the group walk, splat_group_kernel: F / 8
+//    lanes an entry, 8 features a lane), every lane's cotangent row and,
+//    for an entry whose home the strip is, its four corner rows in flight
+//    before any sum. The entries with the same corners in a step (a run: the
+//    samples of neighbouring rays on one texel) go in rounds, one entry of
+//    each run a round, and a round adds its corners into the strip's
+//    float32 accumulator one corner index at a time. A home entry's (dtx,
+//    dty) reduce over its lanes; a second, small kernel combines each
+//    point's three (dtx, dty) into g_coords. Without the coordinate
+//    gradient nothing of `planes` is read. A step costs one round trip to
+//    memory, where a walk of 4 entries a step that read a run's corners
+//    when the run began waited once per 4 entries and once per run.
 // The order of the bins' atomics changes from run to run, so the order of
 // the float32 sums does too, and they change by rounding.
 //
 // The bf16 entry (tdgp_triplane_splat_bf16) is the backward of sampling bf16
 // planes, the bf16 render views' (generator.render_bf16, in Gmain under
-// training.gmain_render_bf16). It is the same kernel reading bf16 planes
-// (for the coordinate gradient) and a bf16 cotangent, each row g / 3
-// rounded to bf16 as the plain version's bf16 division rounds it, summing
-// in float32 as above, and storing g_planes in bf16, rounded once, or in
-// float32; it may add a float32 addend (another pass's sum, read once) to
-// each strip before the store. A render's fine pass stores its float32 sum,
-// and its coarse pass adds it and rounds the total: one rounding for both
+// training.gmain_render_bf16). It takes the same bins and strips, reading
+// bf16 planes (for the coordinate gradient) and a bf16 cotangent, each row
+// g / 3 rounded to bf16 as the plain version's bf16 division rounds it,
+// summing in float32 as above, and storing g_planes in bf16, rounded once,
+// or in float32; it may add a float32 addend (another pass's sum, read
+// once) to each strip before the store. A render's fine pass stores its
+// float32 sum, and its coarse pass adds it and rounds the total: one rounding for both
 // passes, as the JAX package's TPU route rounds its merged coarse + fine
 // table once (tdgp/ops/splat.py:1030-1033, merged_splat). Its least traffic
 // on the training step's points is the float32 entry's with the cotangent
@@ -93,8 +99,9 @@
 //    U_planes[c]> + dv X and d/dty = <g/3, sum_c m_c dw_c/dty U_planes[c]>
 //    + du X, X = <g/3, v00 - v01 - v10 + v11> the weights' cross term
 //    d^2/dtx dty (the terms in tx^2 and ty^2 are zero, the masks and floor
-//    have no derivative). A warp per point, lane f on feature f, the three
-//    planes in turn; without U_coords nothing of `planes` is read.
+//    have no derivative). F / 4 lanes a point, 4 features a lane, every
+//    row of the point in flight before the sums; without U_coords nothing
+//    of `planes` is read.
 //  - tdgp_triplane_splat_dcoords: d/dplanes = the scatter of g/3 with the
 //    derivative weights du dw_c/dtx + dv dw_c/dty: K1's strip kernel on the
 //    same bins, with those weights in place of w_c, float32 out (plane
@@ -106,11 +113,14 @@
 // U_planes, g and the coordinates and write g's and the coordinates'
 // cotangents (0.95 GB, 0.28 ms at 3.35 TB/s); the scatter writes the whole
 // plane gradient once (0.96 GB). The gather reads each of its 12 corner rows
-// per point through the L1 (neighbouring samples of a ray share texels);
-// the scatter inherits K1's strips, which write each texel once.
+// per point through the L1 (neighbouring samples of a ray, in one warp,
+// share texels); the scatter inherits K1's strips, which write each texel
+// once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -222,10 +232,12 @@ __device__ __forceinline__ void insert_keys(BinTable& t, const int (&keys)[4], i
   }
 }
 
-// counts[b] = the entries of bin b: one global atomic per bin and block.
+// counts[b] = the entries of bin b, and ranks[e] = for each key of entry e
+// its index among its bin's entries (-1 for none): the old value of the
+// block's one global atomic per bin is the block's first index in the bin.
 __global__ void __launch_bounds__(kBinThreads)
-bin_count_kernel(const float* __restrict__ coords, int* __restrict__ counts,
-                 long long n_entries, Geometry geo) {
+bin_rank_kernel(const float* __restrict__ coords, int* __restrict__ counts,
+                int4* __restrict__ ranks, long long n_entries, Geometry geo) {
   __shared__ BinTable t;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   clear(t);
@@ -235,29 +247,29 @@ bin_count_kernel(const float* __restrict__ coords, int* __restrict__ counts,
   insert_keys(t, keys, slot, rank);
   __syncthreads();
   for (int i = threadIdx.x; i < kSlots; i += blockDim.x)
-    if (t.key[i] >= 0) atomicAdd(counts + t.key[i], t.count[i]);
+    if (t.key[i] >= 0) t.base[i] = atomicAdd(counts + t.key[i], t.count[i]);
+  __syncthreads();
+  if (e >= n_entries) return;
+  int r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = keys[i] >= 0 ? t.base[slot[i]] + rank[i] : -1;
+  ranks[e] = make_int4(r[0], r[1], r[2], r[3]);
 }
 
-// entries[cursor[b]++] = e for every bin b of entry e; cursor starts at the
-// bins' offsets. Each block reserves one range per bin with one global
-// atomic; the order within a bin is that of the blocks' atomics.
-__global__ void __launch_bounds__(kBinThreads)
-bin_scatter_kernel(const float* __restrict__ coords, int* __restrict__ cursor,
-                   int* __restrict__ entries, long long n_entries, Geometry geo) {
-  __shared__ BinTable t;
+// entries[offsets[b] + rank] = e for every key b of entry e, its rank from
+// bin_rank_kernel.
+__global__ void bin_place_kernel(const float* __restrict__ coords, const int4* __restrict__ ranks,
+                                 const int* __restrict__ offsets, int* __restrict__ entries,
+                                 long long n_entries, Geometry geo) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  clear(t);
-  __syncthreads();
-  int keys[4], slot[4], rank[4];
+  if (e >= n_entries) return;
+  int keys[4];
   keys_of(coords, e, n_entries, geo, keys);
-  insert_keys(t, keys, slot, rank);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kSlots; i += blockDim.x)
-    if (t.key[i] >= 0) t.base[i] = atomicAdd(cursor + t.key[i], t.count[i]);
-  __syncthreads();
+  const int4 r4 = ranks[e];
+  const int r[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (keys[i] >= 0) entries[t.base[slot[i]] + rank[i]] = (int)e;
+    if (keys[i] >= 0) entries[offsets[keys[i]] + r[i]] = (int)e;
 }
 
 // An entry as the strip kernel sees it: its local corner (ly, lx), ly in
@@ -266,25 +278,6 @@ bin_scatter_kernel(const float* __restrict__ coords, int* __restrict__ cursor,
 __device__ __forceinline__ int pack_entry(int ly, int lx, bool m00, bool m01, bool m10, bool m11,
                                           bool home) {
   return (ly + 1) | (lx + 1) << 6 | m00 << 12 | m01 << 13 | m10 << 14 | m11 << 15 | home << 16;
-}
-
-// v[N] per lane -> in lane l, the sum over the warp of v[(l >> s) & (N - 1)],
-// s = log2(32 / N): N sums in N - 1 + s shuffles, where one at a time take 5 N.
-template <int N>
-__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
-#pragma unroll
-  for (int h = N / 2, o = 16; h >= 1; h >>= 1, o >>= 1) {
-    const bool upper = lane & o;
-#pragma unroll
-    for (int j = 0; j < h; ++j) {
-      const float send = upper ? v[j] : v[j + h];
-      const float keep = upper ? v[j + h] : v[j];
-      v[j] = keep + __shfl_xor_sync(kFullMask, send, o);
-    }
-  }
-#pragma unroll
-  for (int o = 16 / N; o >= 1; o >>= 1) v[0] += __shfl_xor_sync(kFullMask, v[0], o);
-  return v[0];
 }
 
 bool make_geometry(long long n_batch, long long points_per_batch, int height, int width,
@@ -302,16 +295,13 @@ bool make_geometry(long long n_batch, long long points_per_batch, int height, in
   return *n_bins < (1ll << 31);
 }
 
-// One warp per strip of one plane (see the note at the top), kWarps strips
-// per block: small blocks, since a block holds its slot until its busiest
-// warp is done.
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// a cotangent row's share of one plane: g / 3, rounded to bf16 for bf16 input
-__device__ __forceinline__ float third(float g) { return g * (1.f / 3.f); }
-__device__ __forceinline__ float third(__nv_bfloat16 g) {
-  return __bfloat162float(__float2bfloat16_rn(__bfloat162float(g) * (1.f / 3.f)));
+// a cotangent value's share of one plane: g / 3 (1/3: as torch's g / 3 on the
+// card), rounded to bf16 for bf16 planes
+template <typename TP>
+__device__ __forceinline__ float third_of(float g) {
+  const float third = g * (1.f / 3.f);
+  if constexpr (std::is_same<TP, float>::value) return third;
+  else return __bfloat162float(__float2bfloat16_rn(third));
 }
 
 __device__ __forceinline__ void store4(float* dst, float4 v) {
@@ -325,26 +315,74 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// TP: the planes' and the cotangent's type (float or bf16); TO: g_planes'.
-// Deriv: the second-order scatter, each entry's weights the derivative ones
-// of its point's u_coords (scaled by sx, sy) in place of the bilinear ones.
+// Eight consecutive values of a row, kept as loaded (one 16-byte load of
+// bf16, two of float32; the caller keeps the row 16-byte aligned) and read
+// as float32: zero until loaded.
+struct Row8Bf16 {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float operator[](int f) const {  // a bf16 is a float32's high half
+    const unsigned w = f < 2 ? u.x : f < 4 ? u.y : f < 6 ? u.z : u.w;
+    return __uint_as_float(f & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+struct Row8F32 {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = make_float4(0.f, 0.f, 0.f, 0.f);
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float operator[](int f) const {
+    const float4& h = f < 4 ? a : b;
+    const int i = f & 3;
+    return i == 0 ? h.x : i == 1 ? h.y : i == 2 ? h.z : h.w;
+  }
+};
+template <typename TP>
+using Row8 = typename std::conditional<std::is_same<TP, float>::value, Row8F32, Row8Bf16>::type;
+
+// Blocks of the group walk an SM holds at once, by the planes' type: its
+// registers' cap (65536 / (64 x this) a thread), traded between the
+// occupancy that hides a step's loads and spills. The fastest of 12, 16 and
+// 20 for each (probe_kernels.py): bf16 16 (64 registers), float32 12 (85;
+// its rows take twice the registers).
+constexpr int kGroupBlocksPerSmBf16 = 16;
+constexpr int kGroupBlocksPerSmF32 = 12;
+template <typename TP>
+constexpr int kGroupBlocksPerSm =
+    std::is_same<TP, float>::value ? kGroupBlocksPerSmF32 : kGroupBlocksPerSmBf16;
+
+// The group walk of every entry (K1, its bf16 entry, the second-order
+// scatter; see the note at the top): a warp per strip, a group of kLanes =
+// F / 8 lanes per entry, 8 features a lane, so a warp walks 32 / kLanes
+// entries a step (8 at F = 32). Every lane issues its entry's cotangent row
+// (16 bytes of bf16) and, for a home entry, its four corner rows before any
+// sum: a step costs one round trip to memory. The runs of a step (its
+// entries with the same corners, found by __match_any_sync) are added in
+// rounds, one entry of each run a round, and each round adds its four
+// corners one corner index at a time with a __syncwarp between: for one
+// corner index, entries of two runs touch two texels, so the plain shared
+// read-add-writes cannot collide (a float atomicAdd to shared memory is a
+// compare-and-swap loop here, ATOMS.CAST.SPIN). A home entry's (dtx, dty),
+// from the corner rows' differences feature by feature, reduce over its
+// kLanes lanes (the dot products of g / 3 with each corner row, differenced
+// after the sums, cancelled to 1.05e-5 of the largest on a training step's
+// points).
 template <int F, typename TP = float, typename TO = float, bool Deriv = false>
-__global__ void __launch_bounds__(32 * kWarps)
-splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
-                   const TP* __restrict__ g,           // [N, P, F]
-                   const float* __restrict__ coords,   // [N, P, 3]
-                   const int* __restrict__ entries,    // plane * P + point, by bin
-                   const int* __restrict__ offsets,    // [n_bins + 1]
-                   const float* __restrict__ addend,   // [3N, H, W, F] float32 or null
-                   TO* __restrict__ g_planes,          // [3N, H, W, F]
-                   float2* __restrict__ d_plane,       // [3N, P] (dtx, dty) or null
-                   Geometry geo, int n_bins,
-                   const float* __restrict__ u_coords = nullptr,  // [N, P, 3], with Deriv
-                   float sx = 0.f, float sy = 0.f) {
-  static_assert(F % 4 == 0 && F <= 32, "a lane per feature");
-  constexpr int kF4 = F / 4, kTexels = kStripH * kStripW;
+__global__ void __launch_bounds__(32 * kWarps, kGroupBlocksPerSm<TP>)
+splat_group_kernel(const TP* __restrict__ planes, const TP* __restrict__ g,
+                   const float* __restrict__ coords, const int* __restrict__ entries,
+                   const int* __restrict__ offsets, const float* __restrict__ addend,
+                   TO* __restrict__ g_planes, float2* __restrict__ d_plane, Geometry geo,
+                   int n_bins, const float* __restrict__ u_coords = nullptr, float sx = 0.f,
+                   float sy = 0.f) {
+  static_assert(F % 8 == 0 && F <= 32, "8 features a lane");
+  constexpr int kLanes = F / 8, kGroup = 32 / kLanes, kF4 = F / 4, kTexels = kStripH * kStripW;
   __shared__ __align__(16) float s_acc[kWarps][kTexels * F];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane % kLanes, slot = lane / kLanes;  // features [8q, 8q + 8) of entry `slot`
   const int bin = blockIdx.x * kWarps + warp;
   if (bin >= n_bins) return;  // the whole warp
   float* acc = s_acc[warp];
@@ -353,11 +391,11 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
   const int t = bin - plane * geo.strips_y * geo.tiles_x;
   const int y_base = (t / geo.tiles_x) * kStripH, x_base = (t % geo.tiles_x) * kStripW;
   const int first = offsets[bin], last = offsets[bin + 1];
-  const bool coords_grad = d_plane != nullptr, active = lane < F;
+  const bool coords_grad = d_plane != nullptr;
   const long long batch_row =  // + entry: the point's row of coords and g
       (long long)(plane / 3) * geo.points_per_batch - (long long)plane * geo.points_per_batch;
   const int k = plane % 3, iu = k == 2 ? 1 : 0, iv = k == 0 ? 1 : 2;  // the plane's two axes
-  const TP* plane_base = planes + (long long)plane * height * width * F + lane;
+  const TP* plane_base = planes + (long long)plane * height * width * F + 8 * q;
 
   for (int i = lane; i < kTexels * kF4; i += 32)
     reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -377,19 +415,6 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
       }
     }
   };
-  int run = -1;  // the corners (pack_entry & 0xffff) of the run being summed
-  float r00 = 0.f, r01 = 0.f, r10 = 0.f, r11 = 0.f;
-  float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;  // the run's corner texels, at its home
-  auto flush = [&]() {
-    if (run < 0 || !active) return;
-    const int ly = (run & 63) - 1, lx = (run >> 6 & 63) - 1;
-    float* a = acc + (ly * kStripW + lx) * F + lane;  // corner 00; used only in the strip
-    const bool y0_in = ly >= 0, y1_in = ly + 1 < kStripH, x0_in = lx >= 0, x1_in = lx + 1 < kStripW;
-    if (y0_in && x0_in && (run >> 12 & 1)) a[0] += r00;
-    if (y0_in && x1_in && (run >> 13 & 1)) a[F] += r01;
-    if (y1_in && x0_in && (run >> 14 & 1)) a[kStripW * F] += r10;
-    if (y1_in && x1_in && (run >> 15 & 1)) a[(kStripW + 1) * F] += r11;
-  };
   __syncwarp();
 
   fetch(first);
@@ -398,79 +423,94 @@ splat_strip_kernel(const TP* __restrict__ planes,      // [3N, H, W, F] or null
     // entry base + lane: its corners
     const int my_e = next_e;
     const float my_du = next_du, my_dv = next_dv;
-    const float2 q = pixel_xy(next_u, next_v, geo);
+    const float2 q_xy = pixel_xy(next_u, next_v, geo);
     fetch(base + 32);
-    const float fx0 = floorf(q.x), fy0 = floorf(q.y);
+    const float fx0 = floorf(q_xy.x), fy0 = floorf(q_xy.y);
     const int x0 = (int)fx0, y0 = (int)fy0;
     const int hy = max(y0, 0) - y_base, hx = max(x0, 0) - x_base;
     const int my_pos = pack_entry(y0 - y_base, x0 - x_base, y0 >= 0 && x0 >= 0,
                                   y0 >= 0 && x0 + 1 < width, y0 + 1 < height && x0 >= 0,
                                   y0 + 1 < height && x0 + 1 < width,
                                   coords_grad && hy >= 0 && hy < kStripH && hx >= 0 && hx < kStripW);
-    const float my_tx = q.x - fx0, my_ty = q.y - fy0;
+    const float my_tx = q_xy.x - fx0, my_ty = q_xy.y - fy0;
 
-    for (int j = 0; j < count; j += 4) {
-      float gv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {  // 4 cotangent rows in flight
-        const int e = __shfl_sync(kFullMask, my_e, (j + u) & 31);
-        gv[u] = j + u < count && active ? third(g[(batch_row + e) * F + lane]) : 0.f;
-      }  // (1/3: as torch's g / 3 on the card)
-      float v[8];
-      bool any_home = false;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int src = (j + u) & 31;
-        const int pos = j + u < count ? __shfl_sync(kFullMask, my_pos, src) : 0;
-        const float tx = __shfl_sync(kFullMask, my_tx, src);
-        const float ty = __shfl_sync(kFullMask, my_ty, src);
-        float du = 0.f, dv = 0.f;
-        if constexpr (Deriv) {
-          du = __shfl_sync(kFullMask, my_du, src);
-          dv = __shfl_sync(kFullMask, my_dv, src);
-        }
-        const bool home = pos >> 16 & 1;  // the same for the whole warp
-        if (j + u < count) {
-          if ((pos & 0xffff) != run) {  // a new run: flush the last, read the corners
-            flush();
-            run = pos & 0xffff;
-            r00 = r01 = r10 = r11 = 0.f;
-            if (home) {
-              const int ly = (pos & 63) - 1, lx = (pos >> 6 & 63) - 1;
-              const TP* pv = plane_base + ((long long)(y_base + ly) * width + x_base + lx) * F;
-              v00 = active && (pos >> 12 & 1) ? widen(__ldg(pv)) : 0.f;
-              v01 = active && (pos >> 13 & 1) ? widen(__ldg(pv + F)) : 0.f;
-              v10 = active && (pos >> 14 & 1) ? widen(__ldg(pv + (long long)width * F)) : 0.f;
-              v11 = active && (pos >> 15 & 1) ? widen(__ldg(pv + (long long)(width + 1) * F)) : 0.f;
-            }
-          }
-          if constexpr (Deriv) {  // du dw/dtx + dv dw/dty of each corner
-            r00 += (-du * (1.f - ty) - dv * (1.f - tx)) * gv[u];
-            r01 += (du * (1.f - ty) - dv * tx) * gv[u];
-            r10 += (-du * ty + dv * (1.f - tx)) * gv[u];
-            r11 += (du * ty + dv * tx) * gv[u];
-          } else {
-            r00 += (1.f - tx) * (1.f - ty) * gv[u];
-            r01 += tx * (1.f - ty) * gv[u];
-            r10 += (1.f - tx) * ty * gv[u];
-            r11 += tx * ty * gv[u];
-          }
-        }
-        any_home |= home;
-        v[2 * u] = home ? gv[u] * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10)) : 0.f;
-        v[2 * u + 1] = home ? gv[u] * ((1.f - tx) * (v10 - v00) + tx * (v11 - v01)) : 0.f;
+    for (int j = 0; j < count; j += kGroup) {
+      const int src = (j + slot) & 31;
+      const bool valid = j + slot < count;
+      const int e = __shfl_sync(kFullMask, my_e, src);
+      const int any_pos = __shfl_sync(kFullMask, my_pos, src);
+      const int pos = valid ? any_pos : 0;
+      const float tx = __shfl_sync(kFullMask, my_tx, src);
+      const float ty = __shfl_sync(kFullMask, my_ty, src);
+      float du = 0.f, dv = 0.f;
+      if constexpr (Deriv) {
+        du = __shfl_sync(kFullMask, my_du, src);
+        dv = __shfl_sync(kFullMask, my_dv, src);
       }
-      if (any_home) {
-        const float sum = reduce_scatter(v, lane);  // of entry j + lane / 8, (dtx, dty)[lane / 4 % 2]
-        const int src = (j + (lane >> 3)) & 31;
-        const int e = __shfl_sync(kFullMask, my_e, src);
-        const int p = __shfl_sync(kFullMask, my_pos, src);
-        if ((lane & 3) == 0 && j + (lane >> 3) < count && (p >> 16 & 1))
-          reinterpret_cast<float*>(d_plane)[2 * (long long)e + (lane >> 2 & 1)] = sum;
+      const bool home = valid && (pos >> 16 & 1);
+      const int ly = (pos & 63) - 1, lx = (pos >> 6 & 63) - 1;
+      // every load of the step before any sum
+      Row8<TP> g_row, corner[4];  // the corner texels 00 01 10 11, at the entry's home
+      if (valid) g_row.load(g + (batch_row + e) * F + 8 * q);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (home && (pos >> (12 + c) & 1))
+          corner[c].load(plane_base +
+                         ((long long)(y_base + ly + (c >> 1)) * width + x_base + lx + (c & 1)) * F);
+      float gv[8];
+#pragma unroll
+      for (int f = 0; f < 8; ++f) gv[f] = third_of<TP>(g_row[f]);
+      if (coords_grad) {  // uniform: d_plane is the whole warp's
+        float dx = 0.f, dy = 0.f;
+        if (home) {
+#pragma unroll
+          for (int f = 0; f < 8; ++f) {
+            const float v00 = corner[0][f], v01 = corner[1][f], v10 = corner[2][f],
+                        v11 = corner[3][f];
+            dx += gv[f] * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
+            dy += gv[f] * ((1.f - tx) * (v10 - v00) + tx * (v11 - v01));
+          }
+        }
+#pragma unroll
+        for (int o = kLanes / 2; o >= 1; o >>= 1) {
+          dx += __shfl_xor_sync(kFullMask, dx, o);
+          dy += __shfl_xor_sync(kFullMask, dy, o);
+        }
+        if (home && q == 0) d_plane[e] = make_float2(dx, dy);
+      }
+      float w[4];
+      if constexpr (Deriv) {  // du dw/dtx + dv dw/dty of each corner
+        w[0] = -du * (1.f - ty) - dv * (1.f - tx);
+        w[1] = du * (1.f - ty) - dv * tx;
+        w[2] = -du * ty + dv * (1.f - tx);
+        w[3] = du * ty + dv * tx;
+      } else {
+        w[0] = (1.f - tx) * (1.f - ty);
+        w[1] = tx * (1.f - ty);
+        w[2] = (1.f - tx) * ty;
+        w[3] = tx * ty;
+      }
+      // the step's runs: rank = how many entries of this entry's run come before it
+      const unsigned peers = __match_any_sync(kFullMask, valid ? pos & 0xffff : -1 - slot);
+      const int rank = __popc(peers & ((1u << lane) - 1u)) / kLanes;
+      const int rounds = (int)__reduce_max_sync(kFullMask, (unsigned)(valid ? rank : 0)) + 1;
+      for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int cy = ly + (c >> 1), cx = lx + (c & 1);
+          if (valid && rank == r && (pos >> (12 + c) & 1) && cy >= 0 && cy < kStripH && cx >= 0 &&
+              cx < kStripW) {
+            float4* a = reinterpret_cast<float4*>(acc + (cy * kStripW + cx) * F + 8 * q);
+            float4 lo = a[0], hi = a[1];
+            lo.x += w[c] * gv[0], lo.y += w[c] * gv[1], lo.z += w[c] * gv[2], lo.w += w[c] * gv[3];
+            hi.x += w[c] * gv[4], hi.y += w[c] * gv[5], hi.z += w[c] * gv[6], hi.w += w[c] * gv[7];
+            a[0] = lo, a[1] = hi;
+          }
+          __syncwarp();
+        }
       }
     }
   }
-  flush();
   __syncwarp();
 
   const int rows = min(kStripH, height - y_base), cols = min(kStripW, width - x_base);
@@ -502,11 +542,15 @@ __global__ void coords_grad_kernel(const float2* __restrict__ d_plane, float* __
   g_coords[i * 3 + 2] = dxz.y * sy + dyz.y * sy;
 }
 
-// The second order's gather entry (see the note at the top): a warp per
-// point (n, p), lane f on feature f. u_planes, u_coords and planes may be
-// null: a zero cotangent, or (planes) not read; planes is needed with
-// u_coords.
-template <int F>
+// The second order's gather entry (see the note at the top). kLanes = F / 4
+// lanes a point, 4 features a lane (16-byte loads and stores), so a warp
+// takes 32 / kLanes consecutive points (4 at F = 32: the neighbouring
+// samples of a ray, whose corners meet in the L1). Each lane issues the
+// point's g row and its 12 corner rows of u_planes (and 12 of planes with
+// u_coords) before any sum; the (dtx, dty) dot products reduce over the
+// point's kLanes lanes. UP, UC: whether u_planes, u_coords are given (not
+// zero); planes is read only with u_coords.
+template <int F, bool UP, bool UC>
 __global__ void __launch_bounds__(256)
 splat_gather_kernel(const float* __restrict__ planes,    // [3N, H, W, F] or null
                     const float* __restrict__ coords,    // [N, P, 3]
@@ -516,78 +560,121 @@ splat_gather_kernel(const float* __restrict__ planes,    // [3N, H, W, F] or nul
                     float* __restrict__ b_g,             // [N, P, F]
                     float* __restrict__ b_coords,        // [N, P, 3]
                     long long n_points, Geometry geo, float sx, float sy) {
-  const int lane = threadIdx.x & 31;
-  const long long point = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (point >= n_points) return;  // the whole warp
-  const bool active = lane < F;
+  static_assert(F % 4 == 0 && F <= 32, "4 features a lane");
+  constexpr int kLanes = F / 4, kPoints = 32 / kLanes;
+  const int lane = threadIdx.x & 31, q = lane % kLanes;
+  const long long point =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * kPoints + lane / kLanes;
+  const bool valid = point < n_points;  // no early return: the lanes reduce together
+  const long long at_point = valid ? point : n_points - 1;
   const int height = geo.height, width = geo.width;
-  const long long n = point / geo.points_per_batch;
-  const float gp = active ? g[point * F + lane] * (1.f / 3.f) : 0.f;
-  float bg = 0.f, bc[3] = {0.f, 0.f, 0.f};
+  const long long n = at_point / geo.points_per_batch;
+  auto row4 = [&](const float* base, long long texel) {
+    return __ldg(reinterpret_cast<const float4*>(base + texel * F) + q);
+  };
+  // every load first: g's row, then per plane its corners' rows
+  const float4 g4 = row4(g, at_point);
+  float tx[3], ty[3], du[3] = {0.f, 0.f, 0.f}, dv[3] = {0.f, 0.f, 0.f};
+  bool in[3][4];
+  float4 u[3][4], v[3][4];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const int iu = k == 2 ? 1 : 0, iv = k == 0 ? 1 : 2;
-    const float2 q = plane_xy(coords, point, k, geo);
-    const float fx0 = floorf(q.x), fy0 = floorf(q.y);
+    const float2 p = plane_xy(coords, at_point, k, geo);
+    const float fx0 = floorf(p.x), fy0 = floorf(p.y);
     const int x0 = (int)fx0, y0 = (int)fy0;
-    const float tx = q.x - fx0, ty = q.y - fy0;
-    const bool in[4] = {y0 >= 0 && y0 < height && x0 >= 0 && x0 < width,
-                        y0 >= 0 && y0 < height && x0 + 1 >= 0 && x0 + 1 < width,
-                        y0 + 1 >= 0 && y0 + 1 < height && x0 >= 0 && x0 < width,
-                        y0 + 1 >= 0 && y0 + 1 < height && x0 + 1 >= 0 && x0 + 1 < width};
-    const long long plane_row = (3 * n + k) * (long long)height * width;
-    const long long at[4] = {plane_row + (long long)y0 * width + x0,
-                             plane_row + (long long)y0 * width + x0 + 1,
-                             plane_row + (long long)(y0 + 1) * width + x0,
-                             plane_row + (long long)(y0 + 1) * width + x0 + 1};
-    const float w[4] = {(1.f - tx) * (1.f - ty), tx * (1.f - ty), (1.f - tx) * ty, tx * ty};
-    const float dwx[4] = {-(1.f - ty), 1.f - ty, -ty, ty};  // d w_c / d tx
-    const float dwy[4] = {-(1.f - tx), -tx, 1.f - tx, tx};  // d w_c / d ty
-    float du = 0.f, dv = 0.f;
-    if (u_coords != nullptr) {
-      du = u_coords[point * 3 + iu] * sx;
-      dv = u_coords[point * 3 + iv] * sy;
-    }
-    float ux = 0.f, uy = 0.f, cross = 0.f;  // per lane: d/dtx and d/dty of <g/3, U gather>, X
+    tx[k] = p.x - fx0;
+    ty[k] = p.y - fy0;
+    const bool ys[2] = {y0 >= 0 && y0 < height, y0 + 1 >= 0 && y0 + 1 < height};
+    const bool xs[2] = {x0 >= 0 && x0 < width, x0 + 1 >= 0 && x0 + 1 < width};
+    const long long base = (3 * n + k) * (long long)height * width + (long long)y0 * width + x0;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if (!(active && in[c])) continue;
-      if (u_planes != nullptr) {
-        const float u = __ldg(u_planes + at[c] * F + lane);
-        bg += w[c] * u;
-        ux += dwx[c] * u;
-        uy += dwy[c] * u;
-      }
-      if (u_coords != nullptr) {
-        const float v = __ldg(planes + at[c] * F + lane);
-        bg += (du * dwx[c] + dv * dwy[c]) * v;
-        cross += (c == 0 || c == 3 ? v : -v);
-      }
+      in[k][c] = ys[c >> 1] && xs[c & 1];
+      const long long texel = base + (long long)(c >> 1) * width + (c & 1);
+      u[k][c] = UP && in[k][c] ? row4(u_planes, texel) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[k][c] = UC && in[k][c] ? row4(planes, texel) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    float btx = gp * ux + dv * gp * cross, bty = gp * uy + du * gp * cross;
+    if constexpr (UC) {
+      du[k] = u_coords[at_point * 3 + (k == 2 ? 1 : 0)] * sx;
+      dv[k] = u_coords[at_point * 3 + (k == 0 ? 1 : 2)] * sy;
+    }
+  }
+  const float gp[4] = {g4.x * (1.f / 3.f), g4.y * (1.f / 3.f), g4.z * (1.f / 3.f),
+                       g4.w * (1.f / 3.f)};
+  float bg[4] = {0.f, 0.f, 0.f, 0.f}, bt[6];  // bt: (dtx, dty) of each plane, this lane's share
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      btx += __shfl_xor_sync(kFullMask, btx, off);
-      bty += __shfl_xor_sync(kFullMask, bty, off);
+  for (int k = 0; k < 3; ++k) {
+    const float w[4] = {(1.f - tx[k]) * (1.f - ty[k]), tx[k] * (1.f - ty[k]),
+                        (1.f - tx[k]) * ty[k], tx[k] * ty[k]};
+    const float dwx[4] = {-(1.f - ty[k]), 1.f - ty[k], -ty[k], ty[k]};  // d w_c / d tx
+    const float dwy[4] = {-(1.f - tx[k]), -tx[k], 1.f - tx[k], tx[k]};  // d w_c / d ty
+    float ux[4] = {0.f, 0.f, 0.f, 0.f}, uy[4] = {0.f, 0.f, 0.f, 0.f}, cross[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!in[k][c]) continue;
+      const float uc[4] = {u[k][c].x, u[k][c].y, u[k][c].z, u[k][c].w};
+      const float vc[4] = {v[k][c].x, v[k][c].y, v[k][c].z, v[k][c].w};
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        if constexpr (UP) {
+          bg[f] += w[c] * uc[f];
+          ux[f] += dwx[c] * uc[f];
+          uy[f] += dwy[c] * uc[f];
+        }
+        if constexpr (UC) {
+          bg[f] += (du[k] * dwx[c] + dv[k] * dwy[c]) * vc[f];
+          cross[f] += (c == 0 || c == 3 ? vc[f] : -vc[f]);
+        }
+      }
     }
-    bc[iu] += btx * sx;
-    bc[iv] += bty * sy;
+    float btx = 0.f, bty = 0.f;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      btx += gp[f] * ux[f] + dv[k] * gp[f] * cross[f];
+      bty += gp[f] * uy[f] + du[k] * gp[f] * cross[f];
+    }
+    bt[2 * k] = btx;
+    bt[2 * k + 1] = bty;
   }
-  if (active) b_g[point * F + lane] = bg * (1.f / 3.f);
-  if (lane == 0) {
-    b_coords[point * 3] = bc[0];
-    b_coords[point * 3 + 1] = bc[1];
-    b_coords[point * 3 + 2] = bc[2];
+#pragma unroll
+  for (int o = kLanes / 2; o >= 1; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) bt[i] += __shfl_xor_sync(kFullMask, bt[i], o);
   }
+  if (!valid) return;
+  reinterpret_cast<float4*>(b_g + point * F)[q] =
+      make_float4(bg[0] * (1.f / 3.f), bg[1] * (1.f / 3.f), bg[2] * (1.f / 3.f),
+                  bg[3] * (1.f / 3.f));
+  if (q == 0) {  // x from the x/y and x/z planes' u, y from x/y's v and y/z's u, z from the v's
+    b_coords[point * 3] = bt[0] * sx + bt[2] * sx;
+    b_coords[point * 3 + 1] = bt[1] * sy + bt[4] * sx;
+    b_coords[point * 3 + 2] = bt[3] * sy + bt[5] * sy;
+  }
+}
+
+// The gather's instantiation for the cotangents given (null ones are zero).
+template <int F>
+int launch_gather(const float* planes, const float* coords, const float* g, const float* u_planes,
+                  const float* u_coords, float* b_g, float* b_coords, long long n_points,
+                  const Geometry& geo, float sx, float sy, cudaStream_t s) {
+  auto kernel = u_planes != nullptr
+                    ? (u_coords != nullptr ? splat_gather_kernel<F, true, true>
+                                           : splat_gather_kernel<F, true, false>)
+                    : (u_coords != nullptr ? splat_gather_kernel<F, false, true>
+                                           : splat_gather_kernel<F, false, false>);
+  constexpr long long kPerBlock = 8 * (32 / (F / 4));  // 8 warps of 32 / kLanes points
+  kernel<<<(unsigned)((n_points + kPerBlock - 1) / kPerBlock), 256, 0, s>>>(
+      planes, coords, g, u_planes, u_coords, b_g, b_coords, n_points, geo, sx, sy);
+  return (int)cudaGetLastError();
 }
 
 template <int F, typename TP, typename TO>
 int launch_strips(const TP* planes, const TP* g, const float* coords, const int* entries,
                   const int* offsets, const float* addend, TO* g_planes, float2* d_plane,
                   long long n_bins, const Geometry& geo, cudaStream_t s) {
-  splat_strip_kernel<F, TP, TO><<<(unsigned)((n_bins + kWarps - 1) / kWarps), 32 * kWarps, 0,
-                                  s>>>(planes, g, coords, entries, offsets, addend, g_planes,
-                                       d_plane, geo, (int)n_bins);
+  splat_group_kernel<F, TP, TO><<<(unsigned)((n_bins + kWarps - 1) / kWarps), 32 * kWarps, 0, s>>>(
+      planes, g, coords, entries, offsets, addend, g_planes, d_plane, geo, (int)n_bins, nullptr,
+      0.f, 0.f);
   return (int)cudaGetLastError();
 }
 
@@ -633,11 +720,13 @@ int splat(const TP* planes, const TP* g, const float* coords, const int* entries
 
 extern "C" {
 
-// The bins' sizes: counts [n_bins] (zeroed here) for coords [N, P, 3].
 // Returns the first CUDA error (0 on success); so do the functions below.
-int tdgp_splat_bin_counts(const float* coords, int* counts, long long n_batch,
-                          long long points_per_batch, int height, int width, float inv_scale,
-                          void* stream) {
+// The bins' sizes and ranks: counts [n_bins] (zeroed here) and ranks
+// [3N P] (int4: each key's index in its bin, -1 for none) for coords
+// [N, P, 3].
+int tdgp_splat_bin_ranks(const float* coords, int* counts, void* ranks, long long n_batch,
+                         long long points_per_batch, int height, int width, float inv_scale,
+                         void* stream) {
   Geometry geo;
   long long n_bins;
   if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins))
@@ -646,27 +735,28 @@ int tdgp_splat_bin_counts(const float* coords, int* counts, long long n_batch,
   cudaError_t err = cudaMemsetAsync(counts, 0, n_bins * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   const long long n_entries = 3 * n_batch * points_per_batch;
-  bin_count_kernel<<<(unsigned)((n_entries + kBinThreads - 1) / kBinThreads), kBinThreads, 0, s>>>(
-      coords, counts, n_entries, geo);
+  bin_rank_kernel<<<(unsigned)((n_entries + kBinThreads - 1) / kBinThreads), kBinThreads, 0, s>>>(
+      coords, counts, static_cast<int4*>(ranks), n_entries, geo);
   return (int)cudaGetLastError();
 }
 
-// The bins' entries: cursor [n_bins] holds each bin's offset on entry and
-// its end on return; entries [>= offsets[n_bins]] gets plane * P + point.
-int tdgp_splat_bin_entries(const float* coords, int* cursor, int* entries, long long n_batch,
-                           long long points_per_batch, int height, int width, float inv_scale,
-                           void* stream) {
+// The bins' entries from the ranks of tdgp_splat_bin_ranks and the offsets
+// [n_bins + 1] (the counts summed): entries [>= offsets[n_bins]] gets plane
+// * P + point.
+int tdgp_splat_bin_place(const float* coords, const void* ranks, const int* offsets, int* entries,
+                         long long n_batch, long long points_per_batch, int height, int width,
+                         float inv_scale, void* stream) {
   Geometry geo;
   long long n_bins;
   if (!make_geometry(n_batch, points_per_batch, height, width, inv_scale, &geo, &n_bins))
     return (int)cudaErrorInvalidValue;
   const long long n_entries = 3 * n_batch * points_per_batch;
-  bin_scatter_kernel<<<(unsigned)((n_entries + kBinThreads - 1) / kBinThreads), kBinThreads, 0,
-                       (cudaStream_t)stream>>>(coords, cursor, entries, n_entries, geo);
+  bin_place_kernel<<<(unsigned)((n_entries + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      coords, static_cast<const int4*>(ranks), offsets, entries, n_entries, geo);
   return (int)cudaGetLastError();
 }
 
-// The splat over the bins of `tdgp_splat_bin_entries`: g_planes [3N, H, W, F]
+// The splat over the bins of `tdgp_splat_bin_place`: g_planes [3N, H, W, F]
 // (needs no zeroing) and, where g_coords is not null, g_coords [N, P, 3]
 // through d_scratch [3N, P, 2]; planes is then read, and only then.
 // sx = (W - 1) / (2 scale), sy = (H - 1) / (2 scale). F is 8, 16 or 32.
@@ -712,19 +802,20 @@ int tdgp_triplane_splat_gather(const float* planes, const float* coords, const f
       (u_coords != nullptr && planes == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long n_points = n_batch * points_per_batch;
-  const unsigned blocks = (unsigned)((n_points + 7) / 8);
-  auto launch = [&](auto kernel) {
-    kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(planes, coords, g, u_planes, u_coords, b_g,
-                                                     b_coords, n_points, geo, sx, sy);
-    return (int)cudaGetLastError();
-  };
-  if (feats == 32) return launch(splat_gather_kernel<32>);
-  if (feats == 16) return launch(splat_gather_kernel<16>);
-  if (feats == 8) return launch(splat_gather_kernel<8>);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (feats == 32)
+    return launch_gather<32>(planes, coords, g, u_planes, u_coords, b_g, b_coords, n_points, geo,
+                             sx, sy, s);
+  if (feats == 16)
+    return launch_gather<16>(planes, coords, g, u_planes, u_coords, b_g, b_coords, n_points, geo,
+                             sx, sy, s);
+  if (feats == 8)
+    return launch_gather<8>(planes, coords, g, u_planes, u_coords, b_g, b_coords, n_points, geo,
+                            sx, sy, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The second order's scatter entry over the bins of tdgp_splat_bin_entries:
+// The second order's scatter entry over the bins of tdgp_splat_bin_place:
 // g_planes [3N, H, W, F] (float32, needs no zeroing) = the scatter of g / 3
 // with the derivative weights of u_coords [N, P, 3]. F is 8, 16 or 32.
 int tdgp_triplane_splat_dcoords(const float* g, const float* coords, const float* u_coords,
@@ -744,9 +835,9 @@ int tdgp_triplane_splat_dcoords(const float* g, const float* coords, const float
         u_coords, sx, sy);
     return (int)cudaGetLastError();
   };
-  if (feats == 32) return launch(splat_strip_kernel<32, float, float, true>);
-  if (feats == 16) return launch(splat_strip_kernel<16, float, float, true>);
-  if (feats == 8) return launch(splat_strip_kernel<8, float, float, true>);
+  if (feats == 32) return launch(splat_group_kernel<32, float, float, true>);
+  if (feats == 16) return launch(splat_group_kernel<16, float, float, true>);
+  if (feats == 8) return launch(splat_group_kernel<8, float, float, true>);
   return (int)cudaErrorInvalidValue;
 }
 

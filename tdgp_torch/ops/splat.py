@@ -13,11 +13,13 @@ strip of one plane. Every (plane, point) entry is keyed by the strip of its
 base corner and copied to the strip on the right, below and diagonally
 below wherever its 2x2 footprint reaches into them; `_bins` is that
 arithmetic in torch, and `triplane_splat_bins` the same bins on the card (a
-histogram and a scatter kernel, with the offsets summed in torch). The
+histogram that ranks each entry in its strip and a placing kernel, with the
+offsets summed in torch). The
 kernel then gives each strip one warp, which sums its entries in shared
-memory and writes the strip of the plane gradient once; the entry's home
-strip also computes its coordinate gradient (`_coords_grad` :973). The
-context keeps the planes and the coordinates.
+memory, 8 entries a step (`triplane_splat_grouped_plain` is that walk's
+arithmetic in torch), and writes the strip of the plane gradient once; the
+entry's home strip also computes its coordinate gradient (`_coords_grad`
+:973). The context keeps the planes and the coordinates.
 
 For CUDA tensors the backward launches the kernel and counts it in
 `triplane_splat.launches`; for CPU tensors, and only for them, it computes
@@ -31,8 +33,8 @@ The float32 backward is itself a recorded function
 model's path-length regularization, `create_graph=True`) passes through it.
 Its own backward, given the cotangents of (g_planes, g_coords), is
 `triplane_sample_bwd_bwd`: for CUDA tensors K1's two second-order entries,
-`triplane_splat_gather` (the cotangents of g and of the coordinates, a warp
-per point gathering the planes' cotangent and, with a coordinate
+`triplane_splat_gather` (the cotangents of g and of the coordinates, F / 4
+lanes a point gathering the planes' cotangent and, with a coordinate
 cotangent, the planes) and `triplane_splat_dcoords` (the planes' cotangent,
 a scatter of g with the bilinear weights' derivatives over K1's strip bins,
 launched only with a coordinate cotangent: the path-length phase has none,
@@ -312,28 +314,120 @@ def triplane_splat_binned_plain(planes: torch.Tensor, coords: torch.Tensor, g: t
     return g_planes, g_coords
 
 
-@functools.cache
-def _library():
-    lib = cuda_build.library('splat')
-    geometry = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-    lib.tdgp_splat_bin_counts.argtypes = [ctypes.c_void_p] * 2 + geometry + [ctypes.c_void_p]
-    lib.tdgp_splat_bin_entries.argtypes = [ctypes.c_void_p] * 3 + geometry + [ctypes.c_void_p]
-    lib.tdgp_triplane_splat.argtypes = [ctypes.c_void_p] * 8 + geometry[:4] + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.tdgp_triplane_splat_bf16.argtypes = [ctypes.c_void_p] * 9 + geometry[:4] + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.tdgp_triplane_splat_gather.argtypes = [ctypes.c_void_p] * 7 + geometry[:4] + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.tdgp_triplane_splat_dcoords.argtypes = [ctypes.c_void_p] * 6 + geometry[:4] + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    for fn in (lib.tdgp_splat_bin_counts, lib.tdgp_splat_bin_entries, lib.tdgp_triplane_splat,
-               lib.tdgp_triplane_splat_bf16, lib.tdgp_triplane_splat_gather,
-               lib.tdgp_triplane_splat_dcoords):
-        fn.restype = ctypes.c_int
+def group_size(f: int) -> int:
+    """Entries a warp of K1's group walk takes a step: F / 8 lanes an entry."""
+    return 32 // (f // 8)
+
+
+def run_ranks(key: torch.Tensor) -> torch.Tensor:
+    """For each entry of a group, how many entries before it have the same
+    key (the same corners): its round in K1's group walk, as the kernel
+    counts it from `__match_any_sync`."""
+    return torch.stack([(key[:i] == key[i]).sum() for i in range(len(key))])
+
+
+def triplane_splat_grouped_plain(planes: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                                 scale: float, coords_grad: bool = True,
+                                 addend: Optional[torch.Tensor] = None, round_out: bool = True
+                                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The arithmetic of K1's group walk (`splat_group_kernel`, every
+    entry's) in plain PyTorch, for the tests: the bins of `_bins` strip by
+    strip, each strip's entries `group_size(F)` at a time; within a group
+    the entries with the same corners (a run) go in rounds, the r-th entry
+    of every run in round r, and each round adds w_c x g / 3 into the
+    strip's float32 accumulator one corner index c at a time. A home entry's
+    (dtx, dty) is summed over 8-feature slices, the slices then added as the
+    lanes' butterfly adds them. bf16 planes: each row g / 3 rounded to bf16,
+    `addend` added to the float32 sums, the total rounded once to bf16 (or
+    kept in float32 with `round_out` False), as `triplane_sample_bwd_plain_bf16`;
+    float32 planes: as `triplane_sample_bwd_plain`."""
+    n3, h, w, f = planes.shape
+    n, p = coords.shape[0], coords.shape[1]
+    bf16 = planes.dtype == torch.bfloat16
+    gxy = _plane_coords(coords, scale, h, w).reshape(n3 * p, 2)
+    entries, offsets = _bins(gxy.reshape(n3, p, 2), h, w)
+    g_pts = _point_cotangent(g.to(torch.bfloat16) if bf16 else g).float().reshape(n3 * p, f)
+    values = planes.float()
+    sums = torch.empty((n3, h, w, f), dtype=torch.float32, device=planes.device)
+    d = torch.zeros((n3 * p, 2), dtype=torch.float32, device=planes.device)
+    lanes, size = f // 8, group_size(f)
+    for b in range(len(offsets) - 1):
+        plane, y_base, x_base = _strip_origin(b, h, w)
+        acc = torch.zeros((STRIP_H, STRIP_W, f), dtype=torch.float32, device=planes.device)
+        for start in range(int(offsets[b]), int(offsets[b + 1]), size):
+            e = entries[start:min(start + size, int(offsets[b + 1]))].long()
+            gx, gy = gxy[e, 0], gxy[e, 1]
+            fx0, fy0 = torch.floor(gx), torch.floor(gy)
+            tx, ty = (gx - fx0)[:, None], (gy - fy0)[:, None]
+            ly, lx = fy0.long() - y_base, fx0.long() - x_base
+            gv = g_pts[e]
+            rank = run_ranks(ly * 64 + lx)  # by the corners (in one strip, the masks follow)
+            weights = ((1 - tx) * (1 - ty), tx * (1 - ty), (1 - tx) * ty, tx * ty)
+            for r in range(int(rank.max()) + 1):
+                for c, wt in enumerate(weights):
+                    yy, xx = fy0.long() + c // 2, fx0.long() + c % 2
+                    cy, cx = ly + c // 2, lx + c % 2
+                    mine = ((rank == r) & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                            & (cy >= 0) & (cy < STRIP_H) & (cx >= 0) & (cx < STRIP_W))
+                    acc[cy[mine], cx[mine]] += (wt * gv)[mine]  # distinct texels: one add each
+            home = ((fy0.long().clamp_min(0) - y_base).div(STRIP_H, rounding_mode='floor') == 0) \
+                & ((fx0.long().clamp_min(0) - x_base).div(STRIP_W, rounding_mode='floor') == 0)
+            if coords_grad and bool(home.any()):
+                v = []
+                for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                    yy, xx = fy0.long()[home] + dy, fx0.long()[home] + dx
+                    valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                    v.append(torch.where(valid[:, None],
+                                         values[plane, yy.clamp(0, h - 1), xx.clamp(0, w - 1)], 0.0))
+                tx_h, ty_h, gv_h = tx[home], ty[home], gv[home]
+                parts = torch.stack([
+                    gv_h * ((1 - ty_h) * (v[1] - v[0]) + ty_h * (v[3] - v[2])),
+                    gv_h * ((1 - tx_h) * (v[2] - v[0]) + tx_h * (v[3] - v[1]))], 1)
+                slices = parts.reshape(-1, 2, lanes, 8).sum(-1)  # a lane's 8 features
+                step = lanes // 2
+                while step:  # the butterfly over the entry's lanes: lane 0 keeps the sum
+                    slices = slices[..., :step] + slices[..., step:2 * step]
+                    step //= 2
+                d[e[home]] = slices[..., 0]
+        rows, cols = min(STRIP_H, h - y_base), min(STRIP_W, w - x_base)
+        sums[plane, y_base:y_base + rows, x_base:x_base + cols] = acc[:rows, :cols]
+    if addend is not None:
+        sums = sums + addend
+    g_planes = sums.to(torch.bfloat16) if bf16 and round_out else sums
+    g_coords = (_combine_coords_grad(d[:, 0].reshape(n3, p), d[:, 1].reshape(n3, p),
+                                     n, p, h, w, scale) if coords_grad else None)
+    return g_planes, g_coords
+
+
+def _signatures():
+    """The C interface of `csrc/splat.cu`: function -> argument types (each
+    returns an int, the first CUDA error)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geometry = [ctypes.c_longlong, ctypes.c_longlong, i, i, f]
+    entry = geometry[:4] + [i, f, f, f]
+    return {'tdgp_splat_bin_ranks': [p] * 3 + geometry + [p],
+            'tdgp_splat_bin_place': [p] * 4 + geometry + [p],
+            'tdgp_triplane_splat': [p] * 8 + entry + [p],
+            'tdgp_triplane_splat_bf16': [p] * 9 + entry + [i, p],
+            'tdgp_triplane_splat_gather': [p] * 7 + entry + [p],
+            'tdgp_triplane_splat_dcoords': [p] * 6 + entry + [p]}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a built `csrc/splat.cu` on `lib` (of an
+    earlier one, the functions of it that it has)."""
+    for name, argtypes in _signatures().items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.tdgp_splat_error_string.argtypes = [ctypes.c_int]
     lib.tdgp_splat_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library():
+    return bind(cuda_build.library('splat'))
 
 
 def _launched(err: int, what: str) -> None:
@@ -350,13 +444,14 @@ def _inv_scale(scale: float) -> float:
 
 def triplane_splat_bins(coords: torch.Tensor, h: int, w: int, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`_bins` on the card, for K1: the same bins from two small kernels of
-    csrc/splat.cu (a histogram, then a scatter through cursors that start at
-    the offsets, which torch sums here, each aggregating a block's entries
-    by strip in shared memory first), with the entries of a bin in the order
-    of the scatter's atomics. coords [N, P, 3] on a CUDA device ->
-    (entries [4 N*3 P] int32, of which the first offsets[-1] are used;
-    offsets [n_bins + 1] int32)."""
+    """`_bins` on the card, for K1: the same bins from two kernels of
+    csrc/splat.cu: a histogram that also gives each (entry, bin) its index
+    in the bin (a block's entries aggregated by strip in shared memory
+    first, one global atomic per strip and block), then, with the offsets
+    torch sums from the counts, a pass that places each entry; the entries
+    of a bin in the order of the histogram's atomics. coords [N, P, 3] on a
+    CUDA device -> (entries [4 N*3 P] int32, of which the first
+    offsets[-1] are used; offsets [n_bins + 1] int32)."""
     n, p = coords.shape[0], coords.shape[1]
     strips_y, strips_x = _strips(h, w)
     n_bins = 3 * n * strips_y * strips_x
@@ -365,17 +460,26 @@ def triplane_splat_bins(coords: torch.Tensor, h: int, w: int, scale: float
     geometry = (n, p, h, w, _inv_scale(scale))
     stream = torch.cuda.current_stream(device).cuda_stream
     counts = torch.empty(n_bins, dtype=torch.int32, device=device)
+    ranks = torch.empty((3 * n * p, 4), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        _launched(lib.tdgp_splat_bin_counts(coords.data_ptr(), counts.data_ptr(), *geometry,
-                                            stream), 'triplane_splat_bins')
+        _launched(lib.tdgp_splat_bin_ranks(coords.data_ptr(), counts.data_ptr(), ranks.data_ptr(),
+                                           *geometry, stream), 'triplane_splat_bins')
         offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=device),
                              counts.cumsum(0, dtype=torch.int32)])
-        cursor = offsets[:-1].clone()
         entries = torch.empty(4 * 3 * n * p, dtype=torch.int32, device=device)  # <= 4 bins each
-        _launched(lib.tdgp_splat_bin_entries(coords.data_ptr(), cursor.data_ptr(),
-                                             entries.data_ptr(), *geometry, stream),
+        _launched(lib.tdgp_splat_bin_place(coords.data_ptr(), ranks.data_ptr(), offsets.data_ptr(),
+                                           entries.data_ptr(), *geometry, stream),
                   'triplane_splat_bins')
     return entries, offsets
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """`t` contiguous at a 16-byte aligned address (a copy if it is not), as
+    the kernels' 16-byte loads of its rows need."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(planes: torch.Tensor, coords: torch.Tensor) -> None:
@@ -442,15 +546,15 @@ def _splat(planes, coords, g, scale, coords_grad, what, addend=None, round_out=F
     if n3 * p >= 2 ** 31:
         raise ValueError(f'kernel K1 takes fewer than 2^31 (plane, point) entries, not {n3 * p}')
     bf16 = planes.dtype == torch.bfloat16
-    g = g.to(planes.dtype).contiguous()
+    g = _aligned(g.to(planes.dtype))
     if tuple(g.shape) != (n, p, f):
         raise ValueError(f'cotangent {tuple(g.shape)} for output {(n, p, f)}')
     if addend is not None:
         if addend.dtype != torch.float32 or tuple(addend.shape) != tuple(planes.shape) \
                 or addend.device != device:
             raise ValueError(f'addend must be float32 {tuple(planes.shape)} on {device}')
-        addend = addend.contiguous()
-    planes, coords = planes.contiguous(), coords.contiguous()
+        addend = _aligned(addend)
+    planes, coords = _aligned(planes), coords.contiguous()
     entries, offsets = triplane_splat_bins(coords, h, w, scale)
     out_dtype = torch.bfloat16 if bf16 and round_out else torch.float32
     g_planes = torch.empty((n3, h, w, f), dtype=out_dtype, device=device)  # written once
@@ -519,9 +623,8 @@ def triplane_splat_gather(planes: torch.Tensor, coords: torch.Tensor, g: torch.T
     if f not in KERNEL_FEATS:
         raise NotImplementedError(f'kernel K1 is built for F in {KERNEL_FEATS}, not {f}')
     n, p = coords.shape[0], coords.shape[1]
-    planes, coords, g = planes.contiguous(), coords.contiguous(), g.contiguous()
-    u_planes = None if u_planes is None else u_planes.contiguous()
-    u_coords = None if u_coords is None else u_coords.contiguous()
+    planes, coords, g = _aligned(planes), coords.contiguous(), _aligned(g)
+    u_planes, u_coords = _aligned(u_planes), None if u_coords is None else u_coords.contiguous()
     b_g = torch.empty_like(g)
     b_coords = torch.empty_like(coords)
     device = planes.device
@@ -549,7 +652,7 @@ def triplane_splat_dcoords(coords: torch.Tensor, g: torch.Tensor, u_coords: torc
     n, p, f = g.shape
     if f not in KERNEL_FEATS:
         raise NotImplementedError(f'kernel K1 is built for F in {KERNEL_FEATS}, not {f}')
-    coords, g, u_coords = coords.contiguous(), g.contiguous(), u_coords.contiguous()
+    coords, g, u_coords = coords.contiguous(), _aligned(g), u_coords.contiguous()
     entries, offsets = triplane_splat_bins(coords, h, w, scale)
     g_planes = torch.empty((3 * n, h, w, f), dtype=torch.float32, device=device)
     with torch.cuda.device(device):

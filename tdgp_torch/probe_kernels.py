@@ -1,7 +1,8 @@
-"""Where the time of a kernel goes, on one card: K4's bf16 entry and the
-quantile threshold's select.
+"""Where the time of a kernel goes, on one card: K4's bf16 entry, the
+quantile threshold's select and K1's bf16 entry.
 
-    python3 -m tdgp_torch.probe_kernels [--only mlp_bf16|select]
+    python3 -m tdgp_torch.probe_kernels [--only mlp_bf16|select|k1_bf16|k1_float32_caps|
+                                               shared_atomic] [--parent DIR]
 
 Builds variants of a kernel's source of this tree, each a copy under
 `tdgp_torch/build/probe/` with a few lines of the source replaced (the
@@ -22,6 +23,17 @@ order):
     clamped ones [4, 16384, 32]: all three passes (held bit for bit against
     the sort), the first two, the first alone, the first without the keys'
     store, and the memset of the counters alone.
+  - K1's bf16 entry (`csrc/splat.cu`) at `chip_smoke.py`'s uniform points
+    and on the two calls of a `gmain_render_bf16` step (`k1_parts`): the
+    whole wrapper, the bins, the rank kernel, the memset of the (dtx, dty)
+    scratch, and the entry given the bins whole, without its coordinate
+    kernel, and with every strip walked as empty; this tree's at 12 and 20
+    blocks an SM beside its own 16; with `--parent DIR` the same parts of
+    DIR's `splat.cu`, in the same turns.
+  - `k1_float32_caps`: K1's float32 entry (uniform points, a plain
+    satellite step's two calls) and its second-order scatter (the `pl`
+    phase's shapes) at caps of 12, 16 and 20 blocks an SM, in turns.
+  - `shared_atomic`: the SASS of a float atomicAdd to shared memory.
 Prints the card's name and power limit, one line per variant, and a JSON
 object of the times as its last line. Needs a CUDA device.
 """
@@ -108,17 +120,29 @@ def _replace(text, old, new):
     return text.replace(old, new)
 
 
-def build(name, text):
-    """`text`, a CUDA source, written to `build/probe/<name>.cu` and built
-    with the port's nvcc flags (`csrc/` on the include path)."""
+def build_all(texts):
+    """{name: CUDA source text} -> {name: library}: each written to
+    `build/probe/<name>.cu` and built with the port's nvcc flags (`csrc/` on
+    the include path), one nvcc for each, all started together."""
     folder = os.path.join(cuda_build.BUILD_DIR, 'probe')
     os.makedirs(folder, exist_ok=True)
-    path, out = os.path.join(folder, f'{name}.cu'), os.path.join(folder, f'lib{name}.so')
-    with open(path, 'w') as f:
-        f.write(text)
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-I', cuda_build.CSRC_DIR,
-                    '-o', out, path], check=True)
-    return ctypes.CDLL(out)
+    procs = {}
+    for name, text in texts.items():
+        path, out = os.path.join(folder, f'{name}.cu'), os.path.join(folder, f'lib{name}.so')
+        with open(path, 'w') as f:
+            f.write(text)
+        procs[name] = out, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-I', cuda_build.CSRC_DIR, '-o', out,
+             path])
+    for name, (_, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f'nvcc failed on the probe variant {name}')
+    return {name: ctypes.CDLL(out) for name, (out, _) in procs.items()}
+
+
+def build(name, text):
+    """`build_all` of one source."""
+    return build_all({name: text})[name]
 
 
 def source(name):
@@ -136,11 +160,12 @@ def in_turns(chip_smoke, fns):
     return times
 
 
-def report(label, times, bound_ms, bytes_moved):
+def report(label, times, bound_ms=None, bytes_moved=None):
     for name, t in times.items():
+        bound = ('' if bound_ms is None else
+                 f'; bound of the bytes {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB)')
         print(f'{label} {name}: warm {t["warm"][0]:.4f} / {t["warm"][1]:.4f} ms, cold '
-              f'{t["cold"][0]:.4f} / {t["cold"][1]:.4f} ms (turns: forward, reverse); bound of '
-              f'the bytes {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB)')
+              f'{t["cold"][0]:.4f} / {t["cold"][1]:.4f} ms (turns: forward, reverse){bound}')
 
 
 def mlp_bf16(chip_smoke):
@@ -230,9 +255,226 @@ def select(chip_smoke):
     return result
 
 
+K1_AFTER_WALK = '  if (err != 0 || !coords_grad) return err;\n'
+K1_WALK = 'for (int base = first; base < last; base += 32) {'
+K1_VARIANTS = {  # name -> K1's source edits (old, new), each found at least once
+    'entry': (), 'no_coords_kernel': ((K1_AFTER_WALK, '  return err;\n'),),
+    'store_only': ((K1_AFTER_WALK, '  return err;\n'),
+                   (K1_WALK, K1_WALK.replace('< last', '< first')))}
+K1_OCCUPANCY = {  # this tree's bf16 group walk at other caps of blocks an SM (its registers)
+    f'blocks_{n}': (('constexpr int kGroupBlocksPerSmBf16 = 16;',
+                     f'constexpr int kGroupBlocksPerSmBf16 = {n};'),) for n in (12, 20)}
+K1_F32_OCCUPANCY = {  # the float32 entry's and the second-order scatter's caps
+    f'f32_blocks_{n}': (('constexpr int kGroupBlocksPerSmF32 = 12;',
+                         f'constexpr int kGroupBlocksPerSmF32 = {n};'),) for n in (12, 16, 20)}
+
+SHARED_ATOMIC_SOURCE = r'''
+#include <cuda_runtime.h>
+// One float atomicAdd to shared memory, for its SASS.
+__global__ void shared_float_atomic(float* out, const float* in) {
+  __shared__ float s[32];
+  s[threadIdx.x & 31] = 0.f;
+  __syncthreads();
+  atomicAdd(&s[(threadIdx.x * 7) & 31], in[threadIdx.x]);
+  __syncthreads();
+  out[threadIdx.x] = s[threadIdx.x & 31];
+}
+extern "C" int probe_shared_atomic(float* out, const float* in) {
+  shared_float_atomic<<<1, 64>>>(out, in);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def _replace_all(text, old, new):
+    if old not in text:
+        raise ValueError(f'the probe\'s edit expects {old!r} in the source: the source has changed')
+    return text.replace(old, new)
+
+
+def edited(text, edits):
+    for old, new in edits:
+        text = _replace_all(text, old, new)
+    return text
+
+
+def k1_bf16_inputs(gen):
+    """K1 bf16's inputs: `chip_smoke.py`'s uniform points, and the two calls
+    of one `gmain_render_bf16` step of the satellite trainer (the fine pass
+    keeping its float32 sum, the coarse pass adding it)."""
+    from tdgp_torch import compare_kernels, profile_training
+    planes, coords, g, scale = compare_kernels.uniform_points(gen, dtype=torch.bfloat16)
+    out = [('uniform', dict(planes=planes, coords=coords, g=g, scale=scale))]
+    trainer, *step = compare_kernels.training_trainer(['training.gmain_render_bf16=true'])
+    for label, args in profile_training.capture_splat_bf16_calls(trainer, *step):
+        out.append((f'step_{label}', {k: v.detach() if torch.is_tensor(v) else v
+                                      for k, v in args.items()}))
+    return out
+
+
+def k1_parts(chip_smoke, sources, gen):
+    """K1's bf16 entry split into its parts, for each source of `sources`
+    ({label: the text of a splat.cu}), on `k1_bf16_inputs`: the whole
+    wrapper; the bins (both kernels and torch's sum of the counts), and the
+    rank kernel alone; the memset of the (dtx, dty) scratch; and the entry
+    given the bins as a variant of the source: all of it ('entry': memset,
+    strip walk, coordinate kernel), without the coordinate kernel, and with
+    every strip walked as empty ('store_only': the offsets read, the zeros
+    or the addend stored). walk = no_coords_kernel - store_only, the
+    coordinate kernel = entry - no_coords_kernel, wrapper_rest = wrapper -
+    entry - bins (each source's own bins: an earlier `splat.cu` without the
+    rank kernel in its two passes, `compare_kernels.two_pass_bins`). For this tree also its
+    entry at other caps of blocks an SM (`K1_OCCUPANCY`). The bound counts
+    the touched texels and the cotangent in 2 bytes, the addend read in 4,
+    g_planes written in 2 (bf16) or 4 (kept in float32)."""
+    from tdgp_torch import compare_kernels
+    from tdgp_torch.ops import splat
+    variants = {(who, name): edits for who in sources for name, edits in K1_VARIANTS.items()}
+    if 'this' in sources:
+        variants.update({('this', name): edits for name, edits in K1_OCCUPANCY.items()})
+    built = build_all({f'k1_{who}_{name}': edited(sources[who], edits)
+                       for (who, name), edits in variants.items()})
+    libs = {key: splat.bind(built[f'k1_{key[0]}_{key[1]}']) for key in variants}
+    result = {}
+    for label, args in k1_bf16_inputs(gen):
+        planes, coords, g, scale = args['planes'], args['coords'], args['g'], args['scale']
+        n3, h, w, f = planes.shape
+        n, p = coords.shape[0], coords.shape[1]
+        addend, round_out = args.get('addend'), args.get('round_out', True)
+        coords_grad = args.get('coords_grad', True)
+        entries, offsets = splat.triplane_splat_bins(coords, h, w, scale)
+        g_planes = torch.empty(planes.shape, device='cuda',
+                               dtype=torch.bfloat16 if round_out else torch.float32)
+        d_scratch = torch.empty(n3, p, 2, device='cuda')
+        g_coords = torch.empty(n, p, 3, device='cuda')
+        g16 = g.to(torch.bfloat16).contiguous()
+        counts = torch.empty(len(offsets) - 1, dtype=torch.int32, device='cuda')
+        ranks = torch.empty(n3 * p, 4, dtype=torch.int32, device='cuda')
+
+        def entry(lib):
+            grad = (planes, d_scratch, g_coords) if coords_grad else (None, None, None)
+            ptrs = [t.data_ptr() if t is not None else None
+                    for t in (grad[0], g16, coords, entries, offsets, addend, g_planes, *grad[1:])]
+            scalars = (n, p, h, w, f, splat._inv_scale(scale), 0.5 * (w - 1) / scale,
+                       0.5 * (h - 1) / scale, int(round_out))
+            return lambda: lib.tdgp_triplane_splat_bf16(
+                *ptrs, *scalars, torch.cuda.current_stream().cuda_stream)
+
+        fns = {}
+        for who in sources:
+            fns[f'{who}_wrapper'] = compare_kernels.on_library(
+                libs[who, 'entry'], lambda: splat.triplane_splat_bf16(**args))
+        for (who, name), lib in libs.items():
+            fns[f'{who}_{name}'] = entry(lib)
+        for who in sources:  # each source's own bins (an earlier one's in two passes)
+            lib = libs[who, 'entry']
+            fns[f'{who}_bins'] = (
+                compare_kernels.on_library(
+                    lib, lambda: splat.triplane_splat_bins(coords, h, w, scale))
+                if getattr(lib, 'tdgp_splat_bin_ranks', None) is not None else
+                lambda lib=lib: compare_kernels.two_pass_bins(lib, coords, h, w, scale))
+        lib = splat._library()
+        fns['bin_ranks'] = lambda: lib.tdgp_splat_bin_ranks(
+            coords.data_ptr(), counts.data_ptr(), ranks.data_ptr(), n, p, h, w,
+            splat._inv_scale(scale), torch.cuda.current_stream().cuda_stream)
+        fns['memset'] = d_scratch.zero_
+        times = in_turns(chip_smoke, fns)
+        texels = int((chip_smoke.corner_counts(splat, coords, scale, n3, h, w) > 0).sum())
+        bytes_moved = (2 * ((texels * f if coords_grad else 0) + n * p * f)
+                       + (2 if round_out else 4) * n3 * h * w * f
+                       + (4 * n3 * h * w * f if addend is not None else 0)
+                       + 4 * n * p * (6 if coords_grad else 3))
+        report(f'K1 bf16 {label}', times, 1e3 * bytes_moved / chip_smoke.HBM_BYTES_PER_S,
+               bytes_moved)
+        warm = {k: t['warm'][0] for k, t in times.items()}
+        for who in sources:
+            parts = dict(bins=warm[f'{who}_bins'],
+                         walk=warm[f'{who}_no_coords_kernel'] - warm[f'{who}_store_only'],
+                         coords_kernel=warm[f'{who}_entry'] - warm[f'{who}_no_coords_kernel'],
+                         store=warm[f'{who}_store_only'] - warm['memset'],
+                         wrapper_rest=warm[f'{who}_wrapper'] - warm[f'{who}_entry']
+                         - warm[f'{who}_bins'])
+            print(f'K1 bf16 {label} {who}: parts (warm, first turn) ' + ', '.join(
+                f'{k} {v:.4f} ms' for k, v in parts.items()) + f'; this tree\'s rank kernel '
+                f'{warm["bin_ranks"]:.4f} ms, the memset {warm["memset"]:.4f} ms')
+            times[f'{who}_parts'] = parts
+        result[label] = times
+        del entries, offsets, g_planes, d_scratch, g_coords
+    return result
+
+
+def k1_float32_caps(chip_smoke, gen):
+    """K1's float32 entry and its second-order scatter at caps of 12 (its
+    own), 16 and 20 blocks an SM (`K1_F32_OCCUPANCY`), in turns: K1 at the
+    uniform points and on the two calls of a plain satellite step, the
+    scatter at the `pl` phase's shapes with a random coordinate cotangent;
+    the outputs held to the plain versions (<= 1e-5 x max) at each cap."""
+    from tdgp_torch import compare_kernels, profile_training
+    from tdgp_torch.ops import splat
+    text = source('splat')
+    built = build_all({f'k1_{name}': edited(text, edits)
+                       for name, edits in K1_F32_OCCUPANCY.items()})
+    libs = {name: splat.bind(built[f'k1_{name}']) for name in K1_F32_OCCUPANCY}
+    trainer, *step = compare_kernels.training_trainer()
+    calls = [(f'step_{label}', tuple(a.detach() if torch.is_tensor(a) else a for a in args))
+             for label, args in profile_training.capture_splat_calls(trainer, *step)]
+    del trainer, step
+    calls.append(('uniform', compare_kernels.uniform_points(gen)))
+    result = {}
+    for label, (planes, coords, g, scale, *rest) in calls:
+        coords_grad = rest[0] if rest else True
+        g = g.contiguous()
+        run = {name: compare_kernels.on_library(lib, lambda: splat.triplane_splat(
+            planes, coords, g, scale, coords_grad)) for name, lib in libs.items()}
+        ref = splat.triplane_sample_bwd_plain(planes, coords, g, scale, coords_grad)
+        for name, fn in run.items():
+            rel = [float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(fn(), ref) if b is not None]
+            if not all(r <= 1e-5 for r in rel):
+                raise AssertionError(f'K1 float32 {label} at {name} disagrees: {rel}')
+        del ref
+        times = in_turns(chip_smoke, run)
+        report(f'K1 float32 {label}', times)
+        result[f'k1_{label}'] = times
+    del calls
+    torch.cuda.empty_cache()
+    planes, coords, g, scale = compare_kernels.uniform_points(gen, n=8)
+    u_coords = torch.randn(coords.shape, device='cuda', generator=gen)
+    h, w = planes.shape[1], planes.shape[2]
+    run = {name: compare_kernels.on_library(lib, lambda: splat.triplane_splat_dcoords(
+        coords, g, u_coords, scale, h, w)) for name, lib in libs.items()}
+    ref = splat.triplane_sample_bwd_bwd_plain(planes, coords, g, None, u_coords, scale)[0]
+    for name, fn in run.items():
+        rel = float((fn() - ref).abs().max() / ref.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f'K1 scatter at {name} disagrees: {rel}')
+    del ref
+    times = in_turns(chip_smoke, run)
+    report('K1 scatter (second order) at the pl shapes', times)
+    result['k1_scatter'] = times
+    return result
+
+
+def shared_atomic():
+    """The SASS of a float atomicAdd to shared memory on sm_90a: its ATOMS
+    lines (a single instruction, or a compare-and-swap loop)."""
+    lib_path = os.path.join(cuda_build.BUILD_DIR, 'probe', 'libshared_atomic.so')
+    build('shared_atomic', SHARED_ATOMIC_SOURCE)
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    lines = [ln.strip() for ln in sass.splitlines()
+             if any(op in ln for op in ('ATOMS', 'ATOM', 'RED', 'BRA', 'BSSY', 'CAS'))]
+    print('float atomicAdd to shared memory, sm_90a SASS:\n  ' + '\n  '.join(lines))
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--only', choices=('mlp_bf16', 'select'))
+    ap.add_argument('--only', choices=('mlp_bf16', 'select', 'k1_bf16', 'k1_float32_caps',
+                                       'shared_atomic'))
+    ap.add_argument('--parent', help='a checkout of an earlier commit: k1_bf16 also splits its '
+                                     'K1 bf16 entry into parts')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('probe_kernels: no CUDA device', file=sys.stderr)
@@ -243,7 +485,15 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f'card: {card}')
     result = {'card': card}
-    for name, probe in (('mlp_bf16', mlp_bf16), ('select', select)):
+    sources = {'this': source('splat')}
+    if args.parent:
+        with open(os.path.join(args.parent, 'tdgp_torch', 'csrc', 'splat.cu')) as f:
+            sources['parent'] = f.read()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for name, probe in (('mlp_bf16', mlp_bf16), ('select', select),
+                        ('k1_bf16', lambda cs: k1_parts(cs, sources, gen)),
+                        ('k1_float32_caps', lambda cs: k1_float32_caps(cs, gen)),
+                        ('shared_atomic', lambda cs: shared_atomic())):
         if args.only in (None, name):
             result[name] = probe(chip_smoke)
     print(f'clocks (sm, mem): {chip_smoke.clocks()}')

@@ -46,8 +46,9 @@ FP32 = ['generator.fp32_only=true', 'discriminator.fp32_only=true']  # the float
 # functions (K1: its two binning kernels, the strip kernel and the
 # coordinate-gradient combination; its wrapper's memsets and offset sum are
 # left out)
-OWN_KERNELS = {'K1 triplane_splat': ('bin_count_kernel', 'bin_scatter_kernel',
-                                     'splat_strip_kernel', 'coords_grad_kernel'),
+OWN_KERNELS = {'K1 triplane_splat': ('bin_rank_kernel', 'bin_place_kernel',
+                                     'splat_strip_kernel', 'splat_group_kernel',
+                                     'coords_grad_kernel'),
                'K3 ray_march_reduced': ('ray_march_reduced_kernel',),
                'K3 ray_march_reduced_bwd': ('ray_march_reduced_bwd_kernel',),
                'K3 ray_march_reduced_bwd_bwd': ('ray_march_reduced_bwd_bwd_kernel',),
@@ -116,6 +117,57 @@ def capture_splat_calls(trainer: Trainer, batch, sched, draws) -> List[Tuple[str
         raise RuntimeError(f'expected the coarse and the fine pass, got {len(calls)} calls '
                            f'at forwards {order}')
     return list(zip(('coarse', 'fine'), [c for _, c in sorted(zip(order, calls))]))
+
+
+def capture_splat_bf16_calls(trainer: Trainer, batch, sched, draws) -> List[Tuple[str, dict]]:
+    """`capture_splat_calls` for K1's bf16 entry (`ops.splat.triplane_splat_bf16`,
+    the backward of the Gmain render under `training.gmain_render_bf16`):
+    [('fine' | 'coarse', {planes, coords, g, scale, coords_grad, addend,
+    round_out})] in the order of the calls (the fine pass's backward first,
+    keeping its float32 sum; the coarse pass's adds it as its addend)."""
+    from tdgp_torch.ops import splat
+    splat_fn, calls = splat.triplane_splat_bf16, []
+
+    def recorded(planes, coords, g, scale, coords_grad=True, addend=None, round_out=True):
+        calls.append(dict(planes=planes, coords=coords, g=g, scale=scale, coords_grad=coords_grad,
+                          addend=addend, round_out=round_out))
+        return splat_fn(planes, coords, g, scale, coords_grad, addend, round_out)
+
+    recorded.launches = splat_fn.launches
+    splat.triplane_splat_bf16 = recorded
+    try:
+        trainer.step(batch, sched, False, draws)
+    finally:
+        splat.triplane_splat_bf16 = splat_fn
+        splat_fn.launches = recorded.launches
+    if len(calls) != 2 or calls[0]['round_out'] or calls[1]['addend'] is None:
+        raise RuntimeError(f'expected the fine then the coarse pass, got {len(calls)} calls')
+    return list(zip(('fine', 'coarse'), calls))
+
+
+def capture_gather_calls(trainer: Trainer, batch, sched, draws) -> List[Tuple[str, dict]]:
+    """The arguments of the calls of K1's second-order gather entry
+    (`ops.splat.triplane_splat_gather`) in one R1 + PL step of `trainer`
+    (`loss.pl_weight > 0`): [('first' | 'second', {planes, coords, g,
+    u_planes, u_coords, scale})], one per render pass, in call order."""
+    from tdgp_torch.ops import splat
+    gather_fn, calls = splat.triplane_splat_gather, []
+
+    def recorded(planes, coords, g, u_planes, u_coords, scale):
+        calls.append(dict(planes=planes, coords=coords, g=g, u_planes=u_planes,
+                          u_coords=u_coords, scale=scale))
+        return gather_fn(planes, coords, g, u_planes, u_coords, scale)
+
+    recorded.launches = gather_fn.launches
+    splat.triplane_splat_gather = recorded
+    try:
+        trainer.step(batch, sched, True, draws)
+    finally:
+        splat.triplane_splat_gather = gather_fn
+        gather_fn.launches = recorded.launches
+    if len(calls) != 2:
+        raise RuntimeError(f'expected a gather per render pass, got {len(calls)} calls')
+    return list(zip(('first', 'second'), calls))
 
 
 def _self_device_us(event) -> float:

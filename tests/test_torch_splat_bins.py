@@ -5,7 +5,11 @@ plain version and the JAX package's `triplane_splat_ref`.
 The CUDA kernel runs only on the card, where `chip_smoke.py` holds it against
 `triplane_sample_bwd_plain`; here `triplane_splat_binned_plain` walks the
 bins the wrapper hands the kernel, strip by strip as the kernel's warps do,
-so the key, copy and halo arithmetic is held on the CPU. Cases: points on
+so the key, copy and halo arithmetic is held on the CPU, and
+`triplane_splat_grouped_plain` walks them as the bf16 entry's group walk
+does (F / 8 lanes an entry, its runs in rounds, one corner index at a
+time), at F = 8, 16 and 32, in bf16 with the other pass's addend and in
+float32. Cases: points on
 strip edges (a footprint in two or four strips), on the last texel row or
 column, outside the plane, all 32 samples of one ray on one texel, planes
 with empty strips and with partial last strips; plane and coordinate
@@ -22,8 +26,9 @@ import jax.numpy as jnp
 from tdgp.ops.splat import triplane_splat_ref
 
 from tdgp_torch.ops.splat import (STRIP_H, STRIP_W, _bins, _plane_coords, _strip_origin, _strips,
-                                  triplane_sample_bwd_plain, triplane_splat_binned_plain,
-                                  triplane_splat_plain)
+                                  group_size, run_ranks, triplane_sample_bwd_plain,
+                                  triplane_sample_bwd_plain_bf16, triplane_splat_binned_plain,
+                                  triplane_splat_grouped_plain, triplane_splat_plain)
 
 SCALE = 0.5
 
@@ -74,7 +79,7 @@ def _case(name, rng, n=2, h=48, w=40, f=8, p=160):
     elif name == 'empty_strips':  # points in one corner of the cube: most strips get none
         coords = rng.uniform(-0.5, -0.3, (n, p, 3)).astype(np.float32)
     elif name == 'partial_strips':  # H, W not multiples of the strip's sides
-        return _case('uniform', rng, h=37, w=21)
+        return _case('uniform', rng, h=37, w=21, f=f)
     g = rng.randn(n, p, f).astype(np.float32)
     return planes, coords.astype(np.float32), g
 
@@ -223,3 +228,109 @@ def test_capture_of_the_steps_splat_calls_on_a_tiny_trainer():
     got = triplane_splat_binned_plain(planes, coords, g, scale)
     for a, b in zip(got, ref):
         assert_close(a.detach().numpy(), b.detach().numpy())
+
+
+# ------------------------------------------------------------ the group walk
+
+def _bf16_case(name, f):
+    rng = np.random.RandomState(CASES.index(name) + 11)
+    planes, coords, g = _case(name, rng, f=f)
+    addend = rng.randn(*planes.shape).astype(np.float32)
+    return (torch.from_numpy(planes).to(torch.bfloat16), torch.from_numpy(coords),
+            torch.from_numpy(g).to(torch.bfloat16), torch.from_numpy(addend))
+
+
+@pytest.mark.parametrize('f', [8, 16, 32])
+@pytest.mark.parametrize('name', CASES)
+def test_group_walk_matches_the_plain_bf16_backward(name, f):
+    """The group walk's float32 sums (with the other pass's addend) and its
+    coordinate gradient against `triplane_sample_bwd_plain_bf16` at the
+    tolerance above; its stored bf16 gradient within one bf16 ulp of the
+    texel plus 1e-5 x the largest, the limit `chip_smoke.py` holds the
+    kernel to (the sums in another order may flip a rounding)."""
+    planes, coords, g, addend = _bf16_case(name, f)
+    sums, g_coords = triplane_splat_grouped_plain(planes, coords, g, SCALE, addend=addend,
+                                                  round_out=False)
+    ref_sums, ref_coords = triplane_sample_bwd_plain_bf16(planes, coords, g, SCALE,
+                                                          addend=addend, round_out=False)
+    assert sums.dtype == torch.float32
+    assert_close(sums.numpy(), ref_sums.numpy(), f'{name} sums')
+    assert_close(g_coords.numpy(), ref_coords.numpy(), f'{name} g_coords')
+    stored, none = triplane_splat_grouped_plain(planes, coords, g, SCALE, coords_grad=False,
+                                                addend=addend)
+    ref, _ = triplane_sample_bwd_plain_bf16(planes, coords, g, SCALE, False, addend=addend)
+    assert none is None and stored.dtype == torch.bfloat16
+    limit = ref.float().abs() * 2.0 ** -7 + 1e-5 * float(ref.float().abs().max())
+    assert bool(((stored.float() - ref.float()).abs() <= limit).all()), name
+
+
+@pytest.mark.parametrize('f', [8, 32])
+@pytest.mark.parametrize('name', CASES)
+def test_group_walk_matches_the_jax_scatter_reference(name, f):
+    """In float32 the group walk is the splat of `triplane_splat_ref`, and
+    its coordinate gradient the plain backward's."""
+    rng = np.random.RandomState(CASES.index(name) + 3)
+    planes, coords, g = _case(name, rng, f=f)
+    n3, h, w, _ = planes.shape
+    g_pts = np.repeat(g[:, None] / 3.0, 3, axis=1).reshape(n3, -1, f)
+    ref = triplane_splat_ref(jnp.asarray(g_pts), jnp.asarray(coords), SCALE, n3, h, w)
+    args = (torch.from_numpy(planes), torch.from_numpy(coords), torch.from_numpy(g), SCALE)
+    got, got_coords = triplane_splat_grouped_plain(*args)
+    assert got.dtype == torch.float32
+    assert_close(got.numpy(), ref, name)
+    assert_close(got_coords.numpy(), triplane_sample_bwd_plain(*args)[1].numpy(), name)
+
+
+def test_group_walk_takes_a_run_in_rounds_in_the_contention_case():
+    """All samples of a ray on one texel: a group of the walk is one run,
+    so its entries go in group_size(F) rounds, and the sum is still the
+    plain backward's."""
+    planes, coords, g, addend = _bf16_case('one_ray_one_texel', 32)
+    n3, h, w, f = planes.shape
+    gxy = _plane_coords(coords, SCALE, h, w).reshape(-1, 2)
+    entries, offsets = _bins(gxy.reshape(n3, -1, 2), h, w)
+    b = int(np.argmax(np.diff(offsets.numpy())))
+    first = entries[int(offsets[b]):int(offsets[b]) + group_size(f)].long()
+    ranks = run_ranks(torch.floor(gxy[first, 1]) * 64 + torch.floor(gxy[first, 0]))
+    assert int(ranks.max()) == group_size(f) - 1
+    assert run_ranks(torch.tensor([3, 5, 3, 3, 7, 5])).tolist() == [0, 0, 1, 2, 0, 1]
+    sums, _ = triplane_splat_grouped_plain(planes, coords, g, SCALE, round_out=False)
+    ref, _ = triplane_sample_bwd_plain_bf16(planes, coords, g, SCALE, round_out=False)
+    assert_close(sums.numpy(), ref.numpy())
+
+
+def test_capture_of_the_bf16_views_splat_calls_on_a_tiny_trainer():
+    """`profile_training.capture_splat_bf16_calls`, which `chip_smoke.py` and
+    `compare_kernels.py` use to time K1's bf16 entry on a
+    `gmain_render_bf16` step's own points: the fine pass's call keeps its
+    float32 sum, the coarse pass's adds it; the group walk on each call's
+    arguments is the plain bf16 backward's."""
+    import dataclasses
+
+    from tdgp_torch import profile_training
+    from tdgp_torch.config import apply_overrides, tiny_test_config
+    from tdgp_torch.ops import splat
+    from tdgp_torch.training.schedules import compute_schedules
+    from tdgp_torch.training.train_step import Trainer
+    from tdgp_torch.utils.draws import Draws
+
+    cfg = apply_overrides(tiny_test_config(), ('training.gmain_render_bf16=true',))
+    cfg = dataclasses.replace(cfg, discriminator=dataclasses.replace(cfg.discriminator,
+                                                                     fp32_only=True))
+    trainer = Trainer(cfg, 'cpu')
+    batch = profile_training.make_batch(cfg, 2, 0, 'cpu')
+    before = splat.triplane_splat_bf16.launches
+    calls = profile_training.capture_splat_bf16_calls(
+        trainer, batch, compute_schedules(cfg, 300_000), Draws(torch.Generator().manual_seed(0)))
+    assert [label for label, _ in calls] == ['fine', 'coarse']
+    assert splat.triplane_splat_bf16.launches == before
+    fine, coarse = (args for _, args in calls)
+    assert fine['addend'] is None and not fine['round_out'] and coarse['round_out']
+    assert coarse['addend'].dtype == torch.float32 and fine['planes'].dtype == torch.bfloat16
+    for args in (fine, coarse):
+        args = {k: v.detach() if torch.is_tensor(v) else v for k, v in args.items()}
+        got = triplane_splat_grouped_plain(**args)
+        ref = triplane_sample_bwd_plain_bf16(**args)
+        assert_close(got[0].float().numpy(), ref[0].float().numpy())
+        if ref[1] is not None:
+            assert_close(got[1].numpy(), ref[1].numpy())
