@@ -283,10 +283,14 @@ Builds every CUDA kernel of the port from `tdgp_torch/csrc/`, then:
                   [24, 512, 512, 32] and 8 x 64^2 x 32 points, with and without a
                   coordinate cotangent, and at small shapes with points on texel edges,
                   against their plain versions (autograd through the first-order plain
-                  versions): each output <= PL_KERNEL_LIMIT x its largest (K3's four
-                  per-ray totals one scale); timed beside the plain versions and their
-                  bounds. PL's G gradient (`Trainer._pl` alone, after a warm-up R1 + PL
-                  step, batch PL_CHECK_BATCH) through the kernels and through their
+                  versions; K3's with its last sample near opaque against the plain
+                  version in float64): each output <= PL_KERNEL_LIMIT x its largest
+                  (K3's four per-ray totals one scale); timed beside the plain versions
+                  and their bounds (K3's second order with the calls enqueued ahead,
+                  since back to back its calls measure the host; also back to back and
+                  cold). PL's G
+                  gradient (`Trainer._pl` alone, after a warm-up R1 + PL step, batch
+                  PL_CHECK_BATCH) through the kernels and through their
                   plain versions, per parameter at the float32 cut within
                   max(GRAD_LIMIT, 2 x its floor), with the preset's bf16 blocks within
                   max(GRAD_LIMIT, BF16_FLOOR_FACTOR x its floor); the floor the largest
@@ -312,6 +316,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -2753,7 +2758,59 @@ def pl_kernel_phase(ray_march, splat):
     version and the bound. The PL phase hands them no depth and no
     coordinate cotangent (its coordinates do not depend on ws), so K3's is
     held with and without one and the scatter, which only a coordinate
-    cotangent launches, at random ones."""
+    cotangent launches, at random ones. K3's is first held at small shapes
+    that take each of its widths (S = 7, 33, 65, 128: 1, 2, 4 samples a
+    lane; an odd S stages unaligned rows) with 1, 3 and 4 channels, 74 rays
+    (a block part full), then with the last sample near opaque under the
+    infinite last delta (its density swept over [-26, -14] across 256 rays):
+    its factor falls to 1e-10 and the sweep divides the sum behind it,
+    exactly 0, by it. There the reference is the plain version in float64,
+    which the float32 one misses by 1.4e-5 of the largest itself."""
+    g_small = torch.Generator(device='cuda').manual_seed(6)
+    for s, c in itertools.product((7, 33, 65, 128), (1, 3, 4)):
+        colors = torch.rand(2, 37, s, c, device='cuda', generator=g_small)
+        densities = torch.randn(2, 37, s, device='cuda', generator=g_small) * 2
+        depths = (torch.rand(2, 37, s, device='cuda', generator=g_small).sort(-1).values * 0.5
+                  + 0.75)
+        cots = [torch.randn(2, 37, c, device='cuda', generator=g_small)] + [
+            torch.randn(2, 37, device='cuda', generator=g_small) for _ in range(3)]
+        us = [torch.randn(t.shape, device='cuda', generator=g_small)
+              for t in (colors, densities, depths)]
+        for clamp_mode, inf_depth, last_back in K3_CASES:
+            for u in ((us[0], us[1], None), us, (None, us[1], None)):
+                args = (colors, densities, depths, *cots, *u, clamp_mode, 1.0, inf_depth,
+                        last_back)
+                _, rel = bwd_bwd_errors(ray_march.ray_march_reduced_bwd_bwd(*args),
+                                        ray_march.ray_march_reduced_bwd_bwd_plain(*args))
+                check(all(e <= PL_KERNEL_LIMIT for e in rel),
+                      f"K3's second-order entry at S={s}, C={c}, {clamp_mode} "
+                      f'inf_depth={inf_depth} last_back={last_back}, u present '
+                      f'{[v is not None for v in u]} disagrees with its plain version: {rel}')
+    print("K3's second order at S = 7, 33, 65, 128, C = 1, 3, 4, 74 rays, every K3_CASES "
+          'setting, u_depths present or null, u_colors null: as its plain version '
+          f'(<= {PL_KERNEL_LIMIT} x max |plain|)')
+    for s in (7, 64, 65, 128):
+        colors = torch.rand(1, 256, s, 3, device='cuda', generator=g_small)
+        densities = torch.randn(1, 256, s, device='cuda', generator=g_small) * 2
+        densities[..., -1] = torch.linspace(-26, -14, 256, device='cuda')
+        depths = (torch.rand(1, 256, s, device='cuda', generator=g_small).sort(-1).values * 0.5
+                  + 0.75)
+        cots = [torch.randn(1, 256, 3, device='cuda', generator=g_small)] + [
+            torch.randn(1, 256, device='cuda', generator=g_small) for _ in range(3)]
+        us = [torch.randn(t.shape, device='cuda', generator=g_small)
+              for t in (colors, densities, depths)]
+        for last_back in (False, True):
+            args = (colors, densities, depths, *cots, *us)
+            opts = ('softplus', 1.0, True, last_back)
+            _, rel = bwd_bwd_errors(
+                ray_march.ray_march_reduced_bwd_bwd(*args, *opts),
+                ray_march.ray_march_reduced_bwd_bwd_plain(*[t.double() for t in args], *opts))
+            check(all(e <= PL_KERNEL_LIMIT for e in rel),
+                  f"K3's second-order entry at S={s} with the last sample near opaque, "
+                  f'last_back={last_back}, disagrees with its plain version in float64: {rel}')
+    print("K3's second order at S = 7, 64, 65, 128, the last sample near opaque under the "
+          'infinite last delta, 256 rays: as its plain version in float64 '
+          f'(<= {PL_KERNEL_LIMIT} x max |plain|)')
     g = torch.Generator(device='cuda').manual_seed(4)
     b, r, s, c = 8, 4096, 64, 3
     colors = torch.rand(b, r, s, c, device='cuda', generator=g)
@@ -2779,7 +2836,11 @@ def pl_kernel_phase(ray_march, splat):
                   "K3's second-order entry disagrees with its plain version")
             worst = max(worst, *errs)
     args = (colors, densities, depths, *cots, us[0], us[1], None)
-    ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_bwd(*args), 200)
+    # with the calls enqueued ahead: the host takes about as long as the kernel to launch it
+    ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_bwd(*args), 200, prefill=True)
+    # as earlier kernels lines timed it, back to back with the host launching
+    back_to_back = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_bwd(*args), 200)
+    cold = cold_ms(lambda: ray_march.ray_march_reduced_bwd_bwd(*args))
     plain_ms = cuda_ms(lambda: ray_march.ray_march_reduced_bwd_bwd_plain(*args), 10)
     n = b * r
     # inputs, the two cotangents and the seven outputs, each once
@@ -2788,12 +2849,15 @@ def pl_kernel_phase(ray_march, splat):
     flops = n * s * (8 * c + 90)  # the backward's values, then its reverse sweep
     bound_ms, bound_by = bound(bytes_moved, flops)
     print(f"K3's second order at [{b},{r},{s},{c}] (no depth cotangent, as on the path): kernel "
-          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.1f} us '
+          f'{ms:.4f} ms prefilled, {back_to_back:.4f} ms back to back, {cold:.4f} ms cold, '
+          f'plain {plain_ms:.4f} ms, bound '
+          f'{1e3 * bound_ms:.1f} us '
           f'({bytes_moved / 1e6:.1f} MB by {bound_by}), {bytes_moved / (ms * 1e-3) / 1e12:.2f} TB/s')
     k3_bwd_bwd = dict(name='ray_march_reduced_bwd_bwd', route='cuda',
                       source='tdgp_torch/csrc/ray_march.cu',
                       replaces='tdgp/ops/pallas_kernels.py:251', max_abs_err=worst, ms=ms,
-                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                      back_to_back_ms=back_to_back, cold_ms=cold, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     del colors, densities, depths, cots, us
 
     # K1: small shapes (F = 8, 16; texel edges and points outside), then the path's

@@ -50,6 +50,16 @@ against each other (<= 1e-5 x max |earlier|; K3 <= 1e-5 absolute):
     `quantile` against this tree's, with `chip_smoke.cuda_ms` and
     `chip_smoke.cold_ms`; thresholds bit for bit (a zero of either sign as a
     zero), the march <= 1e-5 absolute.
+  - K3's merged entry with bf16 loads at the served chunk (bf16 colours and
+    densities) and at the training shape [16, 4096, 32 + 32, 3] with float32
+    densities (Dmain's fresh fakes), its cut entry with bf16 loads at the
+    served chunk (q = 0.5, the threshold by this tree's select for both),
+    and K3's second order at PL's render [8, 4096, 64, 3] without a depth
+    cotangent (the path's form) and with one: this tree's wrappers on this
+    tree's `ray_march.cu` and on the earlier one (`ray_march_library`), warm
+    with the calls enqueued ahead, cold, and cold with a clean L2; <= 1e-5
+    absolute, the second order <= `chip_smoke.PL_KERNEL_LIMIT` x each
+    output's largest.
 Prints the card's name and power limit, one line per input, and a JSON
 object of the times as its last line. Needs a CUDA device.
 """
@@ -58,6 +68,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
+import glob
+import hashlib
 import importlib.util
 import json
 import os
@@ -71,10 +84,17 @@ from tdgp_torch.ops import cuda_build, ray_march, splat, triplane_mlp
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@functools.cache
 def build_earlier(parent: str, name: str) -> ctypes.CDLL:
+    """`parent`'s `csrc/<name>.cu`, built to a library named by a hash of it
+    and its headers, so that earlier sources of one name load side by side."""
     src = os.path.join(parent, 'tdgp_torch', 'csrc', f'{name}.cu')
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(cuda_build.BUILD_DIR, f'libearlier_{name}.so')
+    h = hashlib.sha256()
+    for path in [src, *sorted(glob.glob(os.path.join(os.path.dirname(src), '*.cuh')))]:
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    out = os.path.join(cuda_build.BUILD_DIR, f'libearlier_{name}-{h.hexdigest()[:16]}.so')
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-o', out, src], check=True)
     return ctypes.CDLL(out)
 
@@ -118,6 +138,26 @@ def splat_library(lib):
         yield
     finally:
         splat._library, splat.triplane_splat_bins = saved
+
+
+@contextlib.contextmanager
+def ray_march_library(ns):
+    """`ops/ray_march.py`'s wrappers on the bound `ray_march.cu` `ns`
+    (`ray_march.bind`) in place of this tree's."""
+    saved = ray_march._kernels
+    ray_march._kernels = lambda: ns
+    try:
+        yield
+    finally:
+        ray_march._kernels = saved
+
+
+def on_ray_march(ns, fn):
+    """`fn` run with `ray_march_library(ns)`."""
+    def run():
+        with ray_march_library(ns):
+            return fn()
+    return run
 
 
 def on_library(lib, fn):
@@ -297,7 +337,8 @@ def main() -> int:
     else:
         print('splat.cu: unchanged, not compared')
     for name, compare in (('triplane_mlp', k4_phase), ('triplane_mlp', k4_bf16_phase),
-                          ('ray_march', k3_phase), ('quantile', cut_phase)):
+                          ('ray_march', k3_phase), ('ray_march', k3_bf16_phase),
+                          ('quantile', cut_phase)):
         if changed(args.parent, name):
             compare(args.parent, chip_smoke, result, gen)
         else:
@@ -550,6 +591,55 @@ def cut_phase(parent, chip_smoke, result, gen):
             print(f'{label} {key}: earlier {earlier[0]:.4f} / {earlier[1]:.4f} ms, this '
                   f'{this[0]:.4f} / {this[1]:.4f} ms (turns: earlier, this, this, earlier)')
         result[label] = times
+
+
+def k3_bf16_phase(parent, chip_smoke, result, gen):
+    """K3's entries with bf16 loads and its second order against the
+    earlier `ray_march.cu` (the module docstring)."""
+    old = ray_march.bind(build_earlier(parent, 'ray_march'))
+
+    def compare(label, this, limit=None):
+        earlier = on_ray_march(old, this)
+        got, ref = this(), earlier()
+        if limit is None:
+            err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            ok = err <= 1e-5
+        else:
+            _, rel = chip_smoke.bwd_bwd_errors(got, ref)
+            err, ok = max(rel), all(e <= limit for e in rel)
+        if not ok:
+            raise AssertionError(f'{label}: this tree and the earlier kernel disagree: {err}')
+        times = {}
+        for key, measure in (('warm', lambda fn: chip_smoke.cuda_ms(fn, 200, prefill=True)),
+                             ('cold', chip_smoke.cold_ms),
+                             ('cold_clean', lambda fn: chip_smoke.cold_ms(fn, clean=True))):
+            first, mine = in_turns(lambda fn, _: measure(fn), earlier, this, 0)
+            times[key] = {'earlier_ms': first, 'this_ms': mine}
+        print_turns(label, times, f'; agree to {err:.3g}')
+        result[label] = times
+
+    def bf16(sets, densities=True):
+        return tuple(x.to(torch.bfloat16) if i in (1, 4) or (densities and i in (2, 5)) else x
+                     for i, x in enumerate(sets))
+
+    served = bf16(chip_smoke.merged_sets(gen, 4, 16384, 32, 32, 3))
+    train = bf16(chip_smoke.train_merged_sets(gen, 16, 4096, 32, 32, 3), densities=False)
+    compare('k3_merged_bf16_served', lambda: ray_march.ray_march_merged(*served))
+    compare('k3_merged_bf16_train_float32_densities', lambda: ray_march.ray_march_merged(*train))
+    compare('k3_cut_bf16_served', lambda: ray_march.ray_march_merged_cut(*served, 0.5))
+    del served, train
+    b, r, s, c = 8, 4096, 64, 3
+    colors = torch.rand(b, r, s, c, device='cuda', generator=gen)
+    densities = torch.randn(b, r, s, device='cuda', generator=gen) * 2
+    depths = torch.rand(b, r, s, device='cuda', generator=gen).sort(-1).values * 0.5 + 0.75
+    cots = [torch.randn(b, r, c, device='cuda', generator=gen)] + [
+        torch.randn(b, r, device='cuda', generator=gen) for _ in range(3)]
+    us = [torch.randn(t.shape, device='cuda', generator=gen) for t in (colors, densities, depths)]
+    for label, u_depths in (('k3_bwd_bwd_pl', None), ('k3_bwd_bwd_pl_depth_cotangent', us[2])):
+        compare(label, lambda u_depths=u_depths: ray_march.ray_march_reduced_bwd_bwd(
+            colors, densities, depths, *cots, us[0], us[1], u_depths),
+            chip_smoke.PL_KERNEL_LIMIT)
+    torch.cuda.empty_cache()
 
 
 def k3_phase(parent, chip_smoke, result, gen):

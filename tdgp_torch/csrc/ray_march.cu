@@ -61,13 +61,21 @@
 // float32 depths. The JAX package marches the same values in float32: its
 // sort-free merge multiplies the bf16 colours and densities by float32
 // one-hots, and its Pallas march casts bf16 inputs to float32 on entry
-// (tdgp/ops/pallas_kernels.py:188-189). Here the bf16 values are staged by
-// cp.async as they are, into the back half of their float32 arrays in shared
-// memory, and widened to float32 (exactly) in place; the march is the
-// float32 one, in the float32 entry's shared memory. At the served
-// chunk [4, 16384, 32 + 32, 3] a call reads 4 + 2 C + 2 bytes a sample, 50.3
-// MB, and writes 1.6 MB: 0.0155 ms at 3.35 TB/s, against 0.0255 ms in
-// float32.
+// (tdgp/ops/pallas_kernels.py:188-189). At the served chunk [4, 16384,
+// 32 + 32, 3] a call reads 4 + 2 C + 2 bytes a sample, 50.3 MB, and writes
+// 1.6 MB: 0.0155 ms at 3.35 TB/s, against 0.0255 ms in float32.
+//
+// The merged kernel stages each array at its own type's size (bf16 values
+// as bf16: a bf16 warp stages 61 % of the float32 entry's bytes) and the
+// march widens a bf16 value in a register as it reads it (exact: the
+// arithmetic is the float32 entry's). The first design staged bf16 values
+// into float32-sized arrays and widened them in place, 32 a step with two
+// warp barriers, before any merge: it held as few warps an SM as the
+// float32 entry and took its time. Measured by parts (probe_kernels.py
+// --only k3_merged_bf16): the march, not the loads, sets the time once the
+// widen is gone; a ring of two stages a warp over a grid of one wave, which
+// overlaps a warp's next loads with its march, gained nothing over one
+// group a warp and was taken out.
 
 // The backward (ray_march_reduced_bwd_kernel) replaces the JAX package's
 // analytic VJP `_ray_march_bwd` (tdgp/ops/pallas_kernels.py:251, written in
@@ -93,14 +101,33 @@
 // cotangents (U_c, U_x, U_t) of the backward's three outputs it returns
 // those of its seven inputs, the reverse sweep of the backward's own
 // computation, per ray (ops/ray_march.py `RayMarchReducedBackward` has the
-// sweep's steps). Besides the forward's scans it takes the exclusive
-// prefix sum of q_i = gf_i-bar / f_i (the derivative of the suffix sum
-// sum_{k>i} g_k w_k is a prefix sum), and the suffix sum of T_i T_i-bar for
-// the product's derivative; with last_back, one ray total more. Layout: a
-// warp per ray, sample s = 32 r + lane in round r < K = ceil(S / 32) <= 4,
-// every per-sample value of the sweep in registers; the scans carry from
-// round to round. It reads the three inputs and three cotangents and
-// writes three per-sample outputs, 2 (C + 2) + (C + 2) floats a sample.
+// sweep's steps; tests/test_torch_ray_march_bwd_bwd.py this kernel's order).
+// Besides the forward's scans it takes the exclusive prefix sum of
+// q_i = gf_i-bar / f_i (the derivative of the suffix sum sum_{k>i} g_k w_k
+// is a prefix sum), and the suffix sum of T_i T_i-bar for the product's
+// derivative; with last_back, one ray total more. It reads the three
+// inputs and three cotangents and writes three per-sample outputs,
+// 2 (C + 2) + (C + 2) floats a sample: at PL's render [8, 4096, 64, 3],
+// 119 MB, 0.0355 ms at 3.35 TB/s.
+//
+// Layout: one ray a warp, lane l of it K consecutive samples l K .. l K +
+// K - 1 (K = 1, 2, 4 up to 32, 64, 128 samples; the forwards' 8 or 16 lanes
+// a ray, whose lanes hold 8 or 4 samples in registers, measured slower).
+// The warp stages every input and cotangent of its ray (one contiguous run
+// each) by 16-byte cp.async, all in flight before any sum, and reads the
+// colours once from there. Each lane runs its products and its prefix and
+// suffix sums over its K samples serially; one scan over the ray's lanes
+// turns each into the ray's. A sum over the samples behind one is a suffix
+// sum, never the ray's total less a prefix: the sweep divides it by f_i,
+// which falls as far as 1e-10 at the last sample of an infinite-depth ray,
+// where the suffix is exactly 0 and a difference would leave its rounding.
+// The sweep multiplies by 1 / f_i, taken once a
+// sample, where it divides by f_i (a division is a branch to its slow
+// path). The per-sample outputs go back through the cotangents' shared
+// memory and out in contiguous 16-byte runs. The first design marched a
+// sample a lane in rounds of 32, loading from device memory in three
+// dependent waves (the colours at a 12-byte stride, read twice), with a
+// set of scans in every round.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,57 +161,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
 }
 
-// Copies n floats into the warp's shared memory: 16 bytes a lane where both
-// ends are 16-byte aligned, else (and for the tail) 4.
-__device__ __forceinline__ void stage(float* dst, const float* src, int n, int lane) {
+// Copies n values of T (float or bf16) into the warp's shared memory by
+// cp.async: 16 bytes a lane where both ends are 16-byte aligned, else (and
+// for the tail) a float by a 4-byte cp.async, a bf16 by a plain copy.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n, int lane) {
+  constexpr int V = 16 / sizeof(T);
   int done = 0;
   if (((reinterpret_cast<uintptr_t>(src) | (uintptr_t)__cvta_generic_to_shared(dst)) & 15) == 0) {
-    for (int i = 4 * lane; i + 4 <= n; i += 128) cp_async16(dst + i, src + i);
-    done = n & ~3;
+    for (int i = V * lane; i + V <= n; i += 32 * V) cp_async16(dst + i, src + i);
+    done = n & ~(V - 1);
   }
-  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
-}
-
-// Stages n bf16 values for the n floats at dst: copies them as they are
-// into the second half of dst's 4n bytes, by cp.async, 16 bytes a lane where
-// both ends are 16-byte aligned, else (and for the tail) one value a lane.
-// `widen` then turns them into floats in place.
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, int n, int lane) {
-  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(dst) + n;
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(src) | (uintptr_t)__cvta_generic_to_shared(raw)) & 15) == 0) {
-    for (int i = 8 * lane; i + 8 <= n; i += 256) {
-      const unsigned d = (unsigned)__cvta_generic_to_shared(raw + i);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + i)
-                   : "memory");
+  for (int i = done + lane; i < n; i += 32) {
+    if constexpr (sizeof(T) == 4) {
+      cp_async4(dst + i, src + i);
+    } else {
+      dst[i] = src[i];
     }
-    done = n & ~7;
-  }
-  for (int i = done + lane; i < n; i += 32) raw[i] = src[i];
-}
-
-// Widens the n bf16 values that `stage` put behind the n floats at dst into
-// those floats (exactly), in place: 32 at a time from the front, each lane
-// reading its value before any lane writes. The floats of a step end below
-// the bf16 values still to be read (float i covers the bf16 slots 2i - n and
-// 2i - n + 1, below i + 32 where i < n - 31, and below n, all read, after).
-__device__ __forceinline__ void widen(float* dst, int n, int lane) {
-  const __nv_bfloat16* raw = reinterpret_cast<const __nv_bfloat16*>(dst) + n;
-  for (int i0 = 0; i0 < n; i0 += 32) {
-    const float v = i0 + lane < n ? __bfloat162float(raw[i0 + lane]) : 0.f;
-    __syncwarp();
-    if (i0 + lane < n) dst[i0 + lane] = v;
-    __syncwarp();
   }
 }
 
@@ -193,6 +196,23 @@ __device__ __forceinline__ void staged() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncwarp();
 }
+
+// Copies n floats from the warp's shared memory to device memory: 16 bytes
+// a lane where both ends are 16-byte aligned, else (and for the tail) 4.
+__device__ __forceinline__ void unstage(float* dst, const float* src, int n, int lane) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    for (int i = 4 * lane; i + 4 <= n; i += 128)
+      *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+    done = n & ~3;
+  }
+  for (int i = done + lane; i < n; i += 32) dst[i] = src[i];
+}
+
+__device__ __forceinline__ float widened(float v) { return v; }
+__device__ __forceinline__ float widened(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) & ~15; }
 
 template <int C>
 struct Sums {
@@ -256,7 +276,8 @@ struct Merged {
 };
 
 // Marches one ray's samples [0, n) of a warp's staged copy (depths ts, raw
-// densities xs, colours cs [., C], at the same offsets) on the L lanes of
+// densities xs, colours cs [., C], at the same offsets; xs and cs float32,
+// or bf16 widened as they are read) on the L lanes of
 // the ray (li: the lane's place among them), adding into `acc`; n <= L K.
 // `Source` gives the samples' offsets in marching order (InOrder, Merged).
 // With `Cut`, a clamped density below `thresh` is set to 0 before it is
@@ -267,8 +288,8 @@ struct Merged {
 // and one multiply per sum scales them. The last sample's delta is
 // t_after - t where the ray goes on past these n samples (`more`), else
 // last_delta.
-template <int C, int L, int K, bool Cut = false, typename Source>
-__device__ __forceinline__ void march(const float* ts, const float* xs, const float* cs,
+template <int C, int L, int K, bool Cut = false, typename Source, typename TX, typename TC>
+__device__ __forceinline__ void march(const float* ts, const TX* xs, const TC* cs,
                                       Source src, int n, bool more, float t_after,
                                       int clamp_mode, float beta, float last_delta, int li,
                                       Sums<C>& acc, float thresh = 0.f) {
@@ -284,14 +305,14 @@ __device__ __forceinline__ void march(const float* ts, const float* xs, const fl
       float t_next = t_right;
       const int at_next = k + 1 < K && i + 1 < n ? src.next(ts, t_next) : at;
       const float delta = i + 1 < n ? t_next - t : (more ? t_after - t : last_delta);
-      float sigma = clamp_density(xs[at], clamp_mode, beta);
+      float sigma = clamp_density(widened(xs[at]), clamp_mode, beta);
       if constexpr (Cut) sigma = sigma < thresh ? 0.f : sigma;
       const float alpha = 1.f - expf(-delta * sigma);
       const float wk = alpha * prod;
       w += wk;
       depth += wk * t;
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) rgb[ch] += wk * cs[at * C + ch];
+      for (int ch = 0; ch < C; ++ch) rgb[ch] += wk * widened(cs[at * C + ch]);
       prod *= (1.f - alpha) + 1e-10f;
       at = at_next;
       t = t_next;
@@ -315,8 +336,8 @@ __device__ __forceinline__ void march(const float* ts, const float* xs, const fl
 // Sums the partial sums over the ray's L lanes and, on its first lane and
 // if the ray exists, writes its results; with last_back the ray's last
 // sample (offset `last`) takes the weight that the others left.
-template <int C, int L>
-__device__ __forceinline__ void finish(Sums<C> acc, const float* ts, const float* cs, int last,
+template <int C, int L, typename TC>
+__device__ __forceinline__ void finish(Sums<C> acc, const float* ts, const TC* cs, int last,
                                        int last_back, int li, bool exists, long long ray,
                                        float* rgb_out, float* depth_out, float* wsum_out,
                                        float* ftrans_out) {
@@ -333,7 +354,7 @@ __device__ __forceinline__ void finish(Sums<C> acc, const float* ts, const float
     const float corr = 1.f - acc.w;
     acc.depth += corr * ts[last];
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) acc.rgb[ch] += corr * cs[last * C + ch];
+    for (int ch = 0; ch < C; ++ch) acc.rgb[ch] += corr * widened(cs[last * C + ch]);
     wsum += corr;
   }
 #pragma unroll
@@ -395,11 +416,20 @@ ray_march_reduced_kernel(const float* __restrict__ colors,     // [N, S, C]
                depth_out, wsum_out, ftrans_out);
 }
 
-// A warp marches 32 / L consecutive rays, L lanes each. Shared memory, per
-// warp, for its Q rays: the depths (set 1 of every ray, then set 2), and the
-// raw densities and colours at the same offsets, in float32 whatever their
-// type in device memory (TC, TX: float or bf16). With `Cut`, the clamped
-// densities below *thresh are marched as 0.
+// Bytes of one stage of the merged kernel: Q rays of s samples, their
+// depths (float32), raw densities (TX) and colours (TC), each array from a
+// 16-byte boundary.
+template <int C, typename TC, typename TX>
+__host__ __device__ constexpr int merged_stage_bytes(int q, int s) {
+  return round16(4 * q * s) + round16((int)sizeof(TX) * q * s) +
+         round16((int)sizeof(TC) * q * s * C);
+}
+
+// A warp marches Q = 32 / L consecutive rays, L lanes each. Shared memory,
+// per warp, for its Q rays: the depths (set 1 of every ray, then set 2),
+// and the raw densities and colours at the same offsets, each array at its
+// type's size (TC, TX: float or bf16) from a 16-byte boundary. With `Cut`,
+// the clamped densities below *thresh are marched as 0.
 template <int C, int L, int K, bool Cut, typename TC = float, typename TX = float>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 ray_march_merged_kernel(const float* __restrict__ t1,  // [N, S1] depths, sorted per ray
@@ -421,13 +451,11 @@ ray_march_merged_kernel(const float* __restrict__ t1,  // [N, S1] depths, sorted
   if (ray0 >= n_rays) return;  // the whole warp leaves together
   const int nq = (int)min((long long)Q, n_rays - ray0);  // rays of this warp
   const int s = s1 + s2;
-  float* ts = smem + warp * Q * s * (C + 2);
-  float* xs = ts + Q * s;
-  float* cs = xs + Q * s;
-  // bf16 inputs are staged as they are (every copy in flight at once, as
-  // cp.async stages the float32 ones), then widened in place
-  constexpr bool kRawX = std::is_same<TX, __nv_bfloat16>::value;
-  constexpr bool kRawC = std::is_same<TC, __nv_bfloat16>::value;
+  unsigned char* mine =
+      reinterpret_cast<unsigned char*>(smem) + warp * merged_stage_bytes<C, TC, TX>(Q, s);
+  float* ts = reinterpret_cast<float*>(mine);
+  TX* xs = reinterpret_cast<TX*>(mine + round16(4 * Q * s));
+  TC* cs = reinterpret_cast<TC*>(mine + round16(4 * Q * s) + round16((int)sizeof(TX) * Q * s));
   stage(ts, t1 + ray0 * s1, nq * s1, lane);
   stage(ts + Q * s1, t2 + ray0 * s2, nq * s2, lane);
   stage(xs, x1 + ray0 * s1, nq * s1, lane);
@@ -435,23 +463,11 @@ ray_march_merged_kernel(const float* __restrict__ t1,  // [N, S1] depths, sorted
   stage(cs, c1 + ray0 * s1 * C, nq * s1 * C, lane);
   stage(cs + Q * s1 * C, c2 + ray0 * s2 * C, nq * s2 * C, lane);
   staged();
-  if constexpr (kRawX) {
-    widen(xs, nq * s1, lane);
-    widen(xs + Q * s1, nq * s2, lane);
-  }
-  if constexpr (kRawC) {
-    widen(cs, nq * s1 * C, lane);
-    widen(cs + Q * s1 * C, nq * s2 * C, lane);
-  }
   const int n = q < nq ? s : 0;
   const Merged merged(ts, q * s1, s1, Q * s1 + q * s2, s2, li * K < n ? li * K : 0);
   Sums<C> acc;
-  if constexpr (Cut) {
-    march<C, L, K, true>(ts, xs, cs, merged, n, false, 0.f, clamp_mode, sp_beta, last_delta, li,
-                         acc, *thresh);
-  } else {
-    march<C, L, K>(ts, xs, cs, merged, n, false, 0.f, clamp_mode, sp_beta, last_delta, li, acc);
-  }
+  march<C, L, K, Cut>(ts, xs, cs, merged, n, false, 0.f, clamp_mode, sp_beta, last_delta, li,
+                      acc, Cut ? *thresh : 0.f);
   finish<C, L>(acc, ts, cs, n ? merged.last(ts) : 0, last_back, li, n > 0, ray0 + q, rgb_out,
                depth_out, wsum_out, ftrans_out);
 }
@@ -618,8 +634,17 @@ ray_march_reduced_bwd_kernel(const float* __restrict__ colors,     // [N, S, C]
   }
 }
 
-// Inclusive sum scan over the warp's lanes.
-__device__ __forceinline__ float inclusive_sum(float v, int lane) {
+// Scans over a warp's lanes, which hold one ray (lane: its place).
+__device__ __forceinline__ float lanes_product(float v, int lane) {  // inclusive
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(kFullMask, v, off);
+    if (lane >= off) v *= up;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float lanes_sum(float v, int lane) {  // inclusive
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const float up = __shfl_up_sync(kFullMask, v, off);
@@ -628,16 +653,39 @@ __device__ __forceinline__ float inclusive_sum(float v, int lane) {
   return v;
 }
 
-__device__ __forceinline__ float warp_allsum(float v) {
+__device__ __forceinline__ float lanes_suffix_sum(float v, int lane) {  // inclusive, from the end
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float down = __shfl_down_sync(kFullMask, v, off);
+    if (lane + off < 32) v += down;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float lanes_allsum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
 }
 
-// The backward's derivative (see the note at the top); u_* may be null
-// (a zero cotangent). K rounds of 32 samples, K * 32 >= n_steps.
-template <int K>
-__global__ void __launch_bounds__(32 * kRaysPerBlock)
+// the value of the lane before, `first` on lane 0
+__device__ __forceinline__ float lane_before(float v, int lane, float first) {
+  const float up = __shfl_up_sync(kFullMask, v, 1);
+  return lane == 0 ? first : up;
+}
+
+// Floats of one warp's shared memory in the second order: a ray of s
+// samples, the colours, densities, depths and their three cotangents, each
+// array from a 16-byte boundary.
+__host__ __device__ constexpr int bwd_bwd_warp_floats(int c, int s) {
+  return 2 * round16(4 * s * c) / 4 + 4 * round16(4 * s) / 4;
+}
+
+// The backward's derivative (see the note at the top); u_* may be null (a
+// zero cotangent). The warp's ray of n_steps <= 32 K samples; lane l holds
+// samples l K + k, k < K, in registers.
+template <int C, int K>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
 ray_march_reduced_bwd_bwd_kernel(const float* __restrict__ colors,     // [N, S, C]
                                  const float* __restrict__ densities,  // [N, S]
                                  const float* __restrict__ depths,     // [N, S]
@@ -655,184 +703,209 @@ ray_march_reduced_bwd_bwd_kernel(const float* __restrict__ colors,     // [N, S,
                                  float* __restrict__ b_depth,          // [N]
                                  float* __restrict__ b_wsum,           // [N]
                                  float* __restrict__ b_ftrans,         // [N]
-                                 long long n_rays, int n_steps, int n_channels,
-                                 int clamp_mode, float sp_beta, float last_delta,
-                                 int last_back) {
-  const int lane = threadIdx.x & 31;
-  const long long ray = (long long)blockIdx.x * kRaysPerBlock + (threadIdx.x >> 5);
+                                 long long n_rays, int n_steps, int clamp_mode, float sp_beta,
+                                 float last_delta, int last_back) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
   if (ray >= n_rays) return;  // the whole warp leaves together
-  const long long base = ray * n_steps;
-  const int last = n_steps - 1;
-
-  float grgb[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
+  const int S = n_steps, last = S - 1;
+  const int pc = round16(4 * S * C) / 4, p1 = round16(4 * S) / 4;
+  float* cs = smem + warp * bwd_bwd_warp_floats(C, S);
+  float* xs = cs + pc;
+  float* ts = xs + p1;
+  float* ucs = ts + p1;  // the cotangents, then the outputs
+  float* uxs = ucs + pc;
+  float* uts = uxs + p1;
+  stage(cs, colors + ray * S * C, S * C, lane);
+  stage(xs, densities + ray * S, S, lane);
+  stage(ts, depths + ray * S, S, lane);
+  if (u_colors) stage(ucs, u_colors + ray * S * C, S * C, lane);
+  if (u_densities) stage(uxs, u_densities + ray * S, S, lane);
+  if (u_depths) stage(uts, u_depths + ray * S, S, lane);
+  float grgb[C];
 #pragma unroll
-  for (int k = 0; k < kMaxChannels; ++k)
-    if (k < n_channels) grgb[k] = g_rgb[ray * n_channels + k];
+  for (int ch = 0; ch < C; ++ch) grgb[ch] = g_rgb[ray * C + ch];
   const float gdep = g_depth[ray], gws = g_wsum[ray], gft = g_ftrans[ray];
-  auto cot = [&](int s) {  // a_s
-    float a = depths[base + s] * gdep + gws;
-    const float* c = colors + (base + s) * n_channels;
+  staged();
+  auto cot = [&](int i) {  // a_i
+    float a = ts[i] * gdep + gws;
 #pragma unroll
-    for (int k = 0; k < kMaxChannels; ++k)
-      if (k < n_channels) a += c[k] * grgb[k];
+    for (int ch = 0; ch < C; ++ch) a += cs[i * C + ch] * grgb[ch];
     return a;
+  };
+  auto delta = [&](int i) { return i < last ? ts[i + 1] - ts[i] : last_delta; };
+  auto u_weight = [&](int i) {  // the cotangent of the corrected weight w'_i
+    float bwc = (u_depths ? uts[i] : 0.f) * gdep;
+    if (u_colors) {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) bwc += ucs[i * C + ch] * grgb[ch];
+    }
+    return bwc;
   };
   const float a_last = cot(last);
 
-  // the backward's values, sample 32 r + lane in slot r
-  float t[K], dl[K], sg[K], ds[K], d2[K], e[K], al[K], f[K], T[K], w[K], g[K], gwp[K];
-  float carry = 1.f, w_acc = 0.f, gw_before = 0.f;
+  // the backward's values: each lane's products and sums over its K samples,
+  // relative to the transmittance in front of its first, then the ray's
+  float sg[K], ds[K], e[K], inv_f[K], T[K], g[K], rest[K];  // inv_f: 1 / f
+  float prod = 1.f, w_lane = 0.f;
 #pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int s = 32 * r + lane;
-    const bool valid = s < n_steps;
-    t[r] = dl[r] = sg[r] = ds[r] = d2[r] = al[r] = g[r] = 0.f;
-    e[r] = f[r] = 1.f;  // an empty slot: factor 1
-    if (valid) {
-      t[r] = depths[base + s];
-      dl[r] = s < last ? depths[base + s + 1] - t[r] : last_delta;
-      const float x = densities[base + s];
-      sg[r] = clamp_density(x, clamp_mode, sp_beta);
-      if (clamp_mode == 0) {
-        const float sig = 1.f / (1.f + expf(-sp_beta * x));
-        ds[r] = sig;
-        d2[r] = sp_beta * sig * (1.f - sig);
-      } else {
-        ds[r] = x > 0.f ? 1.f : 0.f;
-      }
-      e[r] = expf(-dl[r] * sg[r]);
-      al[r] = 1.f - e[r];
-      f[r] = (1.f - al[r]) + 1e-10f;
-      g[r] = cot(s);
-      if (last_back) g[r] = s == last ? 0.f : g[r] - a_last;
+  for (int k = 0; k < K; ++k) {
+    const int i = lane * K + k;
+    sg[k] = ds[k] = g[k] = rest[k] = 0.f;
+    e[k] = inv_f[k] = 1.f;  // an empty sample: factor 1
+    T[k] = prod;
+    if (i < S) {
+      const float x = xs[i];
+      sg[k] = clamp_density(x, clamp_mode, sp_beta);
+      ds[k] = clamp_mode == 0 ? 1.f / (1.f + expf(-sp_beta * x)) : x > 0.f ? 1.f : 0.f;
+      e[k] = expf(-delta(i) * sg[k]);
+      const float f = (1.f - (1.f - e[k])) + 1e-10f;
+      inv_f[k] = 1.f / f;
+      g[k] = cot(i);
+      if (last_back) g[k] = i == last ? 0.f : g[k] - a_last;
+      const float w = (1.f - e[k]) * prod;
+      w_lane += w;
+      rest[k] = g[k] * w;
+      prod *= f;
     }
-    float incl;
-    const float excl = exclusive_product(f[r], lane, &incl);
-    T[r] = carry * excl;
-    w[r] = valid ? al[r] * T[r] : 0.f;
-    w_acc += w[r];
-    gwp[r] = gw_before + inclusive_sum(g[r] * w[r], lane);
-    gw_before = __shfl_sync(kFullMask, gwp[r], 31);
-    carry *= __shfl_sync(kFullMask, incl, 31);
   }
-  const float t_s = carry, w_total = warp_allsum(w_acc), gw_total = gw_before;
+  float gw_after = 0.f;  // the lane's suffix of g w, exclusive: sum over its samples after
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k) {
+    const float gw = rest[k];
+    rest[k] = gw_after;
+    gw_after += gw;
+  }
+  const float incl = lanes_product(prod, lane);
+  const float front = lane_before(incl, lane, 1.f);
+  const float t_s = __shfl_sync(kFullMask, incl, 31);
+  const float w_total = lanes_allsum(front * w_lane);
+  // sum_{j>i} g w as a suffix sum: exactly 0 behind the last sample (see the note at the top)
+  const float gw_beyond = __shfl_down_sync(kFullMask, lanes_suffix_sum(front * gw_after, lane), 1);
+  const float gw_lanes_after = lane == 31 ? 0.f : gw_beyond;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    T[k] *= front;
+    rest[k] = (gw_lanes_after + front * rest[k]) + gft * t_s;  // sum_{j>i} g w + gft T_S
+  }
 
   // the reverse sweep, part 1: from the outputs back to the suffix sums
-  float b_sg[K], b_e[K], b_dl[K], b_ds[K], b_g[K], b_T[K], b_f[K], b_w[K];
-  float bG[kMaxChannels] = {0.f, 0.f, 0.f, 0.f};
-  float b_gdep = 0.f, b_gws = 0.f, b_ts = 0.f, b_gft = 0.f, q_before = 0.f, bwc_last = 0.f;
+  float bG[C] = {}, b_gdep = 0.f, b_ts_lane = 0.f, b_gft = 0.f, q_lane = 0.f;
+  float q_ex[K], b_gf[K];
 #pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int s = 32 * r + lane;
-    const bool valid = s < n_steps;
-    b_sg[r] = b_e[r] = b_dl[r] = b_ds[r] = b_g[r] = b_T[r] = b_f[r] = b_w[r] = 0.f;
-    float q = 0.f;
-    if (valid) {
-      const float ux = u_densities ? u_densities[base + s] : 0.f;
-      const float ut = u_depths ? u_depths[base + s] : 0.f;
-      const float ut_next = u_depths && s < last ? u_depths[base + s + 1] : 0.f;
-      const float wc = (last_back && s == last) ? w[r] + (1.f - w_total) : w[r];
-      float bwc = ut * gdep;
+  for (int k = 0; k < K; ++k) {
+    const int i = lane * K + k;
+    q_ex[k] = q_lane;  // sum of q over the lane's samples before this one
+    b_gf[k] = 0.f;
+    if (i < S) {
+      const float ux = u_densities ? uxs[i] : 0.f;
+      const float ut = u_depths ? uts[i] : 0.f;
+      const float ut_next = u_depths && i < last ? uts[i + 1] : 0.f;
+      const float w = (1.f - e[k]) * T[k];
+      const float wc = (last_back && i == last) ? w + (1.f - w_total) : w;
       if (u_colors) {
-        const float* uc = u_colors + (base + s) * n_channels;
 #pragma unroll
-        for (int k = 0; k < kMaxChannels; ++k)
-          if (k < n_channels) {
-            bwc += uc[k] * grgb[k];
-            bG[k] += wc * uc[k];
-          }
+        for (int ch = 0; ch < C; ++ch) bG[ch] += wc * ucs[i * C + ch];
       }
       b_gdep += wc * ut;
-      if (s == last) bwc_last = bwc;
-      const float b_gd = s < last ? ut_next - ut : 0.f;
-      const float suffix = gw_total - gwp[r];
-      const float rest = suffix + gft * t_s;
-      const float gf = -g[r] * T[r] + rest / f[r];
-      const float b_gf = b_gd * (-sg[r] * e[r]) + ux * (-dl[r] * e[r] * ds[r]);
-      b_sg[r] = b_gd * gf * (-e[r]);
-      b_e[r] = b_gd * gf * (-sg[r]) + ux * gf * (-dl[r] * ds[r]);
-      b_dl[r] = ux * gf * (-e[r] * ds[r]);
-      b_ds[r] = ux * gf * (-dl[r] * e[r]);
-      q = b_gf / f[r];
-      b_g[r] = -b_gf * T[r];
-      b_T[r] = -b_gf * g[r];
-      b_gft += q * t_s;
-      b_ts += q * gft;
-      b_f[r] = -q * rest / f[r];
-      b_w[r] = bwc;
+      const float b_gd = i < last ? ut_next - ut : 0.f;
+      b_gf[k] = b_gd * (-sg[k] * e[k]) + ux * (-delta(i) * e[k] * ds[k]);
+      const float qk = b_gf[k] * inv_f[k];
+      b_gft += qk * t_s;
+      b_ts_lane += qk * gft;
+      q_lane += qk;
     }
-    const float q_incl = inclusive_sum(q, lane);
-    const float p = q_before + q_incl - q;  // sum_{i < s} q_i
-    b_g[r] += p * w[r];
-    b_w[r] += p * g[r];
-    q_before += __shfl_sync(kFullMask, q_incl, 31);
   }
-  b_ts = warp_allsum(b_ts);
-  const float b_wsum_all = last_back ? -__shfl_sync(kFullMask, bwc_last, last & 31) : 0.f;
+  const float q_before = lane_before(lanes_sum(q_lane, lane), lane, 0.f);
+  const float b_ts = lanes_allsum(b_ts_lane);
+  const float b_wsum_all = last_back ? -u_weight(last) : 0.f;
 
   // part 2: the weights' cotangent complete, its share of the transmittance
-  float bg_rest = 0.f, btt_acc = 0.f;
+  float b_g[K], b_w[K], btt_after[K];
+  float bg_rest_lane = 0.f, btt_lane = 0.f;
 #pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int s = 32 * r + lane;
-    if (s < n_steps) {
-      b_w[r] += b_wsum_all;
-      if (s < last) bg_rest += b_g[r];
-      b_T[r] += b_w[r] * al[r];
-      btt_acc += b_T[r] * T[r];
+  for (int k = 0; k < K; ++k) {
+    const int i = lane * K + k;
+    b_g[k] = b_w[k] = 0.f;
+    if (i < S) {
+      const float p = q_before + q_ex[k];  // sum_{j < i} q_j
+      const float al = 1.f - e[k];
+      b_g[k] = -b_gf[k] * T[k] + p * (al * T[k]);
+      b_w[k] = (u_weight(i) + p * g[k]) + b_wsum_all;
+      if (i < last) bg_rest_lane += b_g[k];
     }
   }
-  bg_rest = warp_allsum(bg_rest);
-  const float btt_total = warp_allsum(btt_acc);
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k) {  // sum_{j > i} over the lane's samples
+    const int i = lane * K + k;
+    btt_after[k] = btt_lane;
+    if (i < S) btt_lane += (-b_gf[k] * g[k] + b_w[k] * (1.f - e[k])) * T[k];
+  }
+  const float btt_beyond = __shfl_down_sync(kFullMask, lanes_suffix_sum(btt_lane, lane), 1);
+  const float btt_lanes_after = lane == 31 ? 0.f : btt_beyond;
+  const float bg_rest = lanes_allsum(bg_rest_lane);
 
   // part 3: through a, the product and the clamp to the inputs
-  float btt_before = 0.f, bdl_prev = 0.f;  // the delta cotangent of the round before's last
+  float out_x[K], out_t[K], ba[K], bdl[K];
+  float b_gws = 0.f;
 #pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int s = 32 * r + lane;
-    const bool valid = s < n_steps;
-    float bdl = 0.f;
-    const float btt = valid ? b_T[r] * T[r] : 0.f;
-    const float btt_incl = inclusive_sum(btt, lane);
-    if (valid) {
-      const float ba = last_back ? (s < last ? b_g[r] : -bg_rest) : b_g[r];
-      const float* c = colors + (base + s) * n_channels;
-      float* bc = b_colors + (base + s) * n_channels;
+  for (int k = 0; k < K; ++k) {
+    const int i = lane * K + k;
+    ba[k] = out_x[k] = bdl[k] = 0.f;
+    if (i < S) {
+      ba[k] = last_back ? (i < last ? b_g[k] : -bg_rest) : b_g[k];
+      const float t = ts[i];
 #pragma unroll
-      for (int k = 0; k < kMaxChannels; ++k)
-        if (k < n_channels) {
-          bc[k] = ba * grgb[k];
-          bG[k] += ba * c[k];
-        }
-      b_gdep += ba * t[r];
-      b_gws += ba;
-      const float suffix_tt = btt_total - (btt_before + btt_incl);  // sum_{i > s}
-      const float bf = b_f[r] + (suffix_tt + b_ts * t_s) / f[r];
-      const float balpha = b_w[r] * T[r] - bf;
-      const float be = b_e[r] - balpha;
-      bdl = b_dl[r] + be * (-sg[r] * e[r]);
-      const float bsg = b_sg[r] + be * (-dl[r] * e[r]);
-      b_densities[base + s] = bsg * ds[r] + b_ds[r] * d2[r];
-      if (s == last) bdl = 0.f;  // the last delta is a constant
+      for (int ch = 0; ch < C; ++ch) bG[ch] += ba[k] * cs[i * C + ch];
+      b_gdep += ba[k] * t;
+      b_gws += ba[k];
+      const float ux = u_densities ? uxs[i] : 0.f;
+      const float ut = u_depths ? uts[i] : 0.f;
+      const float ut_next = u_depths && i < last ? uts[i + 1] : 0.f;
+      const float b_gd = i < last ? ut_next - ut : 0.f;
+      const float dl = delta(i);
+      const float gf = -g[k] * T[k] + rest[k] * inv_f[k];
+      const float qk = b_gf[k] * inv_f[k];
+      const float b_f = -qk * rest[k] * inv_f[k];
+      const float bf = b_f + ((btt_lanes_after + btt_after[k]) + b_ts * t_s) * inv_f[k];
+      const float balpha = b_w[k] * T[k] - bf;
+      const float be = (b_gd * gf * (-sg[k]) + ux * gf * (-dl * ds[k])) - balpha;
+      const float bsg = b_gd * gf * (-e[k]) + be * (-dl * e[k]);
+      const float d2 = clamp_mode == 0 ? sp_beta * ds[k] * (1.f - ds[k]) : 0.f;
+      out_x[k] = bsg * ds[k] + ux * gf * (-dl * e[k]) * d2;
+      if (i < last) bdl[k] = ux * gf * (-e[k] * ds[k]) + be * (-sg[k] * e[k]);
     }
-    float bdl_left = __shfl_up_sync(kFullMask, bdl, 1);
-    if (lane == 0) bdl_left = bdl_prev;
-    if (valid) {
-      const float ba = last_back ? (s < last ? b_g[r] : -bg_rest) : b_g[r];
-      b_depths[base + s] = ba * gdep - bdl + (s > 0 ? bdl_left : 0.f);
-    }
-    btt_before += __shfl_sync(kFullMask, btt_incl, 31);
-    bdl_prev = __shfl_sync(kFullMask, bdl, 31);
   }
+  float left = lane_before(bdl[K - 1], lane, 0.f);  // the delta cotangent of the sample before
 #pragma unroll
-  for (int k = 0; k < kMaxChannels; ++k) bG[k] = warp_allsum(bG[k]);
-  b_gdep = warp_allsum(b_gdep);
-  b_gws = warp_allsum(b_gws);
-  b_gft = warp_allsum(b_gft);
+  for (int k = 0; k < K; ++k) {
+    out_t[k] = ba[k] * gdep - bdl[k] + left;
+    left = bdl[k];
+  }
+  __syncwarp();  // every lane has read the cotangents: their shared memory takes the outputs
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = lane * K + k;
+    if (i < S) {
+      uxs[i] = out_x[k];
+      uts[i] = out_t[k];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) ucs[i * C + ch] = ba[k] * grgb[ch];
+    }
+  }
+  __syncwarp();
+  unstage(b_colors + ray * S * C, ucs, S * C, lane);
+  unstage(b_densities + ray * S, uxs, S, lane);
+  unstage(b_depths + ray * S, uts, S, lane);
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) bG[ch] = lanes_allsum(bG[ch]);
+  b_gdep = lanes_allsum(b_gdep);
+  b_gws = lanes_allsum(b_gws);
+  b_gft = lanes_allsum(b_gft);
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < kMaxChannels; ++k)
-      if (k < n_channels) b_rgb[ray * n_channels + k] = bG[k];
+    for (int ch = 0; ch < C; ++ch) b_rgb[ray * C + ch] = bG[ch];
     b_depth[ray] = b_gdep;
     b_wsum[ray] = b_gws;
     b_ftrans[ray] = b_gft;
@@ -852,13 +925,33 @@ int launch_merged(const float* t1, const TC* c1, const TX* x1, const float* t2,
     constexpr int C = decltype(cc)::value, L = decltype(ll)::value, K = decltype(kk)::value;
     constexpr int kRaysPerBlockHere = kWarpsPerBlock * 32 / L;
     const long long blocks = (n_rays + kRaysPerBlockHere - 1) / kRaysPerBlockHere;
-    const size_t smem = sizeof(float) * kRaysPerBlockHere * (s1 + s2) * (C + 2);
+    const size_t smem = (size_t)kWarpsPerBlock * merged_stage_bytes<C, TC, TX>(32 / L, s1 + s2);
     ray_march_merged_kernel<C, L, K, Cut, TC, TX><<<(unsigned)blocks, 32 * kWarpsPerBlock, smem,
                                                     (cudaStream_t)stream>>>(
         t1, c1, x1, t2, c2, x2, thresh, rgb, depth, wsum, ftrans, n_rays, s1, s2, clamp_mode,
         sp_beta, last_delta, last_back);
     return (int)cudaGetLastError();
   });
+}
+
+// Calls launch(Int<C>{}, Int<K>{}) for the second order of c channels and
+// `samples` <= kMaxStepsBwdBwd samples a ray: the least power of two K with
+// 32 K >= samples.
+constexpr int kMaxStepsBwdBwd = 128;  // samples a ray (MAX_STEPS_BWD_BWD in ops/ray_march.py)
+static_assert(32 * 4 >= kMaxStepsBwdBwd, "a ray fits the warp's lanes");
+template <typename Launch>
+int with_bwd_bwd_widths(int c, int samples, Launch launch) {
+  auto with_c = [&](auto cc) {
+    if (samples > 64) return launch(cc, Int<4>{});
+    if (samples > 32) return launch(cc, Int<2>{});
+    return launch(cc, Int<1>{});
+  };
+  switch (c) {
+    case 1: return with_c(Int<1>{});
+    case 2: return with_c(Int<2>{});
+    case 3: return with_c(Int<3>{});
+    default: return with_c(Int<4>{});
+  }
 }
 
 }  // namespace
@@ -987,23 +1080,22 @@ int tdgp_ray_march_reduced_bwd_bwd(const float* colors, const float* densities,
                                    float* b_ftrans, long long n_rays, int n_steps,
                                    int n_channels, int clamp_mode, float sp_beta,
                                    float last_delta, int last_back, void* stream) {
-  if (n_channels < 1 || n_channels > kMaxChannels || n_steps < 1 || n_steps > 128 || n_rays < 1)
+  if (n_channels < 1 || n_channels > kMaxChannels || n_steps < 1 ||
+      n_steps > kMaxStepsBwdBwd || n_rays < 1)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-  auto launch = [&](auto kk) {
-    constexpr int K = decltype(kk)::value;
-    ray_march_reduced_bwd_bwd_kernel<K><<<(unsigned)blocks, 32 * kRaysPerBlock, 0,
-                                          (cudaStream_t)stream>>>(
+  return with_bwd_bwd_widths(n_channels, n_steps, [&](auto cc, auto kk) {
+    constexpr int C = decltype(cc)::value, K = decltype(kk)::value;
+    auto kernel = ray_march_reduced_bwd_bwd_kernel<C, K>;
+    const size_t smem = sizeof(float) * kWarpsPerBlock * bwd_bwd_warp_floats(C, n_steps);
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const long long blocks = (n_rays + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, smem, (cudaStream_t)stream>>>(
         colors, densities, depths, g_rgb, g_depth, g_wsum, g_ftrans, u_colors, u_densities,
         u_depths, b_colors, b_densities, b_depths, b_rgb, b_depth, b_wsum, b_ftrans, n_rays,
-        n_steps, n_channels, clamp_mode, sp_beta, last_delta, last_back);
+        n_steps, clamp_mode, sp_beta, last_delta, last_back);
     return (int)cudaGetLastError();
-  };
-  const int rounds = (n_steps + 31) / 32;
-  if (rounds == 1) return launch(Int<1>{});
-  if (rounds == 2) return launch(Int<2>{});
-  if (rounds == 3) return launch(Int<3>{});
-  return launch(Int<4>{});
+  });
 }
 
 const char* tdgp_cuda_error_string(int code) {

@@ -33,9 +33,10 @@ Under the bf16 render views (`generator.render_bf16`) the model gives bf16
 colours and densities (densities in float32 where a training render added
 its noise). `ray_march_merged` and `ray_march_merged_cut` hand them to their
 bf16-load entries, `ray_march_merged_bf16` and `ray_march_merged_cut_bf16`
-(their own launch counts), which widen each value to float32 exactly as
-they load it and march in float32, as the JAX package does after its merge
-promotes them; the plain versions are the same functions, since
+(their own launch counts), which stage the values as bf16, widen each to
+float32 exactly as the march reads it and march in float32, as the JAX
+package does after its merge promotes them; the plain versions are the
+same functions, since
 `unify_samples_sorted` returns float32 as JAX's one-hot merge does.
 
 `ray_march_merged_cut` is the same march with the JAX package's eval-time
@@ -388,7 +389,12 @@ def ray_march_reduced_bwd_plain(colors, densities, depths, g_rgb, g_depth, g_wsu
 
 @functools.cache
 def _kernels():
-    lib = cuda_build.library('ray_march')
+    return bind(cuda_build.library('ray_march'))
+
+
+def bind(lib):
+    """The entries of a built `csrc/ray_march.cu` (`lib`, a ctypes library)
+    with their argument types, as the wrappers call them."""
     scalars = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fwd = lib.tdgp_ray_march_reduced

@@ -1,8 +1,10 @@
 """Where the time of a kernel goes, on one card: K4's bf16 entry, the
-quantile threshold's select and K1's bf16 entry.
+quantile threshold's select, K1's bf16 entry, K3's merged entry with bf16
+loads and K3's second order.
 
     python3 -m tdgp_torch.probe_kernels [--only mlp_bf16|select|k1_bf16|k1_float32_caps|
-                                               shared_atomic] [--parent DIR]
+                                               shared_atomic|k3_merged_bf16|k3_bwd_bwd]
+                                        [--parent DIR]
 
 Builds variants of a kernel's source of this tree, each a copy under
 `tdgp_torch/build/probe/` with a few lines of the source replaced (the
@@ -34,6 +36,26 @@ order):
     satellite step's two calls) and its second-order scatter (the `pl`
     phase's shapes) at caps of 12, 16 and 20 blocks an SM, in turns.
   - `shared_atomic`: the SASS of a float atomicAdd to shared memory.
+  - `k3_merged_bf16`: K3's merged entry (`csrc/ray_march.cu`) at the served
+    chunk with bf16 colours and densities [4, 16384, 32 + 32, 3], at the
+    training shape with bf16 colours and float32 densities [16, 4096,
+    32 + 32, 3] (Dmain's fresh fakes), and in float32 at the served chunk
+    (`K3_VARIANTS`): this tree's kernel whole, its stage alone, with the
+    merge search, without the merge (each lane's samples in set order), its
+    march without device memory (every warp stages the first rays, which
+    the L2 holds), at 4 and 16 lanes a ray, and at 12 and 16 blocks an SM;
+    the whole kernel and the march also with the relu clamp; with
+    `--parent DIR` DIR's kernel whole, its stage alone, with the widen, and
+    with the merge search. The whole kernels and the lane variants held
+    against the plain version (<= 1e-5); each build's registers, stack and
+    shared memory (`cuobjdump --dump-resource-usage`) and the static SASS
+    counts of the merged kernel printed.
+  - `k3_bwd_bwd`: K3's second order at PL's render [8, 4096, 64, 3] (no
+    depth cotangent, as on the path, and with one): this tree's kernel
+    whole (also with the relu clamp), its staging alone, and without the
+    outputs' stores; DIR's kernel with
+    `--parent DIR`. The whole kernels held to the plain version
+    (`chip_smoke.PL_KERNEL_LIMIT`); registers and SASS counts printed.
 Prints the card's name and power limit, one line per variant, and a JSON
 object of the times as its last line. Needs a CUDA device.
 """
@@ -469,12 +491,253 @@ def shared_atomic():
     return lines
 
 
+def resource_usage(lib_path, names):
+    """`cuobjdump --dump-resource-usage` of a built library: the lines of the
+    kernels whose mangled names contain one of `names`."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), 'cuobjdump')
+    out = subprocess.run([cuobjdump, '--dump-resource-usage', lib_path], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    lines = []
+    for i, line in enumerate(out):
+        found = [n for n in names if 'Function' in line and n in line]
+        if found:
+            usage = out[i + 1].strip() if i + 1 < len(out) else ''
+            name = line.strip().split()[-1].rstrip(':')
+            lines.append(f'{name[name.index(found[0]):][:70]}: {usage}')
+    return lines
+
+
+# every probe build of ray_march.cu instantiates its kernels for 3 channels only (the
+# probes' inputs), which cuts each build to a quarter
+C3_ONLY = ('    case 1: return with_c(Int<1>{});\n    case 2: return with_c(Int<2>{});\n'
+           '    case 3: return with_c(Int<3>{});\n    default: return with_c(Int<4>{});',
+           '    default: return with_c(Int<3>{});')
+
+
+def three_channels(text):
+    return _replace_all(text, *C3_ONLY)
+
+
+K3_STAGED = '  staged();\n  const int n = q < nq ? s : 0;\n'
+K3_MARCH = '  Sums<C> acc;\n  march<C, L, K, Cut>(ts, xs, cs, merged,'
+K3_MARCH_CALL = '  march<C, L, K, Cut>(ts, xs, cs, merged,'
+K3_SOURCES = ('t1 + ray0 * s1', 't2 + ray0 * s2', 'x1 + ray0 * s1', 'x2 + ray0 * s2',
+              'c1 + ray0 * s1 * C', 'c2 + ray0 * s2 * C')
+K3_BOUNDS = '__launch_bounds__(32 * kWarpsPerBlock)\nray_march_merged_kernel('
+K3_WIDTH = '      return launch(cc, Int<kMinLanes>{}, Int<8>{});'
+K3_VARIANTS = {  # this tree's merged kernel: name -> edits (old, new), each found once
+    'whole': (),
+    'stage_only': ((K3_STAGED, '  staged();\n  return;\n  const int n = q < nq ? s : 0;\n'),),
+    'merge_search': ((K3_MARCH, '  if (merged.a < 0) rgb_out[0] = 0.f;\n  return;\n' + K3_MARCH),),
+    'no_merge': ((K3_MARCH_CALL, K3_MARCH_CALL.replace('merged,', 'InOrder(q * s, li * K),')),),
+    # every warp stages the first rays' samples (in the L2): the march without device memory
+    'march_only': tuple((src, src.replace('ray0 *', '0 *')) for src in K3_SOURCES),
+    'lanes_4': ((K3_WIDTH, '      return launch(cc, Int<4>{}, Int<16>{});'),),
+    'lanes_16': ((K3_WIDTH, '      return launch(cc, Int<kWideLanes>{}, Int<4>{});'),),
+    **{f'blocks_{n}': ((K3_BOUNDS, K3_BOUNDS.replace('(32 * kWarpsPerBlock)',
+                                                     f'(32 * kWarpsPerBlock, {n})')),)
+       for n in (12, 16)}}
+K3_OLD_STAGED = '  staged();\n  if constexpr (kRawX) {'
+K3_OLD_SEARCH = '  const int n = q < nq ? s : 0;\n  const Merged merged('
+K3_OLD_MARCH = '  Sums<C> acc;\n  if constexpr (Cut) {'
+K3_PARENT_VARIANTS = {  # the first design's merged kernel, which widens bf16 in shared memory
+    'whole': (),
+    'stage_only': ((K3_OLD_STAGED, '  staged();\n  return;\n  if constexpr (kRawX) {'),),
+    'widen': ((K3_OLD_SEARCH, '  return;\n' + K3_OLD_SEARCH),),
+    'merge_search': ((K3_OLD_MARCH, '  if (merged.a < 0) rgb_out[0] = 0.f;\n  return;\n'
+                                    + K3_OLD_MARCH),)}
+
+
+def sass_counts(lib_path, name_part):
+    """The SASS of the first kernel of a built library whose mangled name
+    contains `name_part`: (its instructions, {opcode: count}), static (the
+    unrolled loops as they stand in the code)."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    counts, inside = {}, False
+    for line in sass:
+        if 'Function :' in line:
+            if inside:
+                break
+            inside = name_part in line
+        elif inside and line.strip().startswith('/*') and '*/' in line:
+            text = line.split('*/', 1)[1].strip()
+            if not text:
+                continue
+            op = text.split()[0]
+            if op.startswith('@'):
+                op = text.split()[1]
+            op = op.split('.')[0].rstrip(';')
+            counts[op] = counts.get(op, 0) + 1
+    return sum(counts.values()), dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def to_bf16(sets, densities=True):
+    """Merged sets with bf16 colours, and bf16 densities where `densities`."""
+    return tuple(x.to(torch.bfloat16) if i in (1, 4) or (densities and i in (2, 5)) else x
+                 for i, x in enumerate(sets))
+
+
+def merged_call(ns, sets, clamp_mode=0):
+    """One launch of the merged entry of the bound `ray_march.cu` `ns`
+    (`ray_march.bind`) on `sets` (`clamp_mode` 0 softplus, 1 relu; infinite
+    last delta, no last_back) -> a function returning (rgb, depth, wsum,
+    ftrans)."""
+    b, r, s1 = sets[0].shape
+    s2, c = sets[3].shape[2], sets[1].shape[3]
+    out = [torch.empty(b, r, c, device='cuda')] + [torch.empty(b, r, device='cuda')
+                                                   for _ in range(3)]
+    bf16 = sets[1].dtype == torch.bfloat16
+    fn = ns.merged_bf16 if bf16 else ns.merged
+    extra = [int(sets[2].dtype == torch.bfloat16)] if bf16 else []
+    ptrs = [t.data_ptr() for t in (*sets, *out)]
+
+    def run():
+        err = fn(*ptrs, b * r, s1, s2, c, clamp_mode, 1.0, 1e10, 0, *extra,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'the merged entry failed to launch: {err}')
+        return out
+    return run
+
+
+def k3_merged_bf16(chip_smoke, parent_text=None):
+    """K3's merged entry split into its parts (the module docstring)."""
+    from tdgp_torch.ops import ray_march
+    g = torch.Generator(device='cuda').manual_seed(5)
+    served32 = chip_smoke.merged_sets(g, 4, 16384, 32, 32, 3)
+    inputs = {'served_bf16': to_bf16(served32),
+              'train_bf16_float32_densities': to_bf16(
+                  chip_smoke.train_merged_sets(g, 16, 4096, 32, 32, 3), densities=False),
+              'served_float32': served32}
+    texts = {('this', name): edited_once(three_channels(source('ray_march')), edits)
+             for name, edits in K3_VARIANTS.items()}
+    if parent_text is not None:
+        texts.update({('parent', name): edited_once(three_channels(parent_text), edits)
+                      for name, edits in K3_PARENT_VARIANTS.items()})
+    built = build_all({f'k3_{who}_{name}': text for (who, name), text in texts.items()})
+    folder = os.path.join(cuda_build.BUILD_DIR, 'probe')
+    for who in ('this', 'parent'):
+        if (who, 'whole') in texts:
+            for line in resource_usage(os.path.join(folder, f'libk3_{who}_whole.so'),
+                                       ('ray_march_merged_kernelILi3ELi8ELi8E',
+                                        'ray_march_reduced_kernelILi3ELi8ELi8E')):
+                print(f'K3 merged, {who}: {line}')
+    for who, name, kernel in (('this', 'whole', 'ray_march_merged_kernelILi3ELi8ELi8ELb0E13__nv_bfloat16S1_'),
+                              ('this', 'whole', 'ray_march_merged_kernelILi3ELi8ELi8ELb0EffE'),
+                              ('parent', 'whole', 'ray_march_merged_kernelILi3ELi8ELi8ELb0E13__nv_bfloat16S1_')):
+        if (who, name) in texts:
+            total, ops = sass_counts(os.path.join(folder, f'libk3_{who}_{name}.so'), kernel)
+            print(f'K3 merged, {who} {kernel[24:]}: {total} SASS instructions; '
+                  + ', '.join(f'{k} {v}' for k, v in list(ops.items())[:16]))
+    libs = {key: ray_march.bind(built[f'k3_{key[0]}_{key[1]}']) for key in texts}
+    result = {}
+    for label, sets in inputs.items():
+        fns = {f'{who}_{name}': merged_call(ns, sets) for (who, name), ns in libs.items()}
+        fns.update({f'{who}_{name}_relu': merged_call(libs[who, name], sets, 1)
+                    for who, name in libs if name in ('whole', 'march_only')})
+        ref = ray_march.ray_march_merged_plain(*sets)
+        for name, fn in fns.items():
+            if name.endswith(('whole', 'lanes_4', 'lanes_16')):  # softplus
+                err = max(float((a - b).abs().max()) for a, b in zip(fn(), ref))
+                if not err <= 1e-5:
+                    raise AssertionError(f'K3 merged {label} {name} disagrees: {err}')
+        del ref
+        times = in_turns(chip_smoke, fns)
+        rays, s = sets[0].shape[0] * sets[0].shape[1], sets[0].shape[2] + sets[3].shape[2]
+        c = sets[1].shape[3]
+        bytes_moved = (rays * s * (4 + sets[2].element_size() + c * sets[1].element_size())
+                       + 4 * rays * (c + 3))
+        report(f'K3 merged {label}', times, 1e3 * bytes_moved / chip_smoke.HBM_BYTES_PER_S,
+               bytes_moved)
+        result[label] = times
+    return result
+
+
+BB_STAGED = '  staged();\n  auto cot = [&](int i) {  // a_i'
+BB_UNSTAGE = ('  unstage(b_colors + ray * S * C, ucs, S * C, lane);\n'
+              '  unstage(b_densities + ray * S, uxs, S, lane);\n'
+              '  unstage(b_depths + ray * S, uts, S, lane);\n')
+BB_VARIANTS = {  # this tree's second order: name -> edits (old, new), each found once
+    'whole': (),
+    'stage_only': ((BB_STAGED, '  staged();\n  return;\n' + BB_STAGED[len('  staged();\n'):]),),
+    'no_store': ((BB_UNSTAGE, ''),)}
+
+
+def k3_bwd_bwd(chip_smoke, parent_text=None):
+    """K3's second order split into its parts (the module docstring)."""
+    from tdgp_torch.ops import ray_march
+    g = torch.Generator(device='cuda').manual_seed(4)
+    b, r, s, c = 8, 4096, 64, 3
+    colors = torch.rand(b, r, s, c, device='cuda', generator=g)
+    densities = torch.randn(b, r, s, device='cuda', generator=g) * 2
+    depths = torch.rand(b, r, s, device='cuda', generator=g).sort(-1).values * 0.5 + 0.75
+    cots = [torch.randn(b, r, c, device='cuda', generator=g)] + [
+        torch.randn(b, r, device='cuda', generator=g) for _ in range(3)]
+    us = [torch.randn(t.shape, device='cuda', generator=g) for t in (colors, densities, depths)]
+    texts = {('this', name): edited_once(three_channels(source('ray_march')), edits)
+             for name, edits in BB_VARIANTS.items()}
+    if parent_text is not None:
+        texts[('parent', 'whole')] = three_channels(parent_text)
+    built = build_all({f'bb_{who}_{name}': text for (who, name), text in texts.items()})
+    folder = os.path.join(cuda_build.BUILD_DIR, 'probe')
+    for who, name in texts:
+        if name == 'whole':
+            for line in resource_usage(os.path.join(folder, f'libbb_{who}_{name}.so'),
+                                       ('ray_march_reduced_bwd_bwd_kernel',)):
+                print(f'K3 second order, {who} {name}: {line}')
+    for who, kernel in (('this', 'ray_march_reduced_bwd_bwd_kernelILi3ELi2E'),
+                        ('parent', 'ray_march_reduced_bwd_bwd_kernelILi2E')):
+        if (who, 'whole') in texts:
+            total, ops = sass_counts(os.path.join(folder, f'libbb_{who}_whole.so'), kernel)
+            print(f'K3 second order, {who} {kernel[32:]}: {total} SASS instructions; '
+                  + ', '.join(f'{k} {v}' for k, v in list(ops.items())[:16]))
+    libs = {key: ray_march.bind(built[f'bb_{key[0]}_{key[1]}']) for key in texts}
+    result = {}
+    for label, u_depths in (('path', None), ('depth_cotangent', us[2])):
+        args = (colors, densities, depths, *cots, us[0], us[1], u_depths)
+        outs = [torch.empty_like(t) for t in (colors, densities, depths, *cots)]
+        ptrs = [None if t is None else t.data_ptr() for t in (*args, *outs)]
+        fns = {}
+        for (who, name), ns in libs.items():
+            for clamp in ((0, 1) if name == 'whole' else (0,)):
+                def run(fn=ns.bwd_bwd, clamp=clamp):
+                    err = fn(*ptrs, b * r, s, c, clamp, 1.0, 1e10, 0,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f'the second order failed to launch: {err}')
+                    return outs
+                fns[f'{who}_{name}' + ('_relu' if clamp else '')] = run
+        ref = ray_march.ray_march_reduced_bwd_bwd_plain(*args)
+        for name, fn in fns.items():
+            if name.endswith('whole'):
+                _, rel = chip_smoke.bwd_bwd_errors(fn(), ref)
+                if not all(e <= chip_smoke.PL_KERNEL_LIMIT for e in rel):
+                    raise AssertionError(f'K3 second order {label} {name} disagrees: {rel}')
+        del ref
+        times = in_turns(chip_smoke, fns)
+        n = b * r
+        bytes_moved = 4 * (n * s * (c + 2) + n * (c + 3) + n * s * (c + 1 + (u_depths is not None))
+                           + n * s * (c + 2) + n * (c + 3))
+        report(f'K3 second order {label}', times,
+               1e3 * bytes_moved / chip_smoke.HBM_BYTES_PER_S, bytes_moved)
+        result[label] = times
+    return result
+
+
+def edited_once(text, edits):
+    for old, new in edits:
+        text = _replace(text, old, new)
+    return text
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--only', choices=('mlp_bf16', 'select', 'k1_bf16', 'k1_float32_caps',
-                                       'shared_atomic'))
-    ap.add_argument('--parent', help='a checkout of an earlier commit: k1_bf16 also splits its '
-                                     'K1 bf16 entry into parts')
+                                       'shared_atomic', 'k3_merged_bf16', 'k3_bwd_bwd'))
+    ap.add_argument('--parent', help='a checkout of an earlier commit: k1_bf16, k3_merged_bf16 and '
+                                     'k3_bwd_bwd also time its kernels (parts)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('probe_kernels: no CUDA device', file=sys.stderr)
@@ -486,14 +749,19 @@ def main() -> int:
     print(f'card: {card}')
     result = {'card': card}
     sources = {'this': source('splat')}
+    parent_k3 = None
     if args.parent:
         with open(os.path.join(args.parent, 'tdgp_torch', 'csrc', 'splat.cu')) as f:
             sources['parent'] = f.read()
+        with open(os.path.join(args.parent, 'tdgp_torch', 'csrc', 'ray_march.cu')) as f:
+            parent_k3 = f.read()
     gen = torch.Generator(device='cuda').manual_seed(0)
     for name, probe in (('mlp_bf16', mlp_bf16), ('select', select),
                         ('k1_bf16', lambda cs: k1_parts(cs, sources, gen)),
                         ('k1_float32_caps', lambda cs: k1_float32_caps(cs, gen)),
-                        ('shared_atomic', lambda cs: shared_atomic())):
+                        ('shared_atomic', lambda cs: shared_atomic()),
+                        ('k3_merged_bf16', lambda cs: k3_merged_bf16(cs, parent_k3)),
+                        ('k3_bwd_bwd', lambda cs: k3_bwd_bwd(cs, parent_k3))):
         if args.only in (None, name):
             result[name] = probe(chip_smoke)
     print(f'clocks (sm, mem): {chip_smoke.clocks()}')

@@ -10,9 +10,9 @@ the CPU, bit for bit, with PyTorch:
   - the focal's tangent by the C library's `tanf`, as XLA:CPU takes it,
     with the derivative 1 + tan^2 of its value, as JAX's.
 The port's renderer (`tdgp_torch/rendering/rays.py`) still takes
-`torch.linspace`'s rows and `torch.tan` (ROADMAP §3.1: the bf16 fresh-fakes
-statistic of tests/test_torch_train_step.py decides whether these rows can
-ship); here it is held within 2e-6 of JAX's rays, and the recipe bit for
+`torch.linspace`'s rows and `torch.tan` (ROADMAP §3.1: with JAX's rows the
+card's bf16 train check through the `gmain_render_bf16` view misses its
+limit); here it is held within 2e-6 of JAX's rays, and the recipe bit for
 bit at 64^2 and 256^2, with and without a patch's scale and offset, over
 seeded cameras and fovs.
 """
